@@ -1,0 +1,141 @@
+"""Tests of the port's CUDA kernels, on the card only.
+
+Every test here is marked ``cuda`` and skips without a GPU (a CUDA kernel
+has no CPU mode). The file imports neither JAX nor nonode_tpu, so that it
+runs on the card's machine, which has neither:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Tolerance: max|kernel - plain| <= 1e-4 x max(1, max|plain|); both are fp32,
+with sums of up to 64 products taken in another order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nonode_tpu_torch.ops.dense_graph import EGNNLayer
+from nonode_tpu_torch.ops.kernels import egnn_fused
+
+RTOL = 1e-4
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(g, n, h, e, seed, dev, coord_scale=1.0, isolated=None):
+    rng = np.random.RandomState(seed)
+
+    def f(*shape, scale=1.0):
+        return torch.tensor(scale * rng.randn(*shape), dtype=torch.float32,
+                            device=dev)
+
+    mask = 1.0 - torch.eye(n, device=dev)
+    if isolated is not None:
+        adj = torch.tensor(rng.rand(n, n) < 0.4, dtype=torch.float32,
+                           device=dev)
+        adj = torch.maximum(adj, adj.T)
+        adj[isolated] = 0.0
+        adj[:, isolated] = 0.0
+        mask = mask * adj
+    b = 1.0 / np.sqrt(h)
+    weights = (f(1, h, scale=0.3), f(e, h, scale=0.3), f(1, h, scale=0.1),
+               f(h, h, scale=b), f(1, h, scale=0.1), f(h, h, scale=b),
+               f(1, h, scale=0.1), f(h, 1, scale=coord_scale * b),
+               f(1, 1, scale=0.1))
+    return (f(g, n, 3), f(g, n, h, scale=0.5), f(g, n, h, scale=0.5),
+            f(g, n, n, e), mask, weights)
+
+
+def _assert_close(got, want):
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        err = float((a - b).abs().max())
+        assert err <= RTOL * max(1.0, float(b.abs().max())), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n,h,e,clip,isolated", [
+    (2560, 5, 64, 2, False, None),     # the serving path's shape
+    (2560, 5, 64, 2, True, None),      # SEGNO's per-edge clip
+    (256, 31, 64, 2, False, 3),        # mocap: 2-D edge mask, a lone node
+    (7, 5, 64, 2, False, None),        # a ragged tail: G*N not a block multiple
+    (9, 64, 64, 3, True, 10),          # N at the gate's limit, E=3
+])
+def test_kernel_matches_plain_version(dev, g, n, h, e, clip, isolated):
+    args = _inputs(g, n, h, e, seed=n + h, dev=dev,
+                   coord_scale=400.0 if clip else 1.0, isolated=isolated)
+    before = egnn_fused.pairwise_message.launches
+    with torch.no_grad():
+        got = egnn_fused.pairwise_message(clip, *args)
+        torch.cuda.synchronize()
+        want = egnn_fused.pairwise_message_reference(clip, *args)
+    assert egnn_fused.pairwise_message.launches == before + 1
+    _assert_close(got, want)
+    if clip:
+        unclipped = egnn_fused.pairwise_message_reference(False, *args)[0]
+        assert float((unclipped - want[0]).abs().max()) > 1.0
+
+
+@pytest.mark.cuda
+def test_kernel_is_deterministic(dev):
+    args = _inputs(512, 5, 64, 2, seed=1, dev=dev)
+    with torch.no_grad():
+        a = egnn_fused.pairwise_message(False, *args)
+        b = egnn_fused.pairwise_message(False, *args)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, hi, hj, efea, mask, weights = _inputs(4, 5, 64, 2, seed=2, dev=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        egnn_fused.pairwise_message(False, x.transpose(0, 1).contiguous()
+                                    .transpose(0, 1), hi, hj, efea, mask,
+                                    weights)
+    with pytest.raises(TypeError, match="float32"):
+        egnn_fused.pairwise_message(False, x.double(), hi, hj, efea, mask,
+                                    weights)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        egnn_fused.pairwise_message(False, x, hi[..., :48], hj[..., :48],
+                                    efea, mask, weights)
+    w = weights[3].clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="training slice"):
+        egnn_fused.pairwise_message(False, x, hi, hj, efea, mask,
+                                    (*weights[:3], w, *weights[4:]))
+
+
+@pytest.mark.cuda
+def test_egnn_layer_kernel_route_matches_dense_route(dev):
+    gen = torch.Generator().manual_seed(0)
+    layer = EGNNLayer(64, 2, with_v=True, fused=True, device=dev,
+                      generator=gen)
+    rng = np.random.RandomState(3)
+    t = lambda *s: torch.tensor(rng.randn(*s), dtype=torch.float32, device=dev)
+    x, h, v, efea = t(10, 8, 5, 3), t(10, 8, 5, 64), t(10, 8, 5, 3), \
+        t(8, 5, 5, 2)
+    before = egnn_fused.pairwise_message.launches
+    with torch.no_grad():
+        fused = layer(x, h, efea, v=v)
+        layer.fused = False
+        dense = layer(x, h, efea, v=v)
+    assert egnn_fused.pairwise_message.launches == before + 1
+    for a, b in zip(fused, dense):
+        err = float((a - b).abs().max())
+        assert err <= RTOL * max(1.0, float(b.abs().max())), err
+
+
+@pytest.mark.cuda
+def test_egnn_layer_of_another_width_raises_on_the_card(dev):
+    """The gate has no width limit, as the TPU's: a width the kernel is not
+    instantiated for raises instead of taking the dense path."""
+    layer = EGNNLayer(48, 2, fused=True, device=dev,
+                      generator=torch.Generator().manual_seed(0))
+    z = lambda *s: torch.zeros(*s, device=dev)
+    assert layer._use_fused(z(4, 5, 3), None)
+    with torch.no_grad(), pytest.raises(ValueError, match="unsupported shape"):
+        layer(z(4, 5, 3), z(4, 5, 48), z(5, 5, 2))

@@ -1,0 +1,175 @@
+"""The port's EGNO test rollout end to end against the JAX package, and the
+port's device rule and what main.py refuses.
+
+A tiny charged dataset in the reference ``.npy`` layout (S=8, F=55, N=5,
+loc/vel [S, F, 3, N]) is evaluated by nonode_tpu's EGNOExperiment.test_rollout
+and by ``python -m nonode_tpu_torch.main --only_test true --device cpu`` on a
+checkpoint converted from the same JAX weights. Tolerance 1e-4 (rtol and
+atol): fp32 in another order, carried through two fed-back windows of the
+4-layer canonical EGNO.
+"""
+
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from nonode_tpu.analysis.registry import artifact_stem as jax_artifact_stem
+from nonode_tpu.config import load_model_config as jax_load_config
+from nonode_tpu.data.nbody import NBodyDataset as JaxNBodyDataset
+from nonode_tpu.models.egno import EGNO as JaxEGNO
+from nonode_tpu.train.loop import EGNOExperiment as JaxExperiment
+from nonode_tpu_torch import main as tmain
+from nonode_tpu_torch import runtime
+from nonode_tpu_torch.analysis.registry import artifact_stem
+from nonode_tpu_torch.compat.params import egno_state_dict_from_jax_params
+from nonode_tpu_torch.config import EGNOConfig, load_model_config
+from nonode_tpu_torch.data.nbody import NBodyDataset
+from nonode_tpu_torch.models.egno import EGNO
+from nonode_tpu_torch.train.checkpoint import save_params
+from nonode_tpu_torch.train.loop import EGNOExperiment
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+S, F, N = 8, 55, 5
+
+
+def _write_charged_split(d, partition="test", seed=0):
+    rng = np.random.RandomState(seed)
+    steps = 0.05 * rng.randn(S, F, N, 3)
+    loc = np.cumsum(steps, axis=1) + rng.randn(S, 1, N, 3)
+    vel = rng.randn(S, F, N, 3) * 0.3
+    charges = rng.choice([-1.0, 1.0], (S, N, 1))
+    suffix = f"{partition}_charged{N}_initvel1small"
+    np.save(d / f"loc_{suffix}.npy",
+            loc.transpose(0, 1, 3, 2).astype(np.float32))   # [S, F, 3, N]
+    np.save(d / f"vel_{suffix}.npy", vel.transpose(0, 1, 3, 2).astype(np.float32))
+    np.save(d / f"charges_{suffix}.npy", charges.astype(np.float32))
+    np.save(d / f"edges_{suffix}.npy",
+            np.einsum("sik,sjk->sij", charges, charges).astype(np.float32))
+
+
+def test_only_test_main_matches_jax_test_rollout(tmp_path):
+    data = tmp_path / "data"
+    data.mkdir()
+    _write_charged_split(data)
+    cfg = EGNOConfig()
+    jm = JaxEGNO(n_layers=cfg.n_layers, hidden_nf=cfg.hidden_nf,
+                 num_modes=cfg.num_modes, time_emb_dim=cfg.time_emb_dim)
+    params = jm.init(jax.random.PRNGKey(0))
+    jds = JaxNBodyDataset(data, partition="test", traj_len=2)
+    jloss, jsteps, jart = JaxExperiment(jm).test_rollout(
+        params, jds, 4, np.random.RandomState(42))
+
+    outf = tmp_path / "out"
+    stem = artifact_stem("egno", "charged", 42, N)
+    model = EGNO(device="cpu")
+    model.load_state_dict(egno_state_dict_from_jax_params(
+        jax.tree.map(np.asarray, params), cfg.n_layers), strict=True)
+    save_params(outf / "exp" / f"{stem}.ckpt", model)
+    args = tmain.get_args([
+        "--model", "egno", "--only_test", "true", "--device", "cpu",
+        "--load_checkpoint", "true", "--data_dir", str(data),
+        "--outf", str(outf), "--exp_name", "exp", "--batch_size", "4",
+        "--traj_len", "2"])
+    _, test_loss, _ = tmain.main(args)
+
+    art = np.load(outf / "exp" / f"{stem}_results.npz")
+    assert art["targets"].shape == (8, 20, N, 3)
+    assert art["preds"].shape == (8, 8, N, 3)               # cut 0.4*2*10
+    assert art["energy_conservation"].shape == (8, 8, 1)
+    assert np.isfinite(art["preds"][:, :10]).all()          # first window
+    assert test_loss == pytest.approx(jloss, rel=1e-4)
+    assert float(art["test_loss"]) == pytest.approx(jloss, rel=1e-4)
+    for key in ("targets", "preds", "energy_conservation"):
+        np.testing.assert_allclose(art[key], jart[key], equal_nan=True, **TOL)
+    for key in ("finite_fraction", "test_loss_finite"):
+        assert float(art[key]) == pytest.approx(jart[key], rel=1e-4,
+                                                nan_ok=True)
+    results = json.loads((outf / "exp" / f"{stem}.json").read_text())
+    assert results["test loss"] == [pytest.approx(jloss, rel=1e-4)]
+
+    # avg_num_steps goes to the metrics log, as nonode_tpu.main writes it
+    log = (outf / "exp" / f"{stem}_metrics.jsonl").read_text().splitlines()
+    assert json.loads(log[-1])["avg_num_steps"] == pytest.approx(jsteps)
+
+
+@pytest.mark.parametrize("varDT", [False, True])
+def test_multi_input_test_rollout_matches_jax(tmp_path, varDT):
+    """num_inputs=3: per-sample input offsets (random under varDT, drawn
+    from the same numpy stream on both sides), the batch-global time
+    correction and the multi-frame feedback."""
+    _write_charged_split(tmp_path, seed=1)
+    jm = JaxEGNO(n_layers=2, hidden_nf=16, time_emb_dim=8, num_inputs=3,
+                 varDT=varDT)
+    params = jm.init(jax.random.PRNGKey(1))
+    kw = dict(partition="test", traj_len=2, num_inputs=3, varDT=varDT)
+    jloss, jsteps, jart = JaxExperiment(jm).test_rollout(
+        params, JaxNBodyDataset(tmp_path, **kw), 4, np.random.RandomState(3))
+    model = EGNO(n_layers=2, hidden_nf=16, time_emb_dim=8, num_inputs=3,
+                 varDT=varDT, device="cpu")
+    model.load_state_dict(egno_state_dict_from_jax_params(
+        jax.tree.map(np.asarray, params), 2), strict=True)
+    loss, steps, art = EGNOExperiment(model).test_rollout(
+        NBodyDataset(tmp_path, device="cpu", **kw), 4, np.random.RandomState(3))
+    assert np.isfinite(art["preds"][:, :10]).all()
+    assert loss == pytest.approx(jloss, rel=1e-4)
+    assert steps == pytest.approx(jsteps)
+    for key in ("targets", "preds", "energy_conservation"):
+        np.testing.assert_allclose(art[key], jart[key], equal_nan=True, **TOL)
+
+
+def test_config_and_stem_match_jax(tmp_path):
+    assert artifact_stem("egno", "charged", 3, 5, 2, 1, True, 10) == \
+        jax_artifact_stem("egno", "charged", 3, 5, 2, 1, True, 10)
+    ours = load_model_config("egno", "model_confs.yaml")
+    ref = jax_load_config("egno", "model_confs.yaml")
+    assert vars(ours) == vars(ref)
+    assert load_model_config("egno") == ours      # defaults = model_confs.yaml
+    (tmp_path / "c.yaml").write_text(
+        "EGNO:\n  num_timesteps: 5\n  model_params: {hidden_nf: 16}\n")
+    assert load_model_config("egno", tmp_path / "c.yaml").hidden_nf == 16
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked(tmp_path, no_cuda):
+    data = tmp_path / "data"
+    data.mkdir()
+    _write_charged_split(data)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runtime.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EGNO(n_layers=1, hidden_nf=16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        NBodyDataset(data, partition="test")
+    args = tmain.get_args(["--model", "egno", "--only_test", "true",
+                           "--data_dir", str(data), "--outf", str(tmp_path)])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tmain.main(args)
+    assert runtime.resolve_device("cpu").type == "cpu"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("extra,error", [
+    (["--model", "segno"], NotImplementedError),
+    (["--only_test", "false"], NotImplementedError),
+    (["--precision", "bf16"], NotImplementedError),
+    (["--dp", "2"], NotImplementedError),
+    (["--config_by_file"], NotImplementedError),
+    (["--traj_len", "0"], ValueError),
+])
+def test_main_refuses_what_is_not_ported(extra, error):
+    base = {"--model": "egno", "--only_test": "true", "--device": "cpu"}
+    argv = []
+    for k, v in base.items():
+        if k not in extra:
+            argv += [k, v]
+    with pytest.raises(error, match="ROADMAP|traj_len"):
+        tmain.main(tmain.get_args(argv + extra))
