@@ -1,5 +1,6 @@
 """EGNO model config: the reference model_confs.yaml defaults, with optional
-YAML overrides (counterpart of nonode_tpu/config.py:18-31).
+YAML overrides (counterpart of nonode_tpu/config.py:18-31), and the JSON
+presets of ``--config_by_file`` (nonode_tpu/main.py:87-134).
 
 ``yaml`` is imported only when a config path is given, so the defaults need
 nothing beyond the standard library.
@@ -8,7 +9,18 @@ nothing beyond the standard library.
 from __future__ import annotations
 
 import dataclasses
+import json
 from pathlib import Path
+
+# the bare --config_by_file flag loads this preset, the port's copy of
+# nonode_tpu/configs/config_simulation_simple_no.json
+DEFAULT_PRESET = Path(__file__).parent / "configs" / \
+    "config_simulation_simple_no.json"
+# preset key -> model-config field (the reference driver's --lr/--nf/...)
+PRESET_CFG_KEYS = (("lr", "lr"), ("weight_decay", "weight_decay"),
+                   ("n_layers", "n_layers"), ("nf", "hidden_nf"),
+                   ("time_emb_dim", "time_emb_dim"),
+                   ("num_modes", "num_modes"))
 
 
 @dataclasses.dataclass
@@ -53,3 +65,29 @@ def load_model_config(model: str, config_path: str | Path | None = None):
         if k in tp:
             updates[k] = float(tp[k])
     return dataclasses.replace(cfg, **updates)
+
+
+def apply_preset(args, path: str | Path | None = None) -> dict:
+    """Merge a JSON preset over the parsed ``args`` in place, as the
+    reference standalone driver does (main_simulation_simple_no.py:389-399):
+    only keys the namespace already has; ``max_training_samples`` becomes
+    ``max_samples``. Returns the preset's model hyperparameters under their
+    model-config names, for ``overlay``."""
+    with open(path or DEFAULT_PRESET) as f:
+        preset = json.load(f)
+    for k, v in preset.items():
+        if hasattr(args, k):
+            setattr(args, k, v)
+    if "max_training_samples" in preset:
+        args.max_samples = preset["max_training_samples"]
+    args.outf = Path(args.outf)
+    args.data_dir = Path(args.data_dir)
+    return {dst: preset[src] for src, dst in PRESET_CFG_KEYS if src in preset}
+
+
+def overlay(cfg: EGNOConfig, overrides: dict) -> EGNOConfig:
+    """The preset's hyperparameters over the model config (lr and
+    weight_decay as floats)."""
+    return dataclasses.replace(cfg, **{
+        k: (float(v) if k in ("lr", "weight_decay") else v)
+        for k, v in overrides.items()})

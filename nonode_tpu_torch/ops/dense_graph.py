@@ -134,9 +134,12 @@ class EGNNLayer(nn.Module):
                                          self.act, self.flat, self.norm))
 
     def _fused_pairwise(self, x, h, edge_fea, mask):
-        """The pairwise chain through the fused kernel: leading dims flatten
+        """The pairwise chain through the fused kernels: leading dims flatten
         to one graph axis, and the h_i / h_j column slices of the first edge
-        Linear are projected per node here (as first_edge_linear does)."""
+        Linear are projected per node here (as first_edge_linear does). The
+        nine weights are slices, transposes and row views of the Linear
+        parameters, so the backward's weight gradients reach them through
+        autograd."""
         hdim, e = self.hidden_nf, self.in_edge_nf
         lead = x.shape[:-2]
         n = x.shape[-2]

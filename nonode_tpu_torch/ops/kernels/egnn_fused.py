@@ -1,8 +1,11 @@
-"""Fused pairwise-message chain of the EGNN/SEGNO layers: CUDA forward kernel
-(``csrc/egnn_fused_fwd.cu``) and its plain PyTorch version.
+"""Fused pairwise-message chain of the EGNN/SEGNO layers: CUDA forward and
+backward kernels (``csrc/egnn_fused_fwd.cu``, ``csrc/egnn_fused_bwd.cu``)
+joined by a ``torch.autograd.Function``, with the plain PyTorch version of
+each beside it.
 
-Counterpart of nonode_tpu/ops/pallas/egnn_fused.py:pairwise_message (forward,
-``_fwd_kernel``). The chain, per edge (i, j) of each graph:
+Counterpart of nonode_tpu/ops/pallas/egnn_fused.py:pairwise_message (the
+custom-VJP op over ``_fwd_kernel`` and ``_bwd_kernel``). The chain, per edge
+(i, j) of each graph:
 
     pre1  = r2 * wg + h_i + h_j + e_fea @ We + b1           [.., N, N, H]
     msg   = silu(silu(pre1) @ W2 + b2)                      [.., N, N, H]
@@ -11,9 +14,11 @@ Counterpart of nonode_tpu/ops/pallas/egnn_fused.py:pairwise_message (forward,
     tot_f = masked_mean_j(f)                                [.., N, 3]
     tot_m = masked_sum_j(msg)                               [.., N, H]
 
-``pairwise_message`` takes the plain version for CPU tensors only. For CUDA
-tensors it launches the kernel or raises; it never falls back. The backward
-kernel is not ported yet, so a CUDA call that would need gradients raises.
+The backward recomputes the chain from the inputs (the only residuals, as
+``_pm_fwd`` keeps them) and returns the gradients of x, hi, hj, efea and the
+nine weights; the mask gets none. Both directions take the plain version
+for CPU tensors only. For CUDA tensors they launch the kernel or raise; they
+never fall back.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 from .build import load
 
 SOURCE = "egnn_fused_fwd.cu"
+BWD_SOURCE = "egnn_fused_bwd.cu"
 CLIP = 100.0
 HIDDEN = (64,)            # widths the kernel is instantiated for
 MAX_NODES = 64            # N * N <= 4096, as the TPU kernel's gate
@@ -63,6 +69,56 @@ def pairwise_message_reference(clip_edges, x, hi, hj, efea, mask, weights):
     return (f * m).sum(-2) / deg, (msg * m).sum(-2)
 
 
+def _dsilu(z):
+    s = torch.sigmoid(z)
+    return s * (1.0 + z * (1.0 - s))
+
+
+def pairwise_message_bwd_reference(clip_edges, x, hi, hj, efea, mask, weights,
+                                   gtotf, gtotm):
+    """Plain PyTorch version of the chain's backward (``_bwd_kernel``,
+    nonode_tpu/ops/pallas/egnn_fused.py:147-216): recomputes the chain and
+    returns (dx, dhi, dhj, defea, dweights) in the primal layouts, dwc2 as
+    [H,1]. With clip_edges, edges whose force left the clip (or is NaN) pass
+    no gradient through it."""
+    wg, we, b1, w2, b2, wc1, bc1, wc2, bc2 = weights
+    rij = x[:, :, None, :] - x[:, None, :, :]                 # [G,N,N,3]
+    r2 = (rij * rij).sum(-1, keepdim=True)                    # [G,N,N,1]
+    pre1 = r2 * wg + efea @ we
+    pre1 = pre1 + hi[:, :, None, :] + hj[:, None, :, :] + b1
+    a1 = F.silu(pre1)
+    pre2 = a1 @ w2 + b2
+    msg = F.silu(pre2)
+    cpre = msg @ wc1 + bc1
+    ca = F.silu(cpre)
+    cw = ca @ wc2 + bc2                                       # [G,N,N,1]
+    f = rij * cw
+    deg = mask.sum(-1, keepdim=True).clamp(min=1.0)           # [N,1]
+    gf = gtotf[:, :, None, :] * (mask / deg)[..., None]       # [G,N,N,3]
+    if clip_edges:
+        gf = gf * (f.abs() <= CLIP).to(f.dtype)
+    dcw = (gf * rij).sum(-1, keepdim=True)                    # [G,N,N,1]
+    drij = gf * cw
+    dcpre = dcw * wc2.T * _dsilu(cpre)
+    dmsg = dcpre @ wc1.T + gtotm[:, :, None, :] * mask[..., None]
+    dpre2 = dmsg * _dsilu(pre2)
+    dpre1 = (dpre2 @ w2.T) * _dsilu(pre1)
+    drij = drij + 2.0 * rij * (dpre1 @ wg.T)
+    dx = drij.sum(2) - drij.sum(1)
+    rows = lambda t: t.reshape(-1, t.shape[-1])               # noqa: E731
+    dweights = (
+        (rows(r2) * rows(dpre1)).sum(0, keepdim=True),        # dwg  [1,H]
+        rows(efea).T @ rows(dpre1),                           # dwe  [E,H]
+        rows(dpre1).sum(0, keepdim=True),                     # db1  [1,H]
+        rows(a1).T @ rows(dpre2),                             # dw2  [H,H]
+        rows(dpre2).sum(0, keepdim=True),                     # db2  [1,H]
+        rows(msg).T @ rows(dcpre),                            # dwc1 [H,H]
+        rows(dcpre).sum(0, keepdim=True),                     # dbc1 [1,H]
+        (rows(ca) * rows(dcw)).sum(0)[:, None],               # dwc2 [H,1]
+        rows(dcw).sum().reshape(1, 1))                        # dbc2 [1,1]
+    return dx, dpre1.sum(2), dpre1.sum(1), dpre1 @ we.T, dweights
+
+
 def _check(name, t, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -77,65 +133,164 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} is not 16-byte aligned (read as float4)")
 
 
-def _bind():
-    lib = load(SOURCE)
-    fn = lib.egnn_pairwise_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def pairwise_message(clip_edges, x, hi, hj, efea, mask, weights):
-    """(tot_f, tot_m) of the fused pairwise chain.
-
-    x [G,N,3]; hi/hj [G,N,H] (node features projected by the Wi/Wj column
-    slices of the first edge-MLP Linear); efea [G,N,N,E]; mask [N,N] 0/1 with
-    zero diagonal; weights: the 9-tuple above in [in,out] layout.
-    """
-    if x.device.type == "cpu":
-        return pairwise_message_reference(clip_edges, x, hi, hj, efea, mask,
-                                          weights)
-    if x.device.type != "cuda":
-        raise ValueError(f"pairwise_message: unsupported device {x.device}")
+def _checked_inputs(x, hi, hj, efea, mask, weights):
+    """The launch's shapes (g, n, h, e) and contiguous weights, after checking
+    every input; raises on what the kernels do not take."""
     if len(weights) != N_WEIGHTS:
         raise ValueError(f"expected {N_WEIGHTS} weights, got {len(weights)}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, hi, hj, efea, *weights)):
-        raise NotImplementedError(
-            "pairwise_message on CUDA is forward-only: the backward kernel "
-            "comes with ROADMAP.md Queue 1 'EGNO training slice'; call it "
-            "under torch.no_grad()")
     g, n, _ = x.shape
     h = hi.shape[-1]
     e = efea.shape[-1]
     if h not in HIDDEN or not 1 <= n <= MAX_NODES or e < 1:
         raise ValueError(f"unsupported shape: N={n}, H={h}, E={e} "
                          f"(kernel takes N<={MAX_NODES}, H in {HIDDEN}, E>=1)")
+    weights = tuple(w.contiguous() for w in weights)
     dev = x.device
-    wg, we, b1, w2, b2, wc1, bc1, wc2, bc2 = (w.contiguous() for w in weights)
     for name, t, shape in (
             ("x", x, (g, n, 3)), ("hi", hi, (g, n, h)), ("hj", hj, (g, n, h)),
             ("efea", efea, (g, n, n, e)), ("mask", mask, (n, n)),
-            ("wg", wg, (1, h)), ("we", we, (e, h)), ("b1", b1, (1, h)),
-            ("w2", w2, (h, h)), ("b2", b2, (1, h)), ("wc1", wc1, (h, h)),
-            ("bc1", bc1, (1, h)), ("wc2", wc2, (h, 1)), ("bc2", bc2, (1, 1))):
+            *zip(("wg", "we", "b1", "w2", "b2", "wc1", "bc1", "wc2", "bc2"),
+                 weights, _weight_shapes(h, e))):
         _check(name, t, shape, dev)
+    return (g, n, h, e), weights
+
+
+def _weight_shapes(h, e):
+    return ((1, h), (e, h), (1, h), (h, h), (1, h), (h, h), (1, h), (h, 1),
+            (1, 1))
+
+
+def _bind_fwd():
+    fn = load(SOURCE).egnn_pairwise_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bind_bwd():
+    lib = load(BWD_SOURCE)
+    fn = lib.egnn_pairwise_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    scratch = lib.egnn_pairwise_bwd_scratch_floats
+    scratch.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 3
+    scratch.restype = ctypes.c_longlong
+    return fn, scratch
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def pairwise_message_fwd(clip_edges, x, hi, hj, efea, mask, weights):
+    """(tot_f, tot_m) without autograd: the forward kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return pairwise_message_reference(clip_edges, x, hi, hj, efea, mask,
+                                          weights)
+    if x.device.type != "cuda":
+        raise ValueError(f"pairwise_message: unsupported device {x.device}")
+    (g, n, h, e), weights = _checked_inputs(x, hi, hj, efea, mask, weights)
+    dev = x.device
     totf = torch.empty((g, n, 3), dtype=torch.float32, device=dev)
     totm = torch.empty((g, n, h), dtype=torch.float32, device=dev)
     if g == 0:
         return totf, totm
-    fn = _bind()
+    fn = _bind_fwd()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(t.data_ptr() for t in (x, hi, hj, efea, mask, wg, we, b1,
-                                          w2, b2, wc1, bc1, wc2, bc2,
+        err = fn(*(t.data_ptr() for t in (x, hi, hj, efea, mask, *weights,
                                           totf, totm)),
-                 g, n, h, e, int(bool(clip_edges)), stream)
+                 g, n, h, e, int(bool(clip_edges)), _stream(dev))
     if err != 0:
         raise RuntimeError(f"egnn_pairwise_fwd launch failed: cudaError {err}")
     pairwise_message.launches += 1
     return totf, totm
 
 
+def pairwise_message_bwd(clip_edges, x, hi, hj, efea, mask, weights, gtotf,
+                         gtotm):
+    """(dx, dhi, dhj, defea, dweights) of the chain for the cotangents
+    (gtotf, gtotm): the backward kernel for CUDA tensors (its two launches,
+    the per-block pass and the fixed-order sum of the weight gradients, count
+    as one), the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return pairwise_message_bwd_reference(clip_edges, x, hi, hj, efea,
+                                              mask, weights, gtotf, gtotm)
+    if x.device.type != "cuda":
+        raise ValueError(f"pairwise_message: unsupported device {x.device}")
+    (g, n, h, e), weights = _checked_inputs(x, hi, hj, efea, mask, weights)
+    dev = x.device
+    _check("gtotf", gtotf, (g, n, 3), dev)
+    _check("gtotm", gtotm, (g, n, h), dev)
+    dx = torch.empty((g, n, 3), dtype=torch.float32, device=dev)
+    dhi = torch.empty((g, n, h), dtype=torch.float32, device=dev)
+    dhj = torch.empty((g, n, h), dtype=torch.float32, device=dev)
+    defea = torch.empty((g, n, n, e), dtype=torch.float32, device=dev)
+    shapes = _weight_shapes(h, e)
+    # the kernel's flat layout: dw2, dwc1, dwg, db1, db2, dbc1, dwc2, dwe, dbc2
+    order = (3, 5, 0, 2, 4, 6, 7, 1, 8)
+    flat = torch.zeros(2 * h * h + 5 * h + e * h + 1, dtype=torch.float32,
+                       device=dev)
+    if g > 0:
+        fn, scratch_floats = _bind_bwd()
+        scratch = torch.empty(scratch_floats(g, n, h, e), dtype=torch.float32,
+                              device=dev)
+        with torch.cuda.device(dev):
+            err = fn(*(t.data_ptr() for t in (
+                x, hi, hj, efea, mask, *weights, gtotf, gtotm, dx, dhi, dhj,
+                defea, flat, scratch)),
+                g, n, h, e, int(bool(clip_edges)), _stream(dev))
+        if err != 0:
+            raise RuntimeError(
+                f"egnn_pairwise_bwd launch failed: cudaError {err}")
+        pairwise_message_bwd.launches += 1
+    dweights = [None] * N_WEIGHTS
+    off = 0
+    for k in order:
+        size = shapes[k][0] * shapes[k][1]
+        dweights[k] = flat[off:off + size].view(shapes[k])
+        off += size
+    return dx, dhi, dhj, defea, tuple(dweights)
+
+
+class _PairwiseMessage(torch.autograd.Function):
+    """The custom-VJP op (``_pm_fwd`` / ``_pm_bwd``): the forward keeps only
+    the inputs as residuals, the backward recomputes the chain. The nine
+    weights are separate arguments, so that autograd tracks each one."""
+
+    @staticmethod
+    def forward(ctx, clip_edges, x, hi, hj, efea, mask, *weights):
+        ctx.clip_edges = clip_edges
+        ctx.save_for_backward(x, hi, hj, efea, mask, *weights)
+        return pairwise_message_fwd(clip_edges, x, hi, hj, efea, mask,
+                                    weights)
+
+    @staticmethod
+    def backward(ctx, gtotf, gtotm):
+        x, hi, hj, efea, mask, *weights = ctx.saved_tensors
+        dx, dhi, dhj, defea, dweights = pairwise_message_bwd(
+            ctx.clip_edges, x, hi, hj, efea, mask, tuple(weights),
+            gtotf.contiguous(), gtotm.contiguous())
+        grads = (dx, dhi, dhj, defea, None, *dweights)
+        return (None, *(gr if need else None for gr, need in
+                        zip(grads, ctx.needs_input_grad[1:])))
+
+
+def pairwise_message(clip_edges, x, hi, hj, efea, mask, weights):
+    """(tot_f, tot_m) of the fused pairwise chain, differentiable in every
+    input but the mask.
+
+    x [G,N,3]; hi/hj [G,N,H] (node features projected by the Wi/Wj column
+    slices of the first edge-MLP Linear); efea [G,N,N,E]; mask [N,N] 0/1 with
+    zero diagonal; weights: the 9-tuple above in [in,out] layout.
+    """
+    if len(weights) != N_WEIGHTS:
+        raise ValueError(f"expected {N_WEIGHTS} weights, got {len(weights)}")
+    return _PairwiseMessage.apply(bool(clip_edges), x, hi, hj, efea, mask,
+                                  *weights)
+
+
 pairwise_message.launches = 0
+pairwise_message_bwd.launches = 0

@@ -1,13 +1,17 @@
-"""EGNO evaluation: batch gather, forward, windowed rollout and the test
-rollout artifact (counterpart of nonode_tpu/train/loop.py:43-343, the
-evaluation half).
+"""EGNO training, validation and evaluation: batch gather, forward, loss,
+Adam-L2 epochs, windowed rollout and the test rollout artifact (counterpart
+of the EGNO half of nonode_tpu/train/loop.py).
 
-The split lives on the device; a batch is an index gather. The rollout's
-``lax.scan`` over windows is a Python loop; everything in a window stays on
-the device. Training (``train_epoch``, Adam-L2) is not ported yet.
+The split lives on the device; a batch is an index gather. The JAX
+package's whole-epoch ``lax.scan`` over batches is a Python loop here whose
+per-batch losses stay on the device: an epoch makes no host sync. The
+rollout's scan over windows is a Python loop too; everything in a window
+stays on the device.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -15,6 +19,15 @@ import torch
 from ..data.nbody import NBodyDataset
 from ..models.egno import EGNO
 from .metrics import conserved_energy, pearson_correlation_batch
+
+
+def make_perm(rng: np.random.RandomState, n: int, batch_size: int,
+              shuffle: bool = True) -> np.ndarray:
+    """[num_batches, B] index array; drop_last=True like the reference
+    train loaders."""
+    idx = rng.permutation(n) if shuffle else np.arange(n)
+    nb = n // batch_size
+    return idx[: nb * batch_size].reshape(nb, batch_size).astype(np.int64)
 
 
 def prepare_inputs(loc, vel, edge_w, charges=None):
@@ -59,12 +72,26 @@ def _finite_metrics(artifact, bound_mult=10.0):
 
 
 class EGNOExperiment:
-    """EGNO evaluation against a device-resident dataset. The model's device
-    is the experiment's device."""
+    """EGNO training, validation and evaluation against a device-resident
+    dataset. The model's device is the experiment's device; the experiment
+    owns the Adam-L2 optimizer of the model's parameters."""
 
-    def __init__(self, model: EGNO):
+    def __init__(self, model: EGNO, lr: float = 1e-4,
+                 weight_decay: float = 1e-8):
         self.model = model
         self.device = next(model.parameters()).device
+        self.lr = lr
+        self.weight_decay = weight_decay
+
+    @functools.cached_property
+    def optimizer(self) -> torch.optim.Adam:
+        """Adam with L2: wd * p joins the gradient before the moment updates
+        (not AdamW), as nonode_tpu's optax.chain(add_decayed_weights, adam).
+        Made at the first training step: the first Adam a process builds
+        imports torch._dynamo, seconds of host time that an evaluation-only
+        run does not need."""
+        return torch.optim.Adam(self.model.parameters(), lr=self.lr,
+                                weight_decay=self.weight_decay)
 
     def epoch_index_arrays(self, ds: NBodyDataset, rng: np.random.RandomState):
         """Host-side per-epoch index arrays: frames_in [S, L], t_in [S, L],
@@ -116,6 +143,54 @@ class EGNOExperiment:
         nodes, edge_attr, loc_mean = prepare_inputs(loc, vel, w, charges)
         return self.model(loc, vel, nodes, edge_attr, loc_mean,
                           timesteps_out=t_out)
+
+    def _loss(self, batch):
+        """(mean over timesteps, per-timestep losses [T]); the mean is the
+        backprop target, the last timestep's loss the reported epoch loss
+        (main_simulation_simple_no.py:287)."""
+        loc_in, vel_in, charges, w, loc_out, t_in, t_out = batch
+        t_model = self.model.num_timesteps
+        x, _, _ = self._forward(loc_in, vel_in, charges, w, t_in,
+                                t_out[:, :t_model])
+        pred = x.transpose(0, 1)                           # [B, T, N, 3]
+        target = loc_out[:, :t_model]
+        losses = ((pred - target) ** 2).mean(dim=(0, 2, 3))   # [T]
+        return losses.mean(), losses
+
+    def _device_arrays(self, ds: NBodyDataset, idx_np: dict, perm):
+        return ((ds.loc, ds.vel, ds.charges, ds.edge_weights),
+                {k: torch.from_numpy(v).to(self.device)
+                 for k, v in idx_np.items()},
+                torch.from_numpy(np.asarray(perm, np.int64)).to(self.device))
+
+    def train_epoch(self, ds: NBodyDataset, idx_np: dict, perm):
+        """One Adam step per row of ``perm`` [num_batches, B]. Returns the
+        per-batch (mean_loss, last_step_loss) as device tensors; nothing is
+        synced to the host."""
+        ds_arrays, idx_arrays, perm = self._device_arrays(ds, idx_np, perm)
+        losses, last = [], []
+        for idx in perm:
+            batch = self._batch(ds_arrays, idx_arrays, idx)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss, per_step = self._loss(batch)
+            loss.backward()
+            self.optimizer.step()
+            losses.append(loss.detach())
+            last.append(per_step[-1].detach())
+        return torch.stack(losses), torch.stack(last)
+
+    @torch.no_grad()
+    def eval_epoch(self, ds: NBodyDataset, idx_np: dict, perm):
+        """The per-batch (mean_loss, last_step_loss) of ``perm`` without
+        updates, as device tensors."""
+        ds_arrays, idx_arrays, perm = self._device_arrays(ds, idx_np, perm)
+        losses, last = [], []
+        for idx in perm:
+            loss, per_step = self._loss(self._batch(ds_arrays, idx_arrays,
+                                                    idx))
+            losses.append(loss)
+            last.append(per_step[-1])
+        return torch.stack(losses), torch.stack(last)
 
     @torch.no_grad()
     def rollout(self, batch, traj_len: int, dataset_kind: str):

@@ -1,5 +1,5 @@
 """The parts of chip_smoke.py that run without a GPU: its refusal without
-CUDA, the bound it reports, and its refusal without the committed split."""
+CUDA, the bounds it reports, and its refusal without the committed splits."""
 
 import pytest
 import torch
@@ -26,6 +26,28 @@ def test_pairwise_bound_counts_operations_and_bytes():
         pytest.approx(ms * 16 / 20)
     # with a tiny hidden width the same chain moves more bytes than it computes
     assert chip_smoke.pairwise_bound_ms(2560, off, 1, 64)[1] == "bytes"
+
+
+def test_pairwise_bwd_bound_counts_operations_and_bytes():
+    h, e = 64, 2
+    macs = (4 * h * h                  # a1 W2, msg Wc1, dcpre Wc1^T, dpre2 W2^T
+            + 2 * h * h                # a1^T dpre2, msg^T dcpre
+            + 3 * e * h                # efea We, dpre1 We^T, efea^T dpre1
+            + 4 * h)                   # ca wc2, dpre1 wg, r2 dpre1, ca dcw
+    per_edge = 2 * macs + 41 * h + 38
+    assert chip_smoke.pairwise_bwd_flops_per_edge(h, e) == per_edge == 53094
+    off = 1.0 - torch.eye(5)
+    ms, by = chip_smoke.pairwise_bwd_bound_ms(2560, off, h, e)
+    assert by == "operations"
+    # 2.72 GFLOP over the 51,200 kept edges: about 0.041 ms at 67 TFLOP/s
+    assert ms == pytest.approx(1e3 * 51200 * per_edge
+                               / chip_smoke.PEAK_FP32_FLOPS)
+    assert 0.040 < ms < 0.041
+    sparse = off.clone()
+    sparse[:, 0] = 0.0
+    assert chip_smoke.pairwise_bwd_bound_ms(2560, sparse, h, e)[0] == \
+        pytest.approx(ms * 16 / 20)
+    assert chip_smoke.pairwise_bwd_bound_ms(2560, off, 1, 64)[1] == "bytes"
 
 
 def test_committed_split_is_found_or_named_as_missing(tmp_path):

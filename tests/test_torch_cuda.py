@@ -1,4 +1,5 @@
-"""Tests of the port's CUDA kernels, on the card only.
+"""Tests of the port's CUDA kernels (the pairwise chain's forward and
+backward), on the card only.
 
 Every test here is marked ``cuda`` and skips without a GPU (a CUDA kernel
 has no CPU mode). The file imports neither JAX nor nonode_tpu, so that it
@@ -103,10 +104,82 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="unsupported shape"):
         egnn_fused.pairwise_message(False, x, hi[..., :48], hj[..., :48],
                                     efea, mask, weights)
-    w = weights[3].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        egnn_fused.pairwise_message(False, x, hi, hj, efea, mask,
-                                    (*weights[:3], w, *weights[4:]))
+    gtotf, gtotm = torch.ones_like(x), torch.ones_like(hi)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        egnn_fused.pairwise_message_bwd(False, x, hi[..., :48].contiguous(),
+                                        hj[..., :48].contiguous(), efea, mask,
+                                        weights, gtotf, gtotm[..., :48])
+    with pytest.raises(ValueError, match="gtotm has shape"):
+        egnn_fused.pairwise_message_bwd(False, x, hi, hj, efea, mask,
+                                        weights, gtotf, gtotm[:2])
+
+
+def _bwd_inputs(g, n, e, clip, isolated, dev):
+    args = _inputs(g, n, 64, e, seed=n + 7, dev=dev,
+                   coord_scale=400.0 if clip else 1.0, isolated=isolated)
+    rng = np.random.RandomState(n)
+    cot = tuple(torch.tensor(rng.randn(*s), dtype=torch.float32, device=dev)
+                for s in ((g, n, 3), (g, n, 64)))
+    return args, cot
+
+
+def _flat(out):
+    dx, dhi, dhj, defea, dw = out
+    return (dx, dhi, dhj, defea, *dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n,e,clip,isolated", [
+    (2560, 5, 2, False, None),         # the training path's shape
+    (2560, 5, 2, True, None),          # SEGNO's per-edge clip, engaged
+    (256, 31, 2, False, 3),            # mocap: 2-D edge mask, a lone node
+    (7, 5, 2, False, None),            # a ragged last block
+    (9, 64, 3, True, 10),              # N at the gate's limit, E=3
+])
+def test_backward_kernel_matches_plain_version(dev, g, n, e, clip, isolated):
+    args, cot = _bwd_inputs(g, n, e, clip, isolated, dev)
+    before = egnn_fused.pairwise_message_bwd.launches
+    got = _flat(egnn_fused.pairwise_message_bwd(clip, *args, *cot))
+    torch.cuda.synchronize()
+    want = _flat(egnn_fused.pairwise_message_bwd_reference(clip, *args, *cot))
+    assert egnn_fused.pairwise_message_bwd.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+    _assert_close(got, want)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_is_deterministic(dev):
+    args, cot = _bwd_inputs(512, 5, 2, False, None, dev)
+    a = _flat(egnn_fused.pairwise_message_bwd(False, *args, *cot))
+    b = _flat(egnn_fused.pairwise_message_bwd(False, *args, *cot))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_egnn_layer_kernel_route_gradients_match_dense_route(dev):
+    """The autograd.Function on the card (forward and backward kernels)
+    against plain autograd through the dense route of the same layer."""
+    gen = torch.Generator().manual_seed(1)
+    layer = EGNNLayer(64, 2, with_v=True, fused=True, device=dev,
+                      generator=gen)
+    rng = np.random.RandomState(4)
+    t = lambda *s: torch.tensor(rng.randn(*s), dtype=torch.float32,  # noqa: E731
+                                device=dev, requires_grad=True)
+    ins = (t(10, 8, 5, 3), t(10, 8, 5, 64), t(8, 5, 5, 2), t(10, 8, 5, 3))
+    grads = []
+    for fused in (True, False):
+        layer.fused = fused
+        layer.zero_grad(set_to_none=True)
+        for a in ins:
+            a.grad = None
+        before = egnn_fused.pairwise_message_bwd.launches
+        xo, _, ho = layer(*ins[:3], v=ins[3])
+        (xo.square().sum() + ho.sin().sum()).backward()
+        assert egnn_fused.pairwise_message_bwd.launches == before + fused
+        grads.append([a.grad.clone() for a in ins]
+                     + [p.grad.clone() for p in layer.parameters()])
+    _assert_close(*grads)
 
 
 @pytest.mark.cuda

@@ -2,7 +2,7 @@
 einops, pytest and hypothesis, and no jax, flax, optax, yaml or wandb.
 
 Every module of nonode_tpu_torch, chip_smoke.py and the port's profiling
-script are scanned: no jax, no
+scripts are scanned: no jax, no
 module of the JAX package nonode_tpu, and flax, optax, yaml and wandb only
 inside a function (imported lazily, when asked for). Then the entry point is
 imported in a fresh interpreter with those packages blocked.
@@ -17,7 +17,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 SOURCES = sorted((REPO / "nonode_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_serving.py"]
+    REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_serving.py",
+    REPO / "scripts" / "profile_torch_training.py"]
 LAZY_ONLY = {"flax", "optax", "yaml", "wandb"}
 
 
@@ -69,7 +70,8 @@ def test_no_file_of_the_port_is_git_ignored():
     leave it out of every checkout, though the tests here still find it."""
     files = [str(p.relative_to(REPO)) for p in SOURCES]
     files += [str(p.relative_to(REPO))
-              for p in (REPO / "nonode_tpu_torch" / "csrc").iterdir()]
+              for d in ("csrc", "configs")
+              for p in (REPO / "nonode_tpu_torch" / d).iterdir()]
     out = subprocess.run(["git", "check-ignore", "--no-index", "--", *files],
                          cwd=REPO, capture_output=True, text=True, timeout=60)
     if out.returncode == 128:

@@ -151,12 +151,19 @@ def test_wrapper_takes_plain_version_only_on_cpu():
 
 
 def test_registry_points_at_sources_and_tpu_kernels():
+    tpu_kernel = {"egnn_pairwise_fwd": "def _fwd_kernel",
+                  "egnn_pairwise_bwd": "def _bwd_kernel"}
+    assert [k["name"] for k in KERNELS] == list(tpu_kernel)
     for k in KERNELS:
         assert (REPO / k["source"]).is_file()
         assert k["source"].endswith(k["csrc"])
         path, line = k["replaces"].rsplit(":", 1)
         text = (REPO / path).read_text().splitlines()[int(line) - 1]
-        assert text.startswith("def _fwd_kernel"), text
-    lib = build.library_path(egnn_fused.SOURCE)
-    assert lib.parent == build.BUILD_DIR and lib.suffix == ".so"
-    assert lib == build.library_path(egnn_fused.SOURCE)   # content-hashed
+        assert text.startswith(tpu_kernel[k["name"]]), text
+        assert isinstance(k["wrapper"].launches, int)
+    for source in (egnn_fused.SOURCE, egnn_fused.BWD_SOURCE):
+        lib = build.library_path(source)
+        assert lib.parent == build.BUILD_DIR and lib.suffix == ".so"
+        assert lib == build.library_path(source)          # content-hashed
+    assert build.library_path(egnn_fused.SOURCE) != \
+        build.library_path(egnn_fused.BWD_SOURCE)

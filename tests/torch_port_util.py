@@ -32,3 +32,22 @@ def egnn_layer_sd(lp):
 def assert_close(actual, expected, rtol, atol):
     np.testing.assert_allclose(np.asarray(actual), np.asarray(expected),
                                rtol=rtol, atol=atol)
+
+
+def write_charged_split(d, partition="test", seed=0, s=8, f=55, n=5):
+    """A tiny charged split in the reference ``.npy`` layout (loc/vel stored
+    [S, F, 3, N]): a random walk of positions, random velocities, +-1
+    charges."""
+    rng = np.random.RandomState(seed)
+    steps = 0.05 * rng.randn(s, f, n, 3)
+    loc = np.cumsum(steps, axis=1) + rng.randn(s, 1, n, 3)
+    vel = rng.randn(s, f, n, 3) * 0.3
+    charges = rng.choice([-1.0, 1.0], (s, n, 1))
+    suffix = f"{partition}_charged{n}_initvel1small"
+    np.save(d / f"loc_{suffix}.npy",
+            loc.transpose(0, 1, 3, 2).astype(np.float32))
+    np.save(d / f"vel_{suffix}.npy",
+            vel.transpose(0, 1, 3, 2).astype(np.float32))
+    np.save(d / f"charges_{suffix}.npy", charges.astype(np.float32))
+    np.save(d / f"edges_{suffix}.npy",
+            np.einsum("sik,sjk->sij", charges, charges).astype(np.float32))
