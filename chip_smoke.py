@@ -22,12 +22,27 @@ Phases, each timed on its own line:
    finite losses, the checkpoint and the artifact;
 6. train step: the loss and the gradient of every parameter on train batch 0
    from the seed-42 weights, card against the port's CPU; then the median
-   wall of a training step.
+   wall of a training step;
+7. stretch: the 1000-body charged run (as bench.py:bench_large_n),
+   ``LargeNChargedSim(n_balls=1000)``, T=20000, sample_freq 100, from
+   --seed 42: 199 finite frames, 200 launches of the force kernel and 199
+   of the charged block kernel, the energy drift in float64 under 5 x the
+   first frame's kinetic energy (tests/test_large_sim.py:80-103); then the
+   port's large-N and dense charged simulators from one state (N=20,
+   T=300) on the card;
+8. gravity: ``LargeNGravitySim(n_balls=1000)``, T=2000, sample_freq 100:
+   20 launches of the gravity block kernel and 1 of the gravity kernel,
+   total momentum conserved; then large-N against dense (N=40, T=300);
+9. generate: ``python -m nonode_tpu_torch.sim.generate --simulation gravity``
+   (in-process) writes small gravity splits on the card; ``main --dataset
+   gravity --only_test false --epochs 1`` trains and rolls out on them.
 
-Then it prints the kernels line (launches from the train path) and, last,
-one JSON line with the device. It exits non-zero, with no result, without
-CUDA, outside the repository, or when the checkout lacks the committed
-splits.
+Every kernel's time is its device time alone (CUDA events around one call,
+the stream held busy while the host enqueues it), median of repeats. Then it
+prints the kernels line (each kernel's launches on its own path, and on
+every path) and, last, one JSON line with the device. It exits non-zero,
+with no result, without CUDA, outside the repository, or when the checkout
+lacks the committed splits.
 """
 
 import json
@@ -55,6 +70,31 @@ KERNEL_RTOL = 1e-4
 ROLLOUT_RTOL = 1e-3
 GRAD_RTOL = 1e-3
 SPLITS = ("test", "train", "valid")
+# N-body pair work: 22 fp32 operations per interacting pair (bench.py:359-363
+# counts them for the TPU kernel: difference 3, r^2 5, rsqrt and cube 4,
+# scale 2, accumulate 6, clip and integrate 2) and one rsqrt on the
+# special-function units: 16 per clock per SM, 132 SMs at 1.98 GHz.
+FLOP_PER_PAIR = 22
+PEAK_RSQRT = 16 * 132 * 1.98e9
+# per kernel: fp32 values read and written per body
+NBODY_IO = {"nbody_charged_force": (4, 3), "nbody_gravity_accel": (4, 3),
+            "nbody_charged_leapfrog": (7, 6),
+            "nbody_gravity_leapfrog": (10, 9)}
+STRETCH_N, STRETCH_T, SAMPLE_FREQ = 1000, 20000, 100
+GRAVITY_T = 2000
+# the stretch run's envelope: tests/test_large_sim.py:80-103, max |E_t - E_0|
+# over the first frame's kinetic energy (the force clip is not
+# Hamiltonian; the JAX package's recorded run reached 2.05)
+DRIFT_LIMIT = 5.0
+# total momentum of the gravity run, |P_t - P_0| over sum_i m_i |v_i(t)|:
+# pairwise forces cancel up to fp32 rounding (about 1e-7 of the frame's
+# scale after 2000 steps); one pair dropped for a block of steps moves it by
+# about 1e-2
+MOMENTUM_LIMIT = 1e-5
+# large-N vs dense simulators on the card (tests/test_large_sim.py:18-46):
+# positions 2e-4 x max|pos|, gravity's velocities 2e-3
+SIM_POS_RTOL, SIM_VEL_ATOL = 2e-4, 2e-3
+SLEEP_CYCLES = 2_000_000           # about 1 ms of the stream held busy
 
 
 def phase(name, t0):
@@ -69,18 +109,25 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters=50, warmup=5):
+def device_ms(fn, iters=20, warmup=3):
+    """Median device time of one call of ``fn``: CUDA events recorded just
+    before and after the call, with the stream held busy (about 1 ms) while
+    the host enqueues it, so that the host's time counts only where it
+    outlasts the hold (as for a plain version of many small launches)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
+    events = []
     for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
         fn()
-    stop.record()
+        stop.record()
+        events.append((start, stop))
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    return float(np.median([a.elapsed_time(b) for a, b in events]))
 
 
 def pairwise_inputs(g, n, h, e, seed, dev, coord_scale=1.0, isolated=None):
@@ -158,9 +205,11 @@ def check_pairwise_kernel(egnn_fused, dev):
             errs.append(err)
         if row is None:
             with torch.no_grad():
-                ms = cuda_ms(lambda: egnn_fused.pairwise_message(clip, *args))
-                plain_ms = cuda_ms(lambda: egnn_fused.pairwise_message_reference(
+                ms = device_ms(lambda: egnn_fused.pairwise_message(
                     clip, *args))
+                plain_ms = device_ms(
+                    lambda: egnn_fused.pairwise_message_reference(clip,
+                                                                  *args))
             bound_ms, bound_by = pairwise_bound_ms(g, args[4], 64, 2)
             kept = g * int((args[4] != 0).sum())
             print(f"  kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms "
@@ -264,10 +313,11 @@ def check_pairwise_bwd_kernel(egnn_fused, dev):
               f"{KERNEL_RTOL:g} x max(1, max|plain|) per output); two runs "
               f"bitwise equal", flush=True)
         if row is None:
-            ms = cuda_ms(lambda: egnn_fused.pairwise_message_bwd(
+            ms = device_ms(lambda: egnn_fused.pairwise_message_bwd(
                 clip, *args, *cot))
-            plain_ms = cuda_ms(lambda: egnn_fused.pairwise_message_bwd_reference(
-                clip, *args, *cot))
+            plain_ms = device_ms(
+                lambda: egnn_fused.pairwise_message_bwd_reference(
+                    clip, *args, *cot))
             bound_ms, bound_by = pairwise_bwd_bound_ms(g, args[4], 64, 2)
             print(f"  backward kernel {ms:.4f} ms (both launches), plain "
                   f"version {plain_ms:.4f} ms (no yardstick), bound "
@@ -276,6 +326,232 @@ def check_pairwise_bwd_kernel(egnn_fused, dev):
             row = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     return row
+
+
+def nbody_bound_ms(name, n, steps=1):
+    """Least time for an N-body kernel on an H100 SXM: the larger of its
+    operations and its bytes. Operations: the N(N-1) interacting pairs of
+    each micro-step (a self pair does no work) at FLOP_PER_PAIR (the
+    per-body clip and updates amortized in it) over the fp32 peak, or their
+    rsqrts over the special-function units' rate, whichever is longer;
+    bytes: each input read once and each output written once (NBODY_IO)
+    over the HBM rate."""
+    floats_in, floats_out = NBODY_IO[name]
+    pairs = steps * n * (n - 1)
+    t_ops = max(pairs * FLOP_PER_PAIR / PEAK_FP32_FLOPS, pairs / PEAK_RSQRT)
+    t_bytes = 4 * n * (floats_in + floats_out) / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def nbody_cases(name, dev):
+    """(label, n, steps, wrapper args) of a kernel: the main path's shape
+    first (N=1000; a 99-step block for the charged kernel, as the stretch
+    run's sample_freq - 1, and a 100-step block for gravity), then the edge
+    N. Inputs are the simulators' own initial states from a fixed seed."""
+    from nonode_tpu_torch.ops.kernels.pairwise import gravity_accel_reference
+    from nonode_tpu_torch.sim.simulators import ChargedSim, GravitySim
+
+    steps = {"nbody_charged_leapfrog": SAMPLE_FREQ - 1,
+             "nbody_gravity_leapfrog": SAMPLE_FREQ}.get(name, 1)
+    for n in (STRETCH_N, 1, 5, 129):
+        gen = torch.Generator().manual_seed(n)
+        if "gravity" in name:
+            pos, vel, mass = (a.to(dev) for a in
+                              GravitySim(n_balls=n).init_state(gen))
+            args = {"nbody_gravity_accel": (pos, mass),
+                    "nbody_gravity_leapfrog": (
+                        pos, vel, gravity_accel_reference(pos, mass), mass,
+                        steps)}[name]
+        else:
+            loc, vel, _, q = (a.to(dev) for a in
+                              ChargedSim(n_balls=n).init_state(gen))
+            args = {"nbody_charged_force": (loc, q),
+                    "nbody_charged_leapfrog": (loc, vel, q, steps)}[name]
+        yield f"N={n}" + (f" steps={steps}" if steps > 1 else ""), n, steps, \
+            args
+
+
+def check_nbody_kernels(dev):
+    """Each N-body kernel against its plain version on the card at the
+    path's shape and the edge N; the block kernels run twice and must agree
+    bitwise. Returns the rows of the path's shape."""
+    from nonode_tpu_torch.ops.kernels import nbody_sim, pairwise
+
+    fns = {"nbody_charged_force": (pairwise.charged_force,
+                                   pairwise.charged_force_reference),
+           "nbody_gravity_accel": (pairwise.gravity_accel,
+                                   pairwise.gravity_accel_reference),
+           "nbody_charged_leapfrog": (nbody_sim.charged_leapfrog,
+                                      nbody_sim.charged_leapfrog_reference),
+           "nbody_gravity_leapfrog": (nbody_sim.gravity_leapfrog,
+                                      nbody_sim.gravity_leapfrog_reference)}
+    print(f"  block kernels at N={STRETCH_N}: cooperative grid of "
+          f"{nbody_sim.launch_grid(STRETCH_N)} (charged) and "
+          f"{nbody_sim.launch_grid(STRETCH_N, gravity=True)} (gravity) "
+          f"blocks of 256 threads", flush=True)
+    rows = {}
+    for name, (kernel, plain) in fns.items():
+        for label, n, steps, args in nbody_cases(name, dev):
+            as_tuple = lambda out: out if isinstance(out, tuple) else (out,)
+            got = as_tuple(kernel(*args))
+            again = as_tuple(kernel(*args))
+            torch.cuda.synchronize()
+            want = as_tuple(plain(*args))
+            errs = []
+            for k, (a, b) in enumerate(zip(got, want)):
+                if a.shape != b.shape or not torch.isfinite(a).all():
+                    raise AssertionError(f"{name} {label}: output {k} has "
+                                         f"shape {tuple(a.shape)} or is not "
+                                         f"finite")
+                if not torch.equal(a, again[k]):
+                    raise AssertionError(f"{name} {label}: output {k} differs "
+                                         f"between two runs of the kernel")
+                err = float((a - b).abs().max())
+                scale = max(1.0, float(b.abs().max()))
+                if err > KERNEL_RTOL * scale:
+                    raise AssertionError(f"{name} {label}: output {k} "
+                                         f"disagrees with the plain version: "
+                                         f"{err} > {KERNEL_RTOL} x {scale}")
+                errs.append((err, err / scale))
+            print(f"  {name} {label}: max_abs_err "
+                  f"{max(e for e, _ in errs):.3e} max_rel_err "
+                  f"{max(r for _, r in errs):.3e} (tolerance {KERNEL_RTOL:g} "
+                  f"x max(1, max|plain|) per output); two runs bitwise equal",
+                  flush=True)
+            if name not in rows:
+                ms = device_ms(lambda: kernel(*args))
+                plain_ms = device_ms(lambda: plain(*args), iters=5)
+                bound_ms, bound_by = nbody_bound_ms(name, n, steps)
+                print(f"  {name} {label}: kernel {ms:.4f} ms, plain version "
+                      f"{plain_ms:.4f} ms (no yardstick), bound "
+                      f"{bound_ms:.4f} ms by {bound_by}; no single PyTorch "
+                      f"call computes this function", flush=True)
+                rows[name] = dict(max_abs_err=max(e for e, _ in errs), ms=ms,
+                                  plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=None)
+    return rows
+
+
+def reset_launches(kernels):
+    for k in kernels:
+        k["wrapper"].launches = 0
+
+
+def read_launches(kernels, want, what):
+    """The launch counts of every kernel since the reset; raises unless they
+    are ``want`` (0 for a kernel it does not name)."""
+    launches = {k["name"]: k["wrapper"].launches for k in kernels}
+    expected = {k["name"]: want.get(k["name"], 0) for k in kernels}
+    if launches != expected:
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{expected}")
+    return launches
+
+
+def run_stretch(kernels, dev):
+    """The 1000-body charged stretch run through the user's entry point,
+    then the large-N and dense simulators from one state."""
+    from nonode_tpu_torch.sim.large import LargeNChargedSim
+    from nonode_tpu_torch.sim.simulators import ChargedSim
+
+    n, T, freq = STRETCH_N, STRETCH_T, SAMPLE_FREQ
+    sim = LargeNChargedSim(n_balls=n)
+    gen = torch.Generator().manual_seed(SEED)
+    reset_launches(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loc, vel, edges, _ = sim.sample_trajectory(gen, T, freq, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    frames = T // freq - 1
+    launches = read_launches(kernels, {"nbody_charged_force": frames + 1,
+                                       "nbody_charged_leapfrog": frames},
+                             "stretch run")
+    if loc.shape != (frames, n, 3) or not (torch.isfinite(loc).all()
+                                           and torch.isfinite(vel).all()):
+        raise AssertionError(f"stretch run: loc {tuple(loc.shape)}, "
+                             f"expected ({frames}, {n}, 3), all finite")
+    loc64, vel64, edges64 = loc.double(), vel.double(), edges.double()
+    energy = torch.stack([sim.energy(loc64[f], vel64[f], edges64)
+                          for f in range(frames)])
+    k0 = 0.5 * float((vel64[0] ** 2).sum())
+    drift = float((energy - energy[0]).abs().max()) / k0
+    if not np.isfinite(drift) or drift >= DRIFT_LIMIT:
+        raise AssertionError(f"stretch run: energy drift {drift} x K_0, "
+                             f"limit {DRIFT_LIMIT}")
+    print(f"  stretch run: {frames} frames of {n} bodies, {T} steps, wall "
+          f"{wall:.3f} s (sync-closed), {n * n * T / wall / 1e9:.3f} G pair "
+          f"interactions/s, energy drift max|E_t - E_0| / K_0 = {drift:.4f} "
+          f"(limit {DRIFT_LIMIT}, float64), launches {json.dumps(launches)}",
+          flush=True)
+
+    dense, large = ChargedSim(n_balls=20), LargeNChargedSim(n_balls=20)
+    state = tuple(a.to(dev) for a in
+                  dense.init_state(torch.Generator().manual_seed(SEED)))
+    want_loc = dense.integrate(state, 300, freq)[0]
+    got_loc = large.integrate(state, 300, freq)[0]
+    err = float((got_loc - want_loc).abs().max())
+    scale = float(want_loc.abs().max())
+    print(f"  large-N vs dense charged, N=20 T=300: max_abs_err {err:.3e} "
+          f"(tolerance {SIM_POS_RTOL:g} x max|loc| = "
+          f"{SIM_POS_RTOL * scale:.3e})", flush=True)
+    if err > SIM_POS_RTOL * scale:
+        raise AssertionError(f"large-N and dense charged disagree: {err}")
+    return launches, wall
+
+
+def run_gravity(kernels, dev):
+    """The 1000-body gravity run through the user's entry point, then the
+    large-N and dense simulators from one state."""
+    from nonode_tpu_torch.sim.large import LargeNGravitySim
+    from nonode_tpu_torch.sim.simulators import GravitySim
+
+    n, T, freq = STRETCH_N, GRAVITY_T, SAMPLE_FREQ
+    sim = LargeNGravitySim(n_balls=n)
+    reset_launches(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pos, vel, force, mass = sim.sample_trajectory(
+        torch.Generator().manual_seed(SEED), T, freq, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    frames = T // freq
+    launches = read_launches(kernels, {"nbody_gravity_leapfrog": frames,
+                                       "nbody_gravity_accel": 1},
+                             "gravity run")
+    if pos.shape != (frames, n, 3) or not all(
+            torch.isfinite(a).all() for a in (pos, vel, force)):
+        raise AssertionError(f"gravity run: pos {tuple(pos.shape)}, expected "
+                             f"({frames}, {n}, 3), all finite")
+    m64, v64 = mass.double(), vel.double()
+    momentum = (m64 * v64).sum(-2)                               # [T, 3]
+    scale = (m64 * v64.norm(dim=-1, keepdim=True)).sum((-2, -1))
+    moved = float(((momentum - momentum[0]).norm(dim=-1) / scale).max())
+    if not moved < MOMENTUM_LIMIT:
+        raise AssertionError(f"gravity run: momentum moved by {moved} of "
+                             f"sum m|v|, limit {MOMENTUM_LIMIT}")
+    print(f"  gravity run: {frames} frames of {n} bodies, {T} steps, wall "
+          f"{wall:.3f} s (sync-closed), {n * n * T / wall / 1e9:.3f} G pair "
+          f"interactions/s, momentum max |P_t - P_0| / sum m|v_t| = "
+          f"{moved:.3e} (limit {MOMENTUM_LIMIT:g}), launches "
+          f"{json.dumps(launches)}", flush=True)
+
+    dense, large = GravitySim(n_balls=40), LargeNGravitySim(n_balls=40)
+    state = tuple(a.to(dev) for a in
+                  dense.init_state(torch.Generator().manual_seed(SEED)))
+    want = dense.integrate(state, 300, freq)
+    got = large.integrate(state, 300, freq)
+    pos_err = float((got[0] - want[0]).abs().max())
+    vel_err = float((got[1] - want[1]).abs().max())
+    scale = float(want[0].abs().max())
+    print(f"  large-N vs dense gravity, N=40 T=300: positions max_abs_err "
+          f"{pos_err:.3e} (tolerance {SIM_POS_RTOL * scale:.3e}), velocities "
+          f"{vel_err:.3e} (tolerance {SIM_VEL_ATOL:g})", flush=True)
+    if pos_err > SIM_POS_RTOL * scale or vel_err > SIM_VEL_ATOL \
+            or not torch.equal(got[3], want[3]):
+        raise AssertionError("large-N and dense gravity disagree")
+    return launches, wall
 
 
 def committed_split(root=ROOT):
@@ -299,18 +575,34 @@ def split_size(data_dir, split):
                        mmap_mode="r").shape[0])
 
 
-def check_artifact(path, total):
+def check_artifact(path, total, traj_len=TRAJ_LEN):
     """The test rollout's artifact has the shapes of ``total`` samples,
-    TRAJ_LEN windows of T=10 frames and the 40% horizon cut."""
+    ``traj_len`` windows of T=10 frames and the 40% horizon cut."""
     art = np.load(path)
-    shapes = {"targets": (total, TRAJ_LEN * 10, 5, 3),
-              "preds": (total, int(0.4 * TRAJ_LEN * 10), 5, 3),
-              "energy_conservation": (total, int(0.4 * TRAJ_LEN * 10), 1)}
+    shapes = {"targets": (total, traj_len * 10, 5, 3),
+              "preds": (total, int(0.4 * traj_len * 10), 5, 3),
+              "energy_conservation": (total, int(0.4 * traj_len * 10), 1)}
     for key, shape in shapes.items():
         if art[key].shape != shape:
             raise AssertionError(f"{key} has shape {art[key].shape}, "
                                  f"expected {shape}")
     return art
+
+
+def run_echoed(fn, *args):
+    """Call fn with its standard output captured and echoed indented, the
+    namespace dump left out. Returns (the printed lines, fn's result)."""
+    import contextlib
+    import io
+
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        result = fn(*args)
+    lines = log.getvalue().splitlines()
+    for line in lines:
+        if not line.startswith("Namespace("):
+            print(f"  | {line}", flush=True)
+    return lines, result
 
 
 def run_main_path(nt_main, kernels, data_dir, out_dir):
@@ -324,27 +616,22 @@ def run_main_path(nt_main, kernels, data_dir, out_dir):
         "--data_dir", str(data_dir), "--outf", str(out_dir),
         "--batch_size", str(BATCH), "--traj_len", str(TRAJ_LEN),
         "--seed", str(SEED)])
-    for k in kernels:
-        k["wrapper"].launches = 0
+    reset_launches(kernels)
     t0 = time.perf_counter()
     _, test_loss, _ = nt_main.main(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k["name"]: k["wrapper"].launches for k in kernels}
+    batches = split_size(data_dir, "test") // BATCH
+    launches = read_launches(
+        kernels, {"egnn_pairwise_fwd": LAYERS * TRAJ_LEN * batches},
+        f"main path ({LAYERS} x {TRAJ_LEN} x {batches} forward, nothing else)")
 
     stem = artifact_stem("egno", "charged", SEED, 5)
     metrics = [json.loads(line) for line in
                (out_dir / args.exp_name / f"{stem}_metrics.jsonl")
                .read_text().splitlines()]
-    batches = split_size(data_dir, "test") // BATCH
     art = check_artifact(out_dir / args.exp_name / f"{stem}_results.npz",
                          batches * BATCH)
-    want = {"egnn_pairwise_fwd": LAYERS * TRAJ_LEN * batches,
-            "egnn_pairwise_bwd": 0}
-    if launches != want:
-        raise AssertionError(f"launches {launches}, expected {want}: "
-                             f"{LAYERS} x {TRAJ_LEN} x {batches} forward, no "
-                             f"backward")
     first = art["preds"][:BATCH, :20]
     if not np.isfinite(first).all():
         raise AssertionError("the first two windows of batch 0 are not finite")
@@ -374,6 +661,7 @@ def run_main_path(nt_main, kernels, data_dir, out_dir):
           f"{metrics[-1]['avg_num_steps']} finite_fraction "
           f"{float(art['finite_fraction'])} main path wall {wall:.3f} s "
           f"launches {json.dumps(launches)}", flush=True)
+    return launches
 
 
 def run_train_path(nt_main, kernels, data_dir, out_dir):
@@ -381,9 +669,6 @@ def run_train_path(nt_main, kernels, data_dir, out_dir):
     backward launches; the same forward launches plus (valid batches) x 4 at
     the epoch-1 validation and the test rollout's 4 x TRAJ_LEN x (test
     batches)."""
-    import contextlib
-    import io
-
     from nonode_tpu_torch.analysis.registry import artifact_stem
 
     epochs = 2
@@ -393,32 +678,22 @@ def run_train_path(nt_main, kernels, data_dir, out_dir):
         "--epochs", str(epochs), "--test_interval", "1",
         "--batch_size", str(BATCH), "--traj_len", str(TRAJ_LEN),
         "--seed", str(SEED)])
-    log = io.StringIO()
-    for k in kernels:
-        k["wrapper"].launches = 0
+    reset_launches(kernels)
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(log):
-        best_val, test_loss, best_epoch = nt_main.main(args)
+    lines, (best_val, test_loss, best_epoch) = run_echoed(nt_main.main, args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k["name"]: k["wrapper"].launches for k in kernels}
-    lines = log.getvalue().splitlines()
-    for line in lines:
-        if not line.startswith("Namespace("):
-            print(f"  | {line}", flush=True)
 
     train_b = min(args.max_samples, split_size(data_dir, "train")) // BATCH
     val_b = split_size(data_dir, "valid") // BATCH
     test_b = split_size(data_dir, "test") // BATCH
     bwd = epochs * train_b * LAYERS
-    want = {"egnn_pairwise_fwd": bwd + val_b * LAYERS
-            + LAYERS * TRAJ_LEN * test_b, "egnn_pairwise_bwd": bwd}
-    if launches != want:
-        raise AssertionError(
-            f"train path launches {launches}, expected {want}: {epochs} "
-            f"epochs x {train_b} batches x {LAYERS} layers backward; as many "
-            f"forward plus {val_b} validation batches x {LAYERS} and "
-            f"{LAYERS} x {TRAJ_LEN} x {test_b} in the test rollout")
+    launches = read_launches(
+        kernels, {"egnn_pairwise_fwd": bwd + val_b * LAYERS
+                  + LAYERS * TRAJ_LEN * test_b, "egnn_pairwise_bwd": bwd},
+        f"train path ({epochs} epochs x {train_b} batches x {LAYERS} layers "
+        f"backward; as many forward plus {val_b} validation batches x "
+        f"{LAYERS} and {LAYERS} x {TRAJ_LEN} x {test_b} in the test rollout)")
 
     stem = artifact_stem("egno", "charged", SEED, 5)
     run = out_dir / args.exp_name
@@ -443,6 +718,81 @@ def run_train_path(nt_main, kernels, data_dir, out_dir):
           f"test_loss {test_loss} train path wall {wall:.3f} s launches "
           f"{json.dumps(launches)}", flush=True)
     return launches
+
+
+def run_generate_and_gravity_main(nt_main, kernels, tmp):
+    """The dataset writer on the card (small gravity splits: 30 frames, one
+    test window of traj_len 2 from frame 0), its files' names, shapes and
+    layouts, then ``main --dataset gravity --only_test false --epochs 1`` on
+    them: one epoch of training (never validated, as the reference's
+    ``epoch > 0`` gate), the test rollout of the trained weights."""
+    from nonode_tpu_torch.analysis.registry import artifact_stem
+    from nonode_tpu_torch.sim import generate
+
+    data, n, length, traj_len = tmp / "gravity_data", 5, 3000, 2
+    sizes = {"train": 512, "valid": 256, "test": 256}
+    args = generate.get_args([
+        "--simulation", "gravity", "--num-train", str(sizes["train"]),
+        "--num-valid", str(sizes["valid"]), "--num-test", str(sizes["test"]),
+        "--length", str(length), "--length_test", str(length),
+        "--n_balls", str(n), "--suffix", "small", "--chunk", "512",
+        "--seed", str(SEED), "--outdir", str(data)])
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    run_echoed(generate.main, args)
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    gen_launches = read_launches(kernels, {}, "generate (dense simulators, "
+                                 "plain PyTorch)")
+    frames = length // SAMPLE_FREQ
+    for split, num in sizes.items():
+        stem = f"{split}_gravity{n}_initvel1small.npy"
+        for kind, shape in (("loc", (num, frames, n, 3)),
+                            ("vel", (num, frames, n, 3)),
+                            ("edges", (num, frames, n, 3)),      # forces
+                            ("charges", (num, n, 1))):           # masses
+            a = np.load(data / f"{kind}_{stem}")
+            if a.shape != shape or a.dtype != np.float32 \
+                    or not np.isfinite(a).all():
+                raise AssertionError(f"{kind}_{stem}: {a.shape} {a.dtype}, "
+                                     f"expected {shape} float32, finite")
+        if not (np.load(data / f"charges_{stem}") > 0).all():
+            raise AssertionError(f"charges_{stem}: masses must be positive")
+    print(f"  generate: 12 files of {sum(sizes.values())} gravity "
+          f"trajectories x {length} steps on the card in {gen_wall:.3f} s",
+          flush=True)
+
+    args = nt_main.get_args([
+        "--model", "egno", "--dataset", "gravity", "--only_test", "false",
+        "--epochs", "1", "--device", "cuda", "--data_dir", str(data),
+        "--outf", str(tmp / "out"), "--batch_size", str(BATCH),
+        "--traj_len", str(traj_len), "--seed", str(SEED)])
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    _, (_, test_loss, _) = run_echoed(nt_main.main, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_b = sizes["train"] // BATCH
+    test_b = sizes["test"] // BATCH
+    launches = read_launches(
+        kernels, {"egnn_pairwise_fwd": train_b * LAYERS
+                  + LAYERS * traj_len * test_b,
+                  "egnn_pairwise_bwd": train_b * LAYERS},
+        f"gravity main (1 epoch x {train_b} batches x {LAYERS} layers "
+        f"backward; as many forward and {LAYERS} x {traj_len} x {test_b} in "
+        f"the test rollout)")
+    stem = artifact_stem("egno", "gravity", SEED, n)
+    results = json.loads((tmp / "out" / args.exp_name / f"{stem}.json")
+                         .read_text())
+    losses = results["train loss"] + results["test loss"]
+    if len(results["train loss"]) != 1 or not np.isfinite(losses).all():
+        raise AssertionError(f"gravity main results {results}")
+    check_artifact(tmp / "out" / args.exp_name / f"{stem}_results.npz",
+                   test_b * BATCH, traj_len)
+    print(f"  gravity main: train loss {results['train loss']} test_loss "
+          f"{test_loss} wall {wall:.3f} s launches {json.dumps(launches)}",
+          flush=True)
+    return gen_launches, launches
 
 
 def check_train_step(data_dir, dev):
@@ -526,39 +876,67 @@ def main():
     phase("card", t0)
 
     t0 = time.perf_counter()
-    build.build_all([k["csrc"] for k in KERNELS])
-    for k in KERNELS:
-        for line in build.BUILD_LOGS.get(k["csrc"], "").splitlines():
+    sources = sorted({k["csrc"] for k in KERNELS})
+    build.build_all(sources)
+    for src in sources:
+        for line in build.BUILD_LOGS.get(src, "").splitlines():
             if "registers" in line or "spill" in line:
-                print(f"  {k['name']} ptxas: {line.strip()}", flush=True)
+                print(f"  {src} ptxas: {line.strip()}", flush=True)
     phase("build", t0)
 
     t0 = time.perf_counter()
     rows = {"egnn_pairwise_fwd": check_pairwise_kernel(egnn_fused, dev),
-            "egnn_pairwise_bwd": check_pairwise_bwd_kernel(egnn_fused, dev)}
+            "egnn_pairwise_bwd": check_pairwise_bwd_kernel(egnn_fused, dev),
+            **check_nbody_kernels(dev)}
     phase("kernels", t0)
 
+    paths = {}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        run_main_path(nt_main, KERNELS, data_dir, Path(tmp) / "out")
+        paths["serving"] = run_main_path(nt_main, KERNELS, data_dir,
+                                         Path(tmp) / "out")
     phase("main path", t0)
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        launches = run_train_path(nt_main, KERNELS, data_dir,
-                                  Path(tmp) / "out")
+        paths["train"] = run_train_path(nt_main, KERNELS, data_dir,
+                                        Path(tmp) / "out")
     phase("train path", t0)
 
     t0 = time.perf_counter()
     check_train_step(data_dir, dev)
     phase("train step", t0)
 
+    t0 = time.perf_counter()
+    paths["stretch"], _ = run_stretch(KERNELS, dev)
+    phase("stretch", t0)
+
+    t0 = time.perf_counter()
+    paths["gravity"], _ = run_gravity(KERNELS, dev)
+    phase("gravity", t0)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["generate"], paths["gravity main"] = \
+            run_generate_and_gravity_main(nt_main, KERNELS, Path(tmp))
+    phase("generate", t0)
+
+    # each kernel's launches on the path that runs it at full width
+    own_path = {"egnn_pairwise_fwd": "train", "egnn_pairwise_bwd": "train",
+                "nbody_charged_force": "stretch",
+                "nbody_charged_leapfrog": "stretch",
+                "nbody_gravity_accel": "gravity",
+                "nbody_gravity_leapfrog": "gravity"}
     out = []
     for k in KERNELS:
-        out.append({"name": k["name"], "route": k["route"],
+        name = k["name"]
+        out.append({"name": name, "route": k["route"],
                     "source": k["source"], "replaces": k["replaces"],
-                    "status": "ported", "launches": launches[k["name"]],
-                    **rows[k["name"]]})
+                    "status": "ported",
+                    "launches": paths[own_path[name]][name],
+                    "path": own_path[name],
+                    "launches_by_path": {p: c[name] for p, c in paths.items()},
+                    **rows[name]})
     print(json.dumps({"kernels": out}), flush=True)
     print(f"total: {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 Each source is compiled by ``nvcc`` into a plain shared library with a C
 interface and loaded with ctypes. Libraries are named by a hash of their
-source and flags, in ``nonode_tpu_torch/_build/`` (git-ignored), so a source
-is rebuilt only when it changes. Nothing is built when a module is imported:
+source, the shared headers (``csrc/*.cuh``) and the flags, in
+``nonode_tpu_torch/_build/`` (git-ignored), so a source is rebuilt only when
+it or a header changes. Nothing is built when a module is imported:
 the first launch builds, or a caller builds every source at once
 (``build_all``), one ``nvcc`` process per source, all started together.
 """
@@ -41,7 +42,8 @@ def nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    text = (CSRC / source).read_bytes()
+    text = (CSRC / source).read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
 
@@ -50,7 +52,7 @@ def build_all(sources) -> float:
     """Compile every source not built yet, in parallel. Returns the wall
     seconds. Raises with nvcc's stderr when a build fails."""
     t0 = time.perf_counter()
-    todo = [s for s in sources if not library_path(s).exists()]
+    todo = [s for s in dict.fromkeys(sources) if not library_path(s).exists()]
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -51,12 +51,15 @@ class SpectralConv(nn.Module):
         w = torch.complex(self.weights1[..., 0].float(),
                           self.weights1[..., 1].float())      # [in, out, modes]
         out_ft = torch.einsum("m...i,iom->m...o", x_ft, w)
-        # A real signal has a real zero-frequency term: irfft drops its
-        # imaginary part on the CPU, and it is dropped here explicitly so
-        # that cuFFT's c2r transform cannot read it either.
-        out_ft = torch.cat([torch.complex(out_ft[:1].real,
-                                          torch.zeros_like(out_ft[:1].real)),
-                            out_ft[1:]])
+        # A real signal has a real zero-frequency term and, for even T, a
+        # real Nyquist term (index T/2, kept when modes > T/2): irfft drops
+        # their imaginary parts on the CPU, and they are dropped here
+        # explicitly so that cuFFT's c2r transform cannot read them either.
+        imag = out_ft.imag.clone()
+        imag[0] = 0.0
+        if t % 2 == 0 and out_ft.shape[0] > t // 2:
+            imag[t // 2] = 0.0
+        out_ft = torch.complex(out_ft.real, imag)
         # irfft zero-pads the missing high frequencies, as irfftn(s=[T]).
         return torch.fft.irfft(out_ft, n=t, dim=0)
 

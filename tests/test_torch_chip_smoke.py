@@ -57,3 +57,23 @@ def test_committed_split_is_found_or_named_as_missing(tmp_path):
     with pytest.raises(FileNotFoundError,
                        match="vel_test_charged5_initvel1small.npy, charges_"):
         chip_smoke.committed_split(tmp_path)
+
+
+def test_nbody_bound_counts_pairs_operations_and_bytes():
+    # a 99-step charged block at N=1000: 99 x 1000 x 999 pairs at 22 FLOP,
+    # about 0.0325 ms at 67 TFLOP/s
+    ms, by = chip_smoke.nbody_bound_ms("nbody_charged_leapfrog", 1000, 99)
+    flops = 99 * 1000 * 999 * 22
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * flops / chip_smoke.PEAK_FP32_FLOPS)
+    assert 0.032 < ms < 0.033
+    # the whole stretch run (20,000 steps) is about 6.6 ms, as bench.py counts
+    stretch = chip_smoke.nbody_bound_ms("nbody_charged_leapfrog", 1000, 20000)
+    assert 6.5 < stretch[0] < 6.7
+    # one force evaluation: 10^6 pairs, a third of a microsecond
+    ms, by = chip_smoke.nbody_bound_ms("nbody_gravity_accel", 1000)
+    assert by == "operations" and 3.2e-4 < ms < 3.4e-4
+    # a lone body has no pair: the bytes bound it
+    ms, by = chip_smoke.nbody_bound_ms("nbody_gravity_leapfrog", 1, 100)
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * 4 * 19 / chip_smoke.PEAK_BYTES)

@@ -1,5 +1,6 @@
 """Tests of the port's CUDA kernels (the pairwise chain's forward and
-backward), on the card only.
+backward, the N-body forces and leapfrog blocks) and of the spectral conv's
+cuFFT path, on the card only.
 
 Every test here is marked ``cuda`` and skips without a GPU (a CUDA kernel
 has no CPU mode). The file imports neither JAX nor nonode_tpu, so that it
@@ -8,7 +9,8 @@ runs on the card's machine, which has neither:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerance: max|kernel - plain| <= 1e-4 x max(1, max|plain|); both are fp32,
-with sums of up to 64 products taken in another order.
+with sums of up to 64 products (the N-body kernels: up to N pair terms, and
+up to 99 micro-steps) taken in another order.
 """
 
 import numpy as np
@@ -16,7 +18,9 @@ import pytest
 import torch
 
 from nonode_tpu_torch.ops.dense_graph import EGNNLayer
-from nonode_tpu_torch.ops.kernels import egnn_fused
+from nonode_tpu_torch.ops.kernels import egnn_fused, nbody_sim, pairwise
+from nonode_tpu_torch.ops.spectral import SpectralConv
+from nonode_tpu_torch.sim.simulators import ChargedSim, GravitySim
 
 RTOL = 1e-4
 
@@ -212,3 +216,98 @@ def test_egnn_layer_of_another_width_raises_on_the_card(dev):
     assert layer._use_fused(z(4, 5, 3), None)
     with torch.no_grad(), pytest.raises(ValueError, match="unsupported shape"):
         layer(z(4, 5, 3), z(4, 5, 48), z(5, 5, 2))
+
+
+def _charged_state(n, dev, seed=0):
+    loc, vel, _, q = ChargedSim(n_balls=n).init_state(
+        torch.Generator().manual_seed(seed))
+    return loc.to(dev), vel.to(dev), q.to(dev)
+
+
+def _gravity_state(n, dev, seed=0):
+    pos, vel, mass = (a.to(dev) for a in GravitySim(n_balls=n).init_state(
+        torch.Generator().manual_seed(seed)))
+    return pos, vel, pairwise.gravity_accel_reference(pos, mass), mass
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 129, 1000, 2500])
+def test_nbody_force_kernels_match_plain_versions(dev, n):
+    """2500 bodies span three sender tiles of the kernel."""
+    loc, _, q = _charged_state(n, dev, seed=n)
+    pos, _, _, mass = _gravity_state(n, dev, seed=n)
+    before = (pairwise.charged_force.launches, pairwise.gravity_accel.launches)
+    got = (pairwise.charged_force(loc, q), pairwise.gravity_accel(pos, mass))
+    torch.cuda.synchronize()
+    assert (pairwise.charged_force.launches,
+            pairwise.gravity_accel.launches) == (before[0] + 1, before[1] + 1)
+    _assert_close(got, (pairwise.charged_force_reference(loc, q),
+                        pairwise.gravity_accel_reference(pos, mass)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,steps", [(1, 3), (5, 99), (129, 20), (1000, 99)])
+def test_leapfrog_kernels_match_plain_versions_and_repeat(dev, n, steps):
+    """Each block kernel against its plain version; two launches give the
+    same bits (fixed-order sums, no atomics)."""
+    loc, vel, q = _charged_state(n, dev, seed=n)
+    got = nbody_sim.charged_leapfrog(loc, vel, q, steps)
+    again = nbody_sim.charged_leapfrog(loc, vel, q, steps)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _assert_close(got, nbody_sim.charged_leapfrog_reference(loc, vel, q,
+                                                            steps))
+    state = _gravity_state(n, dev, seed=n)
+    got = nbody_sim.gravity_leapfrog(*state, steps + 1)
+    again = nbody_sim.gravity_leapfrog(*state, steps + 1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _assert_close(got, nbody_sim.gravity_leapfrog_reference(*state,
+                                                            steps + 1))
+
+
+@pytest.mark.cuda
+def test_leapfrog_kernels_take_more_bodies_than_resident_warps(dev):
+    """Past the cooperative grid's cap each warp owns several bodies."""
+    cap = nbody_sim.launch_grid(10 ** 7)
+    n = 8 * cap + 37
+    assert nbody_sim.launch_grid(n) == cap
+    loc, vel, q = _charged_state(n, dev, seed=1)
+    got = nbody_sim.charged_leapfrog(loc, vel, q, 2)
+    _assert_close(got, nbody_sim.charged_leapfrog_reference(loc, vel, q, 2))
+
+
+@pytest.mark.cuda
+def test_nbody_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    loc, vel, q = _charged_state(8, dev)
+    with pytest.raises(ValueError, match="at least one micro-step"):
+        nbody_sim.charged_leapfrog(loc, vel, q, 0)
+    with pytest.raises(TypeError, match="float32"):
+        pairwise.charged_force(loc.double(), q)
+    with pytest.raises(ValueError, match="not contiguous"):
+        pairwise.gravity_accel(loc.T.contiguous().T, q.abs())
+    with pytest.raises(ValueError, match="vel has shape"):
+        nbody_sim.charged_leapfrog(loc, vel[:4], q, 1)
+    with pytest.raises(ValueError, match="on cpu"):
+        pairwise.charged_force(loc, q.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_steps,modes", [(2, 2), (4, 3), (10, 2)])
+def test_spectral_conv_on_the_card_matches_the_cpu(dev, t_steps, modes):
+    """With even T and modes > T/2 the last kept mode is the Nyquist term:
+    its imaginary part is dropped before cuFFT's c2r, as the CPU's irfft
+    drops it. Forward and weights1 gradient, card against CPU."""
+    conv = SpectralConv(6, 6, modes, device="cpu",
+                        generator=torch.Generator().manual_seed(t_steps))
+    card = SpectralConv(6, 6, modes, device=dev)
+    card.load_state_dict(conv.state_dict())
+    rng = np.random.RandomState(modes)
+    x = torch.tensor(rng.randn(t_steps, 3, 4, 6), dtype=torch.float32)
+    ct = torch.tensor(rng.randn(t_steps, 3, 4, 6), dtype=torch.float32)
+    outs = []
+    for module, where in ((conv, "cpu"), (card, dev)):
+        y = module(x.to(where))
+        (y * ct.to(where)).sum().backward()
+        outs.append((y.detach().cpu(), module.weights1.grad.cpu()))
+    _assert_close(outs[1], outs[0])

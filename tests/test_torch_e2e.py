@@ -36,7 +36,7 @@ from nonode_tpu_torch.data.nbody import NBodyDataset
 from nonode_tpu_torch.models.egno import EGNO
 from nonode_tpu_torch.train.checkpoint import save_params
 from nonode_tpu_torch.train.loop import EGNOExperiment
-from torch_port_util import write_charged_split
+from torch_port_util import write_charged_split, write_gravity_split
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 S, F, N = 8, 55, 5
@@ -180,21 +180,19 @@ def _tiny_preset(path, data):
     return path
 
 
-def test_training_main_matches_jax_driver(tmp_path):
-    """``--only_test false`` with a JSON preset: both drivers train two
-    epochs from the JAX package's seed-42 weights, validate at epoch 1, save
-    and reload the best checkpoint, and roll out the test split."""
+def _training_main_matches_jax(tmp_path, dataset, write_split):
     data = tmp_path / "data"
     data.mkdir()
     for seed, part in enumerate(("train", "valid", "test")):
-        _write_charged_split(data, part, seed=seed)
+        write_split(data, part, seed=seed, s=S, f=F, n=N)
     preset = _tiny_preset(tmp_path / "tiny.json", data)
     common = ["--model", "egno", "--only_test", "false", "--test_interval",
-              "1", "--traj_len", "2", "--config_by_file", str(preset)]
+              "1", "--traj_len", "2", "--config_by_file", str(preset),
+              "--dataset", dataset]
 
     jargs = jmain.get_args(common + ["--outf", str(tmp_path / "jax")])
     jbest, jtest, jepoch = jmain.main(jargs)
-    stem = jax_artifact_stem("egno", "charged", 42, N)
+    stem = jax_artifact_stem("egno", dataset, 42, N)
     jres = json.loads((tmp_path / "jax" / "tiny" / f"{stem}.json")
                       .read_text())
 
@@ -233,6 +231,44 @@ def test_training_main_matches_jax_driver(tmp_path):
     for key in ("targets", "preds", "energy_conservation"):
         np.testing.assert_allclose(art[key], jart[key], equal_nan=True,
                                    rtol=1e-4, atol=1e-4)
+
+
+def test_training_main_matches_jax_driver(tmp_path):
+    """``--only_test false`` with a JSON preset: both drivers train two
+    epochs from the JAX package's seed-42 weights, validate at epoch 1, save
+    and reload the best checkpoint, and roll out the test split."""
+    _training_main_matches_jax(tmp_path, "charged", write_charged_split)
+
+
+def test_gravity_training_main_matches_jax_driver(tmp_path):
+    """The same on gravity splits: windows from frame 0, masses as the pair
+    weights, the gravity energy in the artifact."""
+    _training_main_matches_jax(tmp_path, "gravity", write_gravity_split)
+
+
+@pytest.mark.parametrize("partition", ["train", "val", "test"])
+def test_gravity_split_loads_as_jax_does(tmp_path, partition):
+    """data/nbody.py's gravity branch: frame_0 = 0, [S, F, N, 3] kept as it
+    is, masses in place of charges (their products as pair weights), and
+    the positive-mass check."""
+    write_gravity_split(tmp_path, "valid" if partition == "val" else
+                        partition, seed=4, s=6, f=30)
+    kw = dict(partition=partition, dataset="gravity", traj_len=2,
+              max_samples=5)
+    jds, ds = JaxNBodyDataset(tmp_path, **kw), NBodyDataset(
+        tmp_path, device="cpu", **kw)
+    assert ds.start == jds.start == 0 and len(ds) == len(jds) == 5
+    for name in ("loc", "vel", "charges", "edge_weights"):
+        np.testing.assert_array_equal(getattr(ds, name).numpy(),
+                                      np.asarray(getattr(jds, name)))
+    np.testing.assert_array_equal(ds.out_indices(), jds.out_indices())
+    suffix = f"{ds.suffix}.npy"
+    masses = np.load(tmp_path / f"charges_{suffix}")
+    np.save(tmp_path / f"charges_{suffix}", -masses)
+    with pytest.raises(ValueError, match="should be positive"):
+        NBodyDataset(tmp_path, device="cpu", **kw)
+    with pytest.raises(AssertionError, match="should be positive"):
+        JaxNBodyDataset(tmp_path, **kw)
 
 
 def test_training_main_on_the_committed_split(tmp_path):

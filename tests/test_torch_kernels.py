@@ -152,8 +152,14 @@ def test_wrapper_takes_plain_version_only_on_cpu():
 
 def test_registry_points_at_sources_and_tpu_kernels():
     tpu_kernel = {"egnn_pairwise_fwd": "def _fwd_kernel",
-                  "egnn_pairwise_bwd": "def _bwd_kernel"}
+                  "egnn_pairwise_bwd": "def _bwd_kernel",
+                  "nbody_charged_force": "def _charged_kernel",
+                  "nbody_gravity_accel": "def _gravity_kernel",
+                  "nbody_charged_leapfrog": "def _charged_block_kernel",
+                  "nbody_gravity_leapfrog": "def _gravity_block_kernel"}
     assert [k["name"] for k in KERNELS] == list(tpu_kernel)
+    # every function of nonode_tpu that reaches pl.pallas_call has a kernel
+    assert len({k["replaces"] for k in KERNELS}) == 6
     for k in KERNELS:
         assert (REPO / k["source"]).is_file()
         assert k["source"].endswith(k["csrc"])
@@ -161,9 +167,10 @@ def test_registry_points_at_sources_and_tpu_kernels():
         text = (REPO / path).read_text().splitlines()[int(line) - 1]
         assert text.startswith(tpu_kernel[k["name"]]), text
         assert isinstance(k["wrapper"].launches, int)
-    for source in (egnn_fused.SOURCE, egnn_fused.BWD_SOURCE):
+    sources = sorted({k["csrc"] for k in KERNELS})
+    assert len(sources) == 4
+    for source in sources:
         lib = build.library_path(source)
         assert lib.parent == build.BUILD_DIR and lib.suffix == ".so"
         assert lib == build.library_path(source)          # content-hashed
-    assert build.library_path(egnn_fused.SOURCE) != \
-        build.library_path(egnn_fused.BWD_SOURCE)
+    assert len({build.library_path(s) for s in sources}) == len(sources)

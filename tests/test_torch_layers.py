@@ -107,7 +107,8 @@ def test_masked_mean_degree_clamp():
     assert torch.equal(out[0], torch.ones(2))
 
 
-@pytest.mark.parametrize("t_steps,modes", [(10, 2), (5, 3), (8, 4)])
+@pytest.mark.parametrize("t_steps,modes", [(10, 2), (5, 3), (8, 4), (2, 2),
+                                           (4, 3)])
 def test_spectral_ops_match_jax(t_steps, modes):
     rng = np.random.RandomState(t_steps)
     ch = 6

@@ -188,11 +188,12 @@ def test_fused_layer_gradients_match_jax_dense_layer(with_v):
         assert_close(ins[3].grad, jg[4], rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("t_steps,modes", [(10, 2), (5, 3)])
+@pytest.mark.parametrize("t_steps,modes", [(10, 2), (5, 3), (2, 2), (4, 3)])
 def test_spectral_weight_gradient_matches_jax(t_steps, modes):
     """d/d weights1 through rfft, the complex mode product, the dropped
-    imaginary part of the zero-frequency term and irfft. Tolerance 2e-5: the
-    FFTs round differently (pocketfft in JAX, torch's own on the CPU)."""
+    imaginary parts of the zero-frequency term (and, at (2, 2) and (4, 3),
+    of the Nyquist term) and irfft. Tolerance 2e-5: the FFTs round
+    differently (pocketfft in JAX, torch's own on the CPU)."""
     rng = np.random.RandomState(t_steps)
     x = rng.randn(t_steps, 3, 4, 6).astype(np.float32)
     ct = rng.randn(t_steps, 3, 4, 6).astype(np.float32)
@@ -206,8 +207,12 @@ def test_spectral_weight_gradient_matches_jax(t_steps, modes):
     (tc(xt) * t(ct)).sum().backward()
     assert_close(tc.weights1.grad, jg["w"], rtol=2e-5, atol=2e-5)
     assert_close(xt.grad, jx, rtol=2e-5, atol=2e-5)
-    # the imaginary part of the zero-frequency weights has no effect
+    # the imaginary part of the zero-frequency weights has no effect, nor
+    # has that of the Nyquist weights (a real input's Nyquist term is real)
     assert float(tc.weights1.grad[:, :, 0, 1].abs().max()) == 0.0
+    if t_steps % 2 == 0 and modes > t_steps // 2:
+        nyquist = tc.weights1.grad[:, :, t_steps // 2, 1]
+        assert float(nyquist.abs().max()) == 0.0
 
 
 def _models(n_layers=2, hidden=16, emb=8, seed=0, lr=1e-3):

@@ -51,3 +51,19 @@ def write_charged_split(d, partition="test", seed=0, s=8, f=55, n=5):
     np.save(d / f"charges_{suffix}.npy", charges.astype(np.float32))
     np.save(d / f"edges_{suffix}.npy",
             np.einsum("sik,sjk->sij", charges, charges).astype(np.float32))
+
+
+def write_gravity_split(d, partition="test", seed=0, s=8, f=55, n=5):
+    """A tiny gravity split in the reference ``.npy`` layout: loc/vel stored
+    [S, F, N, 3] (no transpose), positive masses in the ``charges`` file and
+    per-frame forces in the ``edges`` file."""
+    rng = np.random.RandomState(seed)
+    steps = 0.05 * rng.randn(s, f, n, 3)
+    loc = np.cumsum(steps, axis=1) + rng.randn(s, 1, n, 3)
+    vel = rng.randn(s, f, n, 3) * 0.3
+    masses = 1.0 + 0.1 * rng.randn(s, n, 1)
+    forces = rng.randn(s, f, n, 3)
+    suffix = f"{partition}_gravity{n}_initvel1small"
+    for name, a in (("loc", loc), ("vel", vel), ("charges", masses),
+                    ("edges", forces)):
+        np.save(d / f"{name}_{suffix}.npy", a.astype(np.float32))
