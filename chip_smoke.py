@@ -9,7 +9,9 @@ Phases, each timed on its own line:
    nvcc per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and on the edge cases, then both timed; the
-   backward kernel twice, bitwise equal;
+   backward and the N-body kernels twice, bitwise equal; the leapfrog block
+   kernels' launch and time a micro-step, and the share of it that the
+   probe without the pair sums takes;
 4. main path: ``nonode_tpu_torch.main --model egno --only_test true`` on the
    committed charged-5 test split at the canonical EGNO width (4 layers,
    hidden 64, T=10, batch 256, traj_len 20), weights from --seed 42. Checks
@@ -386,11 +388,7 @@ def check_nbody_kernels(dev):
                                       nbody_sim.charged_leapfrog_reference),
            "nbody_gravity_leapfrog": (nbody_sim.gravity_leapfrog,
                                       nbody_sim.gravity_leapfrog_reference)}
-    print(f"  block kernels at N={STRETCH_N}: cooperative grid of "
-          f"{nbody_sim.launch_grid(STRETCH_N)} (charged) and "
-          f"{nbody_sim.launch_grid(STRETCH_N, gravity=True)} (gravity) "
-          f"blocks of 256 threads", flush=True)
-    rows = {}
+    rows, blocks = {}, {}
     for name, (kernel, plain) in fns.items():
         for label, n, steps, args in nbody_cases(name, dev):
             as_tuple = lambda out: out if isinstance(out, tuple) else (out,)
@@ -430,7 +428,34 @@ def check_nbody_kernels(dev):
                 rows[name] = dict(max_abs_err=max(e for e, _ in errs), ms=ms,
                                   plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by, library_ms=None)
+                if "leapfrog" in name:
+                    blocks[name] = (nbody_sim.launch_shape(
+                        n, gravity="gravity" in name), ms, steps)
+                if name == "nbody_charged_leapfrog":
+                    probe_ms = device_ms(lambda: nbody_sim.leapfrog_probe(
+                        *args[:3], steps))
+    print(f"  {block_kernels_line(STRETCH_N, blocks, probe_ms)}", flush=True)
     return rows
+
+
+def block_kernels_line(n, blocks, probe_ms):
+    """The block kernels at n bodies: each one's cooperative launch and
+    device time a micro-step ({name: (launch_shape, ms, steps)}), then the
+    probe's (the charged kernel's micro-steps without the pair sums: the
+    exchange, staging and updates) time a micro-step and its share of the
+    charged kernel's."""
+    parts = []
+    for name, (shape, ms, steps) in blocks.items():
+        parts.append(
+            f"{name} {shape['blocks']} blocks of {shape['threads']} threads "
+            f"({shape['receivers_per_pass']} receivers a pass x "
+            f"{shape['warps_per_receiver']} warps each, {shape['passes']} "
+            f"pass{'es' if shape['passes'] > 1 else ''}), "
+            f"{1e3 * ms / steps:.3f} us per micro-step")
+    _, ms, steps = blocks["nbody_charged_leapfrog"]
+    return (f"block kernels at N={n}: {'; '.join(parts)}; probe without the "
+            f"pair sums {1e3 * probe_ms / steps:.3f} us per micro-step, "
+            f"{probe_ms / ms:.3f} of the charged kernel's")
 
 
 def reset_launches(kernels):

@@ -1,16 +1,16 @@
-// Pairwise N-body sums shared by nbody_pairwise.cu and nbody_leapfrog.cu.
+// Pairwise N-body force laws shared by nbody_pairwise.cu and
+// nbody_leapfrog.cu, and the sums of nbody_pairwise.cu (the leapfrog block
+// kernels have their own, with more warps to a receiver).
 //
-// One warp owns one receiver i. Its 32 lanes split the senders: lane l takes
-// j = l, l + 32, l + 64, ... in increasing order, then a fixed xor butterfly
-// adds the 32 partial sums. The order of every sum depends only on N, never
-// on the grid, so a result has the same bits from run to run and from one
-// grid size to another. No atomics.
+// pair_sum: one warp owns one receiver i. Its 32 lanes split the senders:
+// lane l takes j = l, l + 32, l + 64, ... in increasing order, then a fixed
+// xor butterfly adds the 32 partial sums. The order of every sum depends
+// only on N, never on the grid, so a result has the same bits from run to
+// run and from one grid size to another. No atomics.
 //
 // Senders are staged through shared memory in tiles of kTile, as planes of
 // x, y, z and the sender's weight (charge or mass). All positions are [N, 3]
-// row-major. Loads go through L2 only (__ldcg): the leapfrog kernels rewrite
-// positions between grid-wide barriers, and an SM's L1 is not coherent with
-// the writes of other SMs.
+// row-major. Loads go through L2 only (__ldcg).
 
 #pragma once
 

@@ -12,13 +12,18 @@ Counterparts of nonode_tpu/ops/pallas/nbody_sim.py:
   ``vel += acc * (dt/2); pos += vel * dt; acc = a(pos); vel += acc * (dt/2)``
   with the softened gravity of ``pairwise.gravity_accel``.
 
-On the card one launch is a persistent cooperative grid with one grid-wide
-barrier per micro-step (the source says why). Any N >= 1 is taken: beyond
-what the card holds resident at once, each warp owns several bodies. The
-sums are in a fixed order, so a launch gives the same bits every time.
-``steps`` must be at least 1 (``LargeNChargedSim`` never asks for 0). The
-wrappers take the plain version for CPU tensors only; for CUDA tensors they
-launch the kernel or raise.
+On the card one launch is a persistent cooperative grid, one block per SM,
+that keeps the bodies' state in shared memory for all its micro-steps and
+exchanges only the new positions, once a micro-step, as tagged 64-bit words
+that the other blocks poll (no grid barrier; the source says why and how).
+Beyond what the grid covers at once, each block owns its bodies in several
+passes; the owners' state must fit one block's shared memory (on an H100
+up to about 790,000 bodies for gravity, 1.18 million charged), and a launch
+for more raises. The sums are in a fixed order that depends on N alone, so
+a launch gives the same bits every time, and the same as one-step launches
+chained. ``steps`` must be at least 1 (``LargeNChargedSim`` never asks for
+0). The wrappers take the plain version for CPU tensors only; for CUDA
+tensors they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -69,20 +74,37 @@ def _bind():
     lib.nbody_gravity_leapfrog.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_float] * 4
         + [ctypes.c_void_p])
-    lib.nbody_leapfrog_grid.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.nbody_leapfrog_shape.argtypes = [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
+    lib.nbody_leapfrog_probe.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float]
+        + [ctypes.c_int, ctypes.c_void_p])
     for fn in (lib.nbody_charged_leapfrog, lib.nbody_gravity_leapfrog,
-               lib.nbody_leapfrog_grid):
+               lib.nbody_leapfrog_shape, lib.nbody_leapfrog_probe):
         fn.restype = ctypes.c_int
     return lib
 
 
-def launch_grid(n, gravity=False):
-    """Blocks of the cooperative grid a block kernel launches for n bodies on
-    the current CUDA device."""
-    grid = _bind().nbody_leapfrog_grid(int(n), int(bool(gravity)))
-    if grid < 0:
-        raise RuntimeError(f"occupancy query failed: cudaError {-grid}")
-    return grid
+SHAPE_KEYS = ("blocks", "threads", "receivers_per_pass", "warps_per_receiver",
+              "passes", "smem_bytes")
+
+
+def launch_shape(n, gravity=False):
+    """The cooperative launch a block kernel makes for n bodies on the
+    current CUDA device: blocks of threads, each owning
+    ``receivers_per_pass`` receivers summed by ``warps_per_receiver`` warps
+    each, in ``passes`` passes, and its dynamic shared memory."""
+    lib = _bind()
+    out = (ctypes.c_int * len(SHAPE_KEYS))()
+    raise_on_error(lib, "nbody_leapfrog_shape",
+                   lib.nbody_leapfrog_shape(int(n), int(bool(gravity)), out))
+    return dict(zip(SHAPE_KEYS, out))
+
+
+def _words(n, dev):
+    """The kernels' scratch: two buffers of tagged positions, [3, n] 64-bit
+    words each."""
+    return torch.empty((2, 3, n), dtype=torch.int64, device=dev)
 
 
 def charged_leapfrog(pos, vel, charges, steps, dt=0.001, k=1.0, max_f=100.0):
@@ -95,7 +117,7 @@ def charged_leapfrog(pos, vel, charges, steps, dt=0.001, k=1.0, max_f=100.0):
     dev = cuda_device(pos)
     n, q = check_bodies(pos, charges, vel=vel)
     pos_out, vel_out = (torch.empty_like(pos) for _ in range(2))
-    buf = torch.empty((2, n, 3), dtype=torch.float32, device=dev)
+    buf = _words(n, dev)
     lib = _bind()
     with torch.cuda.device(dev):
         err = lib.nbody_charged_leapfrog(
@@ -117,7 +139,7 @@ def gravity_leapfrog(pos, vel, acc, mass, steps, dt=0.001, g=1.0,
     dev = cuda_device(pos)
     n, m = check_bodies(pos, mass, vel=vel, acc=acc)
     pos_out, vel_out, acc_out = (torch.empty_like(pos) for _ in range(3))
-    buf = torch.empty((2, n, 3), dtype=torch.float32, device=dev)
+    buf = _words(n, dev)
     lib = _bind()
     with torch.cuda.device(dev):
         err = lib.nbody_gravity_leapfrog(
@@ -128,6 +150,42 @@ def gravity_leapfrog(pos, vel, acc, mass, steps, dt=0.001, g=1.0,
     raise_on_error(lib, "nbody_gravity_leapfrog", err)
     gravity_leapfrog.launches += 1
     return pos_out, vel_out, acc_out
+
+
+# The probe's schemes (``nbody_leapfrog_probe``): this design's micro-step
+# without the pair sums, then without waiting for the tags too, then without
+# reading the words at all; and the parts of the earlier grid-barrier
+# scheme (a barrier and a restage of every position per micro-step).
+PROBE_SCHEMES = {1: "exchange, staging and updates",
+                 2: "the same, each word read once without waiting",
+                 3: "the same, no word read",
+                 6: "grid-barrier scheme: drift, barrier and restage",
+                 4: "grid-barrier scheme: drift and barrier",
+                 5: "grid-barrier scheme: drift and restage"}
+
+
+def leapfrog_probe(pos, vel, charges, steps, dt=0.001, scheme=1):
+    """The charged block kernel's micro-steps with the pair sums left out
+    (``csrc/nbody_leapfrog.cu``, ``nbody_leapfrog_probe``): what a micro-step
+    costs besides the force pass, split as PROBE_SCHEMES says, in this design
+    or in the earlier grid-barrier design. CUDA tensors only; its outputs
+    are not the simulation's. No path calls it;
+    ``scripts/profile_torch_stretch.py --probe`` and chip_smoke.py time
+    it."""
+    steps = _check_steps(steps)
+    if scheme not in PROBE_SCHEMES:
+        raise ValueError(f"scheme={scheme}: one of {sorted(PROBE_SCHEMES)}")
+    dev = cuda_device(pos)
+    n, q = check_bodies(pos, charges, vel=vel)
+    pos_out, vel_out = (torch.empty_like(pos) for _ in range(2))
+    buf = _words(n, dev)
+    lib = _bind()
+    with torch.cuda.device(dev):
+        err = lib.nbody_leapfrog_probe(
+            *(t.data_ptr() for t in (pos, vel, q, pos_out, vel_out, buf)),
+            n, steps, dt, scheme, torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(lib, "nbody_leapfrog_probe", err)
+    return pos_out, vel_out
 
 
 charged_leapfrog.launches = 0

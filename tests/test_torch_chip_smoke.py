@@ -77,3 +77,20 @@ def test_nbody_bound_counts_pairs_operations_and_bytes():
     ms, by = chip_smoke.nbody_bound_ms("nbody_gravity_leapfrog", 1, 100)
     assert by == "bytes"
     assert ms == pytest.approx(1e3 * 4 * 19 / chip_smoke.PEAK_BYTES)
+
+
+def test_block_kernels_line_reports_the_launch_and_time_per_step():
+    shape = dict(blocks=125, threads=1024, receivers_per_pass=8,
+                 warps_per_receiver=4, passes=1, smem_bytes=16768)
+    line = chip_smoke.block_kernels_line(
+        1000, {"nbody_charged_leapfrog": (shape, 0.198, 99),
+               "nbody_gravity_leapfrog": (dict(shape, passes=2), 0.15, 100)},
+        0.099)
+    assert line.startswith(
+        "block kernels at N=1000: nbody_charged_leapfrog 125 blocks of 1024 "
+        "threads (8 receivers a pass x 4 warps each, 1 pass), 2.000 us per "
+        "micro-step; nbody_gravity_leapfrog ")
+    assert "4 warps each, 2 passes), 1.500 us per micro-step;" in line
+    # the probe's 0.099 ms over the charged kernel's 99 steps and 0.198 ms
+    assert line.endswith("probe without the pair sums 1.000 us per "
+                         "micro-step, 0.500 of the charged kernel's")

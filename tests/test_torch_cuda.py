@@ -246,10 +246,12 @@ def test_nbody_force_kernels_match_plain_versions(dev, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,steps", [(1, 3), (5, 99), (129, 20), (1000, 99)])
+@pytest.mark.parametrize("n,steps", [(1, 3), (5, 99), (129, 20), (1000, 99),
+                                     (2500, 5), (4097, 3)])
 def test_leapfrog_kernels_match_plain_versions_and_repeat(dev, n, steps):
     """Each block kernel against its plain version; two launches give the
-    same bits (fixed-order sums, no atomics)."""
+    same bits (fixed-order sums, no atomics). 2500 bodies stage their
+    senders in three tiles, 4097 in five, the last of one body."""
     loc, vel, q = _charged_state(n, dev, seed=n)
     got = nbody_sim.charged_leapfrog(loc, vel, q, steps)
     again = nbody_sim.charged_leapfrog(loc, vel, q, steps)
@@ -268,13 +270,59 @@ def test_leapfrog_kernels_match_plain_versions_and_repeat(dev, n, steps):
 
 @pytest.mark.cuda
 def test_leapfrog_kernels_take_more_bodies_than_resident_warps(dev):
-    """Past the cooperative grid's cap each warp owns several bodies."""
-    cap = nbody_sim.launch_grid(10 ** 7)
-    n = 8 * cap + 37
-    assert nbody_sim.launch_grid(n) == cap
+    """Past what the cooperative grid covers in one pass, each block owns
+    its receivers in several passes."""
+    cap = nbody_sim.launch_shape(10 ** 5)["blocks"]
+    n = nbody_sim.launch_shape(1)["receivers_per_pass"] * cap + 37
+    shape = nbody_sim.launch_shape(n)
+    assert (shape["blocks"], shape["passes"]) == (cap, 2)
     loc, vel, q = _charged_state(n, dev, seed=1)
     got = nbody_sim.charged_leapfrog(loc, vel, q, 2)
     _assert_close(got, nbody_sim.charged_leapfrog_reference(loc, vel, q, 2))
+    state = _gravity_state(n, dev, seed=1)
+    got = nbody_sim.gravity_leapfrog(*state, 2)
+    _assert_close(got, nbody_sim.gravity_leapfrog_reference(*state, 2))
+
+
+@pytest.mark.cuda
+def test_leapfrog_block_gives_the_bits_of_single_steps(dev):
+    """One launch of 99 micro-steps against 99 launches of one: the fused
+    kick and drift and the exchange between SMs change no arithmetic."""
+    loc, vel, q = _charged_state(1000, dev, seed=3)
+    block = nbody_sim.charged_leapfrog(loc, vel, q, 99)
+    steps = (loc, vel)
+    for _ in range(99):
+        steps = nbody_sim.charged_leapfrog(*steps, q, 1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(block, steps))
+    pos, vel, acc, mass = _gravity_state(1000, dev, seed=3)
+    block = nbody_sim.gravity_leapfrog(pos, vel, acc, mass, 99)
+    steps = (pos, vel, acc)
+    for _ in range(99):
+        steps = nbody_sim.gravity_leapfrog(*steps, mass, 1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(block, steps))
+
+
+@pytest.mark.cuda
+def test_leapfrog_launch_shape_and_probe(dev):
+    """One 512-thread block per 8 receivers up to one per SM; the probe
+    runs every scheme without counting a launch of the kernels."""
+    shape = nbody_sim.launch_shape(1000)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert shape == dict(blocks=min(125, sms), threads=512,
+                         receivers_per_pass=8, warps_per_receiver=2,
+                         passes=1 if sms >= 125 else 2,
+                         smem_bytes=shape["smem_bytes"])
+    loc, vel, q = _charged_state(1000, dev, seed=2)
+    before = nbody_sim.charged_leapfrog.launches
+    for scheme in nbody_sim.PROBE_SCHEMES:
+        out = nbody_sim.leapfrog_probe(loc, vel, q, 9, scheme=scheme)
+        torch.cuda.synchronize()
+        assert all(a.shape == loc.shape for a in out)
+    assert nbody_sim.charged_leapfrog.launches == before
+    with pytest.raises(ValueError, match="scheme=0"):
+        nbody_sim.leapfrog_probe(loc, vel, q, 9, scheme=0)
 
 
 @pytest.mark.cuda
@@ -290,6 +338,12 @@ def test_nbody_wrappers_refuse_what_the_kernels_do_not_take(dev):
         nbody_sim.charged_leapfrog(loc, vel[:4], q, 1)
     with pytest.raises(ValueError, match="on cpu"):
         pairwise.charged_force(loc, q.cpu())
+    # more bodies than the owners' state fits in shared memory
+    big = 10 ** 7
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        nbody_sim.charged_leapfrog(torch.zeros(big, 3, device=dev),
+                                   torch.zeros(big, 3, device=dev),
+                                   torch.ones(big, device=dev), 1)
 
 
 @pytest.mark.cuda
