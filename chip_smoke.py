@@ -8,10 +8,12 @@ Phases, each timed on its own line:
 2. build: every CUDA kernel of the port, from nonode_tpu_torch/csrc/, one
    nvcc per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes and on the edge cases, then both timed; the
-   backward and the N-body kernels twice, bitwise equal; the leapfrog block
-   kernels' launch and time a micro-step, and the share of it that the
-   probe without the pair sums takes;
+   the main paths' shapes and on the edge cases, then both timed; every
+   kernel twice, bitwise equal; the EGNO kernels (split TF32 on the tensor
+   cores) within 1e-5 relative at the slice shape, with their bound on that
+   route beside the fp32 one; the leapfrog block kernels' launch and time a
+   micro-step, and the share of it that the probe without the pair sums
+   takes;
 4. main path: ``nonode_tpu_torch.main --model egno --only_test true`` on the
    committed charged-5 test split at the canonical EGNO width (4 layers,
    hidden 64, T=10, batch 256, traj_len 20), weights from --seed 42. Checks
@@ -60,12 +62,18 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SEED = 42
 BATCH, TRAJ_LEN, LAYERS = 256, 20, 4
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3,
+# TF32 on the tensor cores (dense).
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_TF32_FLOPS = 495e12
 # kernel vs plain version: fp32 on both sides, sums of <= 64 products taken
 # in another order
 KERNEL_RTOL = 1e-4
+# the EGNO kernels at the slice shape: split TF32 keeps fp32-class error
+# (about 2^-21 a product; tests/test_torch_tf32_split.py), a single TF32 pass
+# would read about 1e-3
+SPLIT_TF32_RTOL = 1e-5
 # card vs CPU over two fed-back windows of the 4-layer model, and for the
 # gradients of one training step: the same fp32 arithmetic in another order
 # (cuBLAS, cuFFT and the kernels against the CPU) through 4 layers
@@ -75,7 +83,8 @@ SPLITS = ("test", "train", "valid")
 # N-body pair work: 22 fp32 operations per interacting pair (bench.py:359-363
 # counts them for the TPU kernel: difference 3, r^2 5, rsqrt and cube 4,
 # scale 2, accumulate 6, clip and integrate 2) and one rsqrt on the
-# special-function units: 16 per clock per SM, 132 SMs at 1.98 GHz.
+# special-function units: 16 per clock per SM, 132 SMs at 1.98 GHz (the
+# same rate bounds the EGNO kernels' exps and reciprocals).
 FLOP_PER_PAIR = 22
 PEAK_RSQRT = 16 * 132 * 1.98e9
 # per kernel: fp32 values read and written per body
@@ -157,23 +166,78 @@ def pairwise_inputs(g, n, h, e, seed, dev, coord_scale=1.0, isolated=None):
     return x, hi, hj, efea, mask, weights
 
 
+def pairwise_flops_per_edge(h, e):
+    """FLOP of the chain's forward for one edge: the three products as
+    multiply-adds (2 FLOP each: a1 @ W2, msg @ Wc1, ca . wc2) and the first
+    layer's r2 wg and efea @ We, plus 12 FLOP per hidden unit for bias adds
+    and the three SiLUs."""
+    return 2 * (2 * h * h + h + e * h + h) + 12 * h
+
+
+def pairwise_bytes(g, n, h, e, backward=False):
+    """Bytes the chain (or its backward) must move: each input read once,
+    each output written once."""
+    weights = 2 * h * h + 5 * h + e * h + 1
+    inputs = g * n * 3 + 2 * g * n * h + g * n * n * e + n * n + weights
+    outputs = g * n * 3 + g * n * h
+    if backward:
+        inputs += g * n * 3 + g * n * h                   # the cotangents
+        outputs = g * n * 3 + 2 * g * n * h + g * n * n * e + weights
+    return 4 * (inputs + outputs)
+
+
 def pairwise_bound_ms(g, mask, h, e):
     """Least time for the pairwise chain on an H100 SXM: the larger of its
     operations over the fp32 peak and its bytes (each input read once, each
     output written once) over the HBM rate. The operations are those of the
-    edges the [N, N] mask keeps, the only ones the outputs depend on: per
-    edge, the three products and the first layer as multiply-adds (2 FLOP
-    each), plus 12 FLOP per hidden unit for bias adds and the three SiLUs."""
+    edges the [N, N] mask keeps, the only ones the outputs depend on
+    (pairwise_flops_per_edge each)."""
     n = mask.shape[-1]
     edges = g * int((mask != 0).sum())
-    flops = edges * (2 * (2 * h * h + h + e * h + h) + 12 * h)
-    inputs = g * n * 3 + 2 * g * n * h + g * n * n * e + n * n \
-        + (2 * h * h + 5 * h + e * h + 1)
-    outputs = g * n * 3 + g * n * h
-    nbytes = 4 * (inputs + outputs)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    t_ops = edges * pairwise_flops_per_edge(h, e) / PEAK_FP32_FLOPS
+    t_bytes = pairwise_bytes(g, n, h, e) / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def pairwise_tc_bound_ms(g, mask, h, e, backward=False):
+    """Least time for the chain (or its backward) on the route its kernels
+    take: the HxH products (2 forward, 6 backward, 2 H^2 FLOP each per kept
+    edge) three times over, as split TF32, on the tensor cores at the TF32
+    peak; the rest of the FLOP (pairwise_flops_per_edge or
+    pairwise_bwd_flops_per_edge less the products) on the fp32 CUDA cores;
+    three SiLUs per hidden unit, an exp and a reciprocal each, on the
+    special-function units; the bytes as in the fp32 bound. The pipes work
+    side by side, so the bound is the longest of the four. Returns (ms, the
+    pipe that sets it)."""
+    n = mask.shape[-1]
+    edges = g * int((mask != 0).sum())
+    products = (6 if backward else 2) * 2 * h * h
+    total = (pairwise_bwd_flops_per_edge(h, e) if backward
+             else pairwise_flops_per_edge(h, e))
+    times = {"tensor cores": edges * 3 * products / PEAK_TF32_FLOPS,
+             "CUDA cores": edges * (total - products) / PEAK_FP32_FLOPS,
+             "special-function units": edges * 3 * h * 2 / PEAK_RSQRT,
+             "bytes": pairwise_bytes(g, n, h, e, backward) / PEAK_BYTES}
+    pipe = max(times, key=times.get)
+    return 1e3 * times[pipe], pipe
+
+
+def route_row(ms, fp32_bound, tc_bound):
+    """The kernels line's bound keys for an EGNO kernel: the split-TF32
+    bound its route is held to, with the fp32 bound beside it."""
+    (bound_ms, pipe), (fp32_ms, fp32_by) = tc_bound, fp32_bound
+    return dict(bound_ms=bound_ms,
+                bound_by="bytes" if pipe == "bytes" else "operations",
+                bound_pipe=pipe, fp32_bound_ms=fp32_ms, fp32_bound_by=fp32_by,
+                bound_share=bound_ms / ms)
+
+
+def bounds_text(fp32_bound, tc_bound, ms):
+    (fp32_ms, fp32_by), (tc_ms, pipe) = fp32_bound, tc_bound
+    return (f"bound {tc_ms:.4f} ms in split TF32 (set by the {pipe}; the "
+            f"route's bound, {tc_ms / ms:.3f} of it), {fp32_ms:.4f} ms in "
+            f"fp32 on the CUDA cores (by {fp32_by})")
 
 
 def check_pairwise_kernel(egnn_fused, dev):
@@ -188,22 +252,30 @@ def check_pairwise_kernel(egnn_fused, dev):
         args = pairwise_inputs(g, n, 64, 2, seed=n, dev=dev, **kw)
         with torch.no_grad():
             got = egnn_fused.pairwise_message(clip, *args)
+            again = egnn_fused.pairwise_message(clip, *args)
             torch.cuda.synchronize()
             want = egnn_fused.pairwise_message_reference(clip, *args)
         errs = []
-        for name, a, b in zip(("tot_f", "tot_m"), got, want):
+        for name, a, b, c in zip(("tot_f", "tot_m"), got, want, again):
             if not torch.isfinite(a).all():
                 raise AssertionError(f"{label}: kernel {name} not finite")
+            if not torch.equal(a, c):
+                raise AssertionError(f"{label}: {name} differs between two "
+                                     f"runs of the kernel")
             err = float((a - b).abs().max())
             scale = max(1.0, float(b.abs().max()))
             print(f"  {label}: {name} max_abs_err {err:.3e} "
                   f"max_rel_err {err / scale:.3e} "
-                  f"(tolerance {KERNEL_RTOL:g} x max(1, max|plain|))",
-                  flush=True)
+                  f"(tolerance {KERNEL_RTOL:g} x max(1, max|plain|)); two "
+                  f"runs bitwise equal", flush=True)
             if err > KERNEL_RTOL * scale:
                 raise AssertionError(f"{label}: {name} disagrees with the "
                                      f"plain version: {err} > "
                                      f"{KERNEL_RTOL} x {scale}")
+            if row is None and err > SPLIT_TF32_RTOL * scale:
+                raise AssertionError(f"{label}: {name} relative error "
+                                     f"{err / scale} over the split-TF32 "
+                                     f"budget {SPLIT_TF32_RTOL}")
             errs.append(err)
         if row is None:
             with torch.no_grad():
@@ -212,15 +284,17 @@ def check_pairwise_kernel(egnn_fused, dev):
                 plain_ms = device_ms(
                     lambda: egnn_fused.pairwise_message_reference(clip,
                                                                   *args))
-            bound_ms, bound_by = pairwise_bound_ms(g, args[4], 64, 2)
+            fp32 = pairwise_bound_ms(g, args[4], 64, 2)
+            tc = pairwise_tc_bound_ms(g, args[4], 64, 2)
             kept = g * int((args[4] != 0).sum())
             print(f"  kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms "
-                  f"(no yardstick), bound {bound_ms:.4f} ms by {bound_by} "
-                  f"over the {kept} edges the mask keeps; the kernel also "
-                  f"computes the {g * n * n - kept} masked-out edge rows; no "
-                  f"single PyTorch call computes this function", flush=True)
+                  f"(no yardstick), {bounds_text(fp32, tc, ms)}, over the "
+                  f"{kept} edges the mask keeps; the kernel also computes "
+                  f"the {g * n * n - kept} masked-out edge rows; no single "
+                  f"PyTorch call computes this function; slice-shape "
+                  f"relative error within {SPLIT_TF32_RTOL:g}", flush=True)
             row = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                       library_ms=None, **route_row(ms, fp32, tc))
     return row
 
 
@@ -248,13 +322,8 @@ def pairwise_bwd_bound_ms(g, mask, h, e):
     written once) over the HBM rate."""
     n = mask.shape[-1]
     edges = g * int((mask != 0).sum())
-    flops = edges * pairwise_bwd_flops_per_edge(h, e)
-    weights = 2 * h * h + 5 * h + e * h + 1
-    inputs = g * n * 3 + 2 * g * n * h + g * n * n * e + n * n + weights \
-        + g * n * 3 + g * n * h
-    outputs = g * n * 3 + 2 * g * n * h + g * n * n * e + weights
-    nbytes = 4 * (inputs + outputs)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    t_ops = edges * pairwise_bwd_flops_per_edge(h, e) / PEAK_FP32_FLOPS
+    t_bytes = pairwise_bytes(g, n, h, e, backward=True) / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -308,6 +377,10 @@ def check_pairwise_bwd_kernel(egnn_fused, dev):
                 raise AssertionError(f"{label}: {name} disagrees with the "
                                      f"plain version: {err} > "
                                      f"{KERNEL_RTOL} x {scale}")
+            if row is None and err > SPLIT_TF32_RTOL * scale:
+                raise AssertionError(f"{label}: {name} relative error "
+                                     f"{err / scale} over the split-TF32 "
+                                     f"budget {SPLIT_TF32_RTOL}")
             errs.append(err)
             worst = max(worst, (err / scale, name))
         print(f"  {label}: backward max_abs_err {max(errs):.3e}, worst "
@@ -320,13 +393,15 @@ def check_pairwise_bwd_kernel(egnn_fused, dev):
             plain_ms = device_ms(
                 lambda: egnn_fused.pairwise_message_bwd_reference(
                     clip, *args, *cot))
-            bound_ms, bound_by = pairwise_bwd_bound_ms(g, args[4], 64, 2)
+            fp32 = pairwise_bwd_bound_ms(g, args[4], 64, 2)
+            tc = pairwise_tc_bound_ms(g, args[4], 64, 2, backward=True)
             print(f"  backward kernel {ms:.4f} ms (both launches), plain "
-                  f"version {plain_ms:.4f} ms (no yardstick), bound "
-                  f"{bound_ms:.4f} ms by {bound_by}; no single PyTorch call "
-                  f"computes this function", flush=True)
+                  f"version {plain_ms:.4f} ms (no yardstick), "
+                  f"{bounds_text(fp32, tc, ms)}; no single PyTorch call "
+                  f"computes this function; slice-shape relative error "
+                  f"within {SPLIT_TF32_RTOL:g}", flush=True)
             row = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                       library_ms=None, **route_row(ms, fp32, tc))
     return row
 
 

@@ -17,43 +17,58 @@
 //   defea[i,j] = dpre1[i,j] @ We^T
 // and the nine weight gradients summed over every edge of every graph.
 //
-// What bounds it on an H100: six H x H products per edge (12 H^2 FLOP, 49
-// kFLOP at H = 64) against node-level tensors in and out, so the fp32 CUDA
-// cores (67 TFLOP/s), not HBM, set the bound. What the design does about it:
-// nothing per edge reaches device memory except defea. One thread computes
-// one edge. A block owns whole graphs (five at N = 5), so the sums over
-// senders j (dhi, the first half of dx) and over receivers i (dhj, the second
-// half) both run inside the block, through shared memory, in a fixed order.
-// Larger graphs (N > 11) are walked in tiles of 128 edges and the block adds
-// each tile's node sums to its own outputs.
-//
-// The weight gradients need a sum across blocks, which run in no order. Each
-// block writes its partial sums to its own slot of a scratch buffer, and a
-// second launch adds the slots in block order. No atomics, so the result does
-// not change from run to run. Inside a block, each thread owns a fixed slice
-// of every weight gradient and reads the per-edge operands (a1, dpre2, msg,
-// dcpre, dpre1) from shared memory in edge order.
-//
-// Shared memory holds five [128][H + 1] rows of per-edge vectors (166 KB at
-// H = 64) plus W2 and Wc1 (32 KB): one block per SM, set with
-// cudaFuncAttributeMaxDynamicSharedMemorySize. The pre-activations are kept
-// until their SiLU derivative is taken, then overwritten in place by the
-// activations the weight products need. Only H = 64, the width of every
-// configuration in model_confs.yaml, is instantiated.
+// What bounds it on an H100: six HxH products per edge (12 H^2 FLOP, 49
+// kFLOP at H = 64) against node-level tensors in and out, so operations, not
+// HBM, set the bound. What the design does about it:
+// - All six products run on the tensor cores in split TF32 (egnn_tf32.cuh,
+//   mma.sync): the recomputed silu(pre1) @ W2 and silu(pre2) @ Wc1; dcpre @
+//   Wc1^T and dpre2 @ W2^T, which read the staged W in the transposed
+//   fragment layout, with no transposed copy; and the weight gradients
+//   msg^T dcpre (dWc1) and a1^T dpre2 (dW2), products over the tile's edge
+//   dimension that read the per-edge tiles column-major. The elementwise
+//   work (SiLU and its derivative with expf and IEEE division, the clip
+//   gate, the mask), the E <= 4 columns of efea @ We and dpre1 @ We^T and
+//   the vector gradients stay in fp32 on the CUDA cores.
+// - A unit is floor(128 / N^2) whole graphs (at least one; five at N = 5),
+//   walked in tiles of 128 edge rows (a graph of N > 11 spans several; the
+//   block adds each tile's node sums to its outputs). A graph is never split
+//   across blocks, so the sums over senders j (dhi, the first half of dx) and
+//   over receivers i (dhj, the second half) run inside the block through
+//   shared memory in a fixed order.
+// - Each warp owns 16 rows of the tile through the per-edge stages, and
+//   works on the accumulators where it can: pre2 takes b2 there; cpre takes
+//   bc1, and cw = silu(cpre) . wc2 is summed per row across the 4 lanes that
+//   hold it; dpre1 takes silu'(pre1), with dpre1 . wg and dpre1 @ We^T summed
+//   the same way, and writes a1 back over pre1 for dW2. The weight-gradient
+//   products, which sum over all rows, and the node sums follow block
+//   barriers: dWc1 before dpre1 overwrites dcpre, dW2 after a1 is written.
+// - Persistent grid: one block of 256 threads (8 warps) per SM; shared
+//   memory holds W2 and Wc1 as {big, small} pairs (68 KB, staged once per
+//   block with cp.async, overlapped with the first tile's first layer) and
+//   four [128][H + 4] per-edge tiles (139 KB): pre1, then a1; pre2, then msg;
+//   cpre, then dcpre, then dpre1; sigmoid(cpre), then dpre2. 214 KB in all,
+//   so 8 warps an SM: four tiles of 128 rows are live at once.
+// - The weight gradients need a sum across blocks, which run in no order.
+//   Each tile's dW2 and dWc1 are tensor-core products from zero, added in
+//   fp32 to the block's sums in its own slot of the scratch buffer; the
+//   vector gradients are summed in per-lane registers across all the
+//   block's units and written to the slot at the end. A second launch adds
+//   the slots in block order (one slot per SM, not one per 125 rows). No
+//   atomics, a static assignment of units to blocks: two runs give the same
+//   bits.
+// - Masked-out rows (the diagonal) are computed and multiplied by the mask,
+//   as the plain version does, so a non-finite row propagates.
+// Only H = 64, the width of every configuration in model_confs.yaml, is
+// instantiated; the code is templated on H for other widths.
 //
 // The TPU kernel's (8,128) padding, its rows=800 VMEM budget and the weight
 // gradients it accumulates across its sequential grid have no counterpart here.
 
-#include <cuda_runtime.h>
+#include "egnn_tf32.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;     // edges per tile, one per thread
-constexpr int kWarps = kThreads / 32;
-constexpr float kClip = 100.0f;
-
-__device__ __forceinline__ float sigmoid(float z) { return 1.0f / (1.0f + expf(-z)); }
-__device__ __forceinline__ float silu(float z) { return z / (1.0f + expf(-z)); }
+using namespace egnn_tc;
 
 // Layout of one block's partial weight gradients (and of the reduced output):
 // dW2 [H][H], dWc1 [H][H], dwg, db1, db2, dbc1, dwc2 [H] each, dwe [E][H], dbc2.
@@ -61,20 +76,86 @@ __host__ __device__ constexpr long long partial_floats(int h, int e) {
   return 2LL * h * h + 5LL * h + (long long)e * h + 1;
 }
 
-__host__ __device__ inline int graphs_per_block(int n) {
-  const int g = kThreads / (n * n);
+// A block's slot in the scratch buffer: rounded up to 32 floats, so that each
+// slot starts 128-byte aligned (the warps add their dW tiles there in float2).
+__host__ __device__ constexpr long long slot_floats(int h, int e) {
+  return (partial_floats(h, e) + 31) / 32 * 32;
+}
+
+__host__ __device__ inline int graphs_per_unit(int n) {
+  const int g = kRows / (n * n);
   return g > 0 ? g : 1;
 }
 
 template <int H>
-size_t smem_bytes(int n, int e) {
-  return sizeof(float) * (size_t)(2 * H * H + 5 * H + e * H + n * n + n +
-                                  5 * kThreads * (H + 1) + kThreads * (5 + e) +
-                                  kWarps * H);
+constexpr size_t smem_floats() {
+  return 4 * H * padded<H>()           // W2, Wc1: big and small
+         + 4 * kRows * padded<H>()     // four per-edge tiles
+         + kRows * (4 + kMaxE + 1 + 3 + 1 + 1 + 2)   // rij r2, efea, dcw, drij,
+                                       // mask, mask / deg, receiver and sender
+         + 5 * H + kMaxE * H           // wg, b1, b2, bc1, wc2; we
+         + kMaxN;                      // deg
+}
+
+// slot[dW] (+)= A^T B over the first 8 ksteps rows of a tile, in split
+// TF32: A and B are [kRows][LD] per-edge tiles, dW [H][H] row-major in the
+// block's slot. The warp takes the m16 tile mi of dW's rows and WT n8 tiles
+// from column 8 nb0; first writes, otherwise it adds. The tile's product
+// starts from zero and is added in fp32: a tensor-core accumulator carried
+// over thousands of rows (N = 64, hundreds of graphs a block) drifts past
+// the kernels' 1e-4 tolerance, one carried over a tile's 128 rows does not.
+template <int H, int WT>
+__device__ __forceinline__ void tile_weight_grad(float* dw, const float* a_tile,
+                                                 const float* b_tile, int ksteps, int mi,
+                                                 int nb0, bool first) {
+  constexpr int LD = padded<H>();
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  float pc[WT][4];
+#pragma unroll
+  for (int j = 0; j < WT; ++j) pc[j][0] = pc[j][1] = pc[j][2] = pc[j][3] = 0.0f;
+  // A(m, k) = a_tile[k][m], m = 16 mi + g (+ 8), k = 8 ks + t4 (+ 4);
+  // B(k, n) = b_tile[k][n], n = 8 (nb0 + j) + g
+  const float* ap = a_tile + t4 * LD + 16 * mi + g;
+  const float* bp = b_tile + t4 * LD + 8 * nb0 + g;
+#pragma unroll 2
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const int k0 = 8 * ks * LD;
+    const float a[4] = {ap[k0], ap[k0 + 8], ap[k0 + 4 * LD], ap[k0 + 4 * LD + 8]};
+    uint32_t a_big[4], a_small[4];
+    split4(a, a_big, a_small);
+#pragma unroll
+    for (int j = 0; j < WT; j += 2) {
+      const float b[4] = {bp[k0 + 8 * j], bp[k0 + 4 * LD + 8 * j], bp[k0 + 8 * j + 8],
+                          bp[k0 + 4 * LD + 8 * j + 8]};
+      uint32_t b_big[4], b_small[4];
+      split4(b, b_big, b_small);
+      mma_tf32(pc[j], a_small, b_big[0], b_big[1]);
+      mma_tf32(pc[j + 1], a_small, b_big[2], b_big[3]);
+      mma_tf32(pc[j], a_big, b_small[0], b_small[1]);
+      mma_tf32(pc[j + 1], a_big, b_small[2], b_small[3]);
+      mma_tf32(pc[j], a_big, b_big[0], b_big[1]);
+      mma_tf32(pc[j + 1], a_big, b_big[2], b_big[3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < WT; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {            // rows g and g + 8
+      float2* q = reinterpret_cast<float2*>(dw + (16 * mi + g + 8 * h) * H + 8 * (nb0 + j) +
+                                            2 * t4);
+      float2 v = make_float2(pc[j][2 * h], pc[j][2 * h + 1]);
+      if (!first) {
+        const float2 o = *q;
+        v = make_float2(o.x + v.x, o.y + v.y);
+      }
+      *q = v;
+    }
+  }
 }
 
 template <int H>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ hi,
                          const float* __restrict__ hj, const float* __restrict__ efea,
                          const float* __restrict__ mask, const float* __restrict__ wg,
@@ -85,39 +166,43 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
                          const float* __restrict__ gtotf, const float* __restrict__ gtotm,
                          float* __restrict__ dx, float* __restrict__ dhi,
                          float* __restrict__ dhj, float* __restrict__ defea,
-                         float* __restrict__ partial, long long num_graphs, int n, int e,
-                         int clip_edges) {
-  static_assert(kThreads == 2 * H, "each thread owns half a column of dW2 and dWc1");
-  constexpr int R = H + 1;                 // padded row: no bank conflicts
-  extern __shared__ __align__(16) float smem[];
-  float* s_w2 = smem;                      // [H][H], [in][out]
-  float* s_wc1 = s_w2 + H * H;             // [H][H]
-  float* s_wg = s_wc1 + H * H;             // [H]
+                         float* __restrict__ partial, long long num_graphs, long long units,
+                         int n, int e, int clip_edges) {
+  constexpr int LD = padded<H>();
+  constexpr int CH = H / 4;                        // 4-column chunks of a row
+  constexpr int RPI = 32 / CH;                     // rows a warp covers at once
+  constexpr int RPL = 16 / RPI;                    // of its 16 rows, those a lane takes
+  constexpr int NT8 = H / 8;                       // n8 tiles along a row of dW
+  constexpr int WT = (H / 16) * NT8 / kWarps;      // m16 x n8 tiles of dW a warp owns
+  static_assert(CH <= 32 && 32 % CH == 0, "a row's chunks fit in a warp");
+  static_assert((H / 16) * NT8 % kWarps == 0 && NT8 % WT == 0 && WT % 2 == 0,
+                "a warp's weight-gradient tiles share one m16 row of tiles");
+  extern __shared__ __align__(128) float smem[];
+  float2* s_w2 = reinterpret_cast<float2*>(smem);  // [H][LD] {big, small}, [in][out]
+  float2* s_wc1 = s_w2 + H * LD;
+  float* s_p1 = reinterpret_cast<float*>(s_wc1 + H * LD);   // [kRows][LD]: pre1, then a1
+  float* s_p2 = s_p1 + kRows * LD;                 // pre2, then msg
+  float* s_x = s_p2 + kRows * LD;                  // cpre, dcpre, then dpre1
+  float* s_y = s_x + kRows * LD;                   // sigmoid(cpre), then dpre2
+  float* s_rij = s_y + kRows * LD;                 // [kRows][4]: rij, r2
+  float* s_ef = s_rij + kRows * 4;                 // [kRows][kMaxE]
+  float* s_dcw = s_ef + kRows * kMaxE;             // [kRows]
+  float* s_drij = s_dcw + kRows;                   // [kRows][3]
+  float* s_m = s_drij + kRows * 3;                 // [kRows]: mask[i,j]
+  float* s_mw = s_m + kRows;                       // [kRows]: mask[i,j] / deg[i]
+  int2* s_rs = reinterpret_cast<int2*>(s_mw + kRows);   // receiver, sender (-1: padding)
+  float* s_wg = s_mw + 3 * kRows;                  // [H]
   float* s_b1 = s_wg + H;
   float* s_b2 = s_b1 + H;
   float* s_bc1 = s_b2 + H;
   float* s_wc2 = s_bc1 + H;
-  float* s_we = s_wc2 + H;                 // [E][H]
-  float* s_mask = s_we + e * H;            // [N][N]
-  float* s_deg = s_mask + n * n;           // [N]
-  float* s_p1 = s_deg + n;                 // [T][R]: pre1, then a1
-  float* s_p2 = s_p1 + kThreads * R;       // [T][R]: pre2, then msg
-  float* s_dc = s_p2 + kThreads * R;       // [T][R]: dcpre
-  float* s_d2 = s_dc + kThreads * R;       // [T][R]: dpre2
-  float* s_d1 = s_d2 + kThreads * R;       // [T][R]: dpre1
-  float* s_r2 = s_d1 + kThreads * R;       // [T]
-  float* s_dcw = s_r2 + kThreads;          // [T]
-  float* s_drij = s_dcw + kThreads;        // [T][3]
-  float* s_ef = s_drij + 3 * kThreads;     // [T][E]
-  float* s_dwc2 = s_ef + kThreads * e;     // [warps][H]: per-warp sums of ca * dcw
+  float* s_we = s_wc2 + H;                         // [E][H]
+  float* s_deg = s_we + kMaxE * H;                 // [N]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  for (int k = tid; k < H * H; k += kThreads) {
-    s_w2[k] = w2[k];
-    s_wc1[k] = wc1[k];
-  }
+  stage_weights_async<H>(s_w2, s_wc1, w2, wc1);
   for (int k = tid; k < H; k += kThreads) {
     s_wg[k] = wg[k];
     s_b1[k] = b1[k];
@@ -126,342 +211,483 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
     s_wc2[k] = wc2[k];
   }
   for (int k = tid; k < e * H; k += kThreads) s_we[k] = we[k];
-  for (int k = tid; k < n * n; k += kThreads) s_mask[k] = mask[k];
-  __syncthreads();
   for (int i = tid; i < n; i += kThreads) {
     float d = 0.0f;
-    for (int j = 0; j < n; ++j) d += s_mask[i * n + j];
+    for (int j = 0; j < n; ++j) d += __ldg(mask + i * n + j);
     s_deg[i] = fmaxf(d, 1.0f);
   }
   __syncthreads();
 
+  // The warp's part of dW2 and dWc1: the m16 tile mi of their rows and WT n8
+  // tiles from column 8 nb0. Each tile's product is added to the block's sums
+  // in its own slot of the scratch buffer (the first tile writes them).
+  float* part = partial + (long long)blockIdx.x * slot_floats(H, e);
+  const int mi = warp * WT / NT8;                  // the warp's m16 tile of dW
+  const int nb0 = warp * WT - mi * NT8;            // and its first n8 tile
+  const int g = lane >> 2, t4 = lane & 3;          // the fragments' row and column
+  bool first_tile = true;
+  // the vector gradients: each lane sums its 4 columns over its rows
+  float v_wg[4], v_b1[4], v_b2[4], v_bc1[4], v_wc2[4], v_we[kMaxE][4];
+  float v_bc2 = 0.0f;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    v_wg[t] = v_b1[t] = v_b2[t] = v_bc1[t] = v_wc2[t] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kMaxE; ++k) v_we[k][t] = 0.0f;
+  }
+
   const float bias_c2 = __ldg(bc2);
   const int nn = n * n;
-  const long long g0 = (long long)blockIdx.x * graphs_per_block(n);
-  const long long left = num_graphs - g0;
-  const int ng = left < graphs_per_block(n) ? (int)left : graphs_per_block(n);
-  const int edges = ng * nn;
-  const int tiles = (edges + kThreads - 1) / kThreads;
-  const long long np = partial_floats(H, e);
-  float* part = partial + (long long)blockIdx.x * np;
+  const int gpu = graphs_per_unit(n);
+  const int r0 = warp * 16;                        // the warp's rows of a tile
+  const int ch = lane % CH;                        // a lane's chunk in the column passes
+  const int sub = lane / CH;                       // and its first row
+  const float4* hi4 = reinterpret_cast<const float4*>(hi);
+  const float4* hj4 = reinterpret_cast<const float4*>(hj);
+  const float4* gtotm4 = reinterpret_cast<const float4*>(gtotm);
+  bool staged = false;
+#define ROW4(buf, r) (*reinterpret_cast<float4*>((buf) + (r) * LD + 4 * ch))
 
-  for (int t = 0; t < tiles; ++t) {
-    const int t0 = t * kThreads;
-    const int cnt = min(kThreads, edges - t0);
-    const bool first = t == 0;
+  for (long long unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    const long long g0 = unit * gpu;
+    const long long left = num_graphs - g0;
+    const int ng = left < gpu ? (int)left : gpu;
+    const int edges = ng * nn;
+    const int tiles = (edges + kRows - 1) / kRows;
+    const long long nbase = g0 * n;                // the unit's first node
+    const long long ebase = g0 * nn;               // and first edge
 
-    // ---- per edge: recompute the chain and run its backward ----
-    {
-      // threads past the last edge compute edge 0 and contribute nothing
-      const int ge = t0 + tid < edges ? t0 + tid : 0;
-      const bool valid = t0 + tid < edges;
-      const int gl = ge / nn;
-      const int w = ge - gl * nn;
-      const int i = w / n;
-      const int j = w - i * n;
-      const long long node_i = (g0 + gl) * n + i;
-      const long long node_j = (g0 + gl) * n + j;
-      const long long edge = (g0 + gl) * nn + w;
-      const float mij = s_mask[i * n + j];
-      const float mw = mij / s_deg[i];
+    for (int t = 0; t < tiles; ++t) {
+      const int t0 = t * kRows;
+      const int cnt = min(kRows, edges - t0);
+      const bool first = t == 0;
 
-      const float d0 = x[node_i * 3 + 0] - x[node_j * 3 + 0];
-      const float d1 = x[node_i * 3 + 1] - x[node_j * 3 + 1];
-      const float d2 = x[node_i * 3 + 2] - x[node_j * 3 + 2];
-      const float r2 = d0 * d0 + d1 * d1 + d2 * d2;
-
-      float* p1 = s_p1 + tid * R;
-      float* p2 = s_p2 + tid * R;
-      float* dc = s_dc + tid * R;
-      float* dp2 = s_d2 + tid * R;
-      float* dp1 = s_d1 + tid * R;
-      float acc[H];
-
-      // pre1 = r2 * wg + efea @ we + hi + hj + b1
-#pragma unroll
-      for (int o = 0; o < H; ++o) acc[o] = r2 * s_wg[o];
-      const float* ef = efea + edge * e;
-      for (int c = 0; c < e; ++c) {
-        const float v = __ldg(ef + c);
-        s_ef[tid * e + c] = v;
-#pragma unroll
-        for (int o = 0; o < H; ++o) acc[o] = fmaf(v, s_we[c * H + o], acc[o]);
+      // ---- per row, a lane each: receiver, sender, rij, r2, efea, mask ----
+      if (lane < 16) {
+        const int r = r0 + lane;
+        const int ge = t0 + r;
+        float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, mij = 0.0f, mw = 0.0f;
+        int li = -1, lj = 0;                       // from nbase; -1 marks padding
+        if (ge < edges) {
+          const int gl = ge / nn;
+          const int w = ge - gl * nn;
+          const int i = w / n;
+          const int j = w - i * n;
+          li = gl * n + i;
+          lj = gl * n + j;
+          const float* xi = x + (nbase + li) * 3;
+          const float* xj = x + (nbase + lj) * 3;
+          d0 = __ldg(xi + 0) - __ldg(xj + 0);
+          d1 = __ldg(xi + 1) - __ldg(xj + 1);
+          d2 = __ldg(xi + 2) - __ldg(xj + 2);
+          mij = __ldg(mask + i * n + j);
+          mw = mij / s_deg[i];
+          const float* ef = efea + (ebase + ge) * e;
+          for (int k = 0; k < e; ++k) s_ef[r * kMaxE + k] = __ldg(ef + k);
+        }
+        for (int k = ge < edges ? e : 0; k < kMaxE; ++k) s_ef[r * kMaxE + k] = 0.0f;
+        s_rij[r * 4 + 0] = d0;
+        s_rij[r * 4 + 1] = d1;
+        s_rij[r * 4 + 2] = d2;
+        s_rij[r * 4 + 3] = d0 * d0 + d1 * d1 + d2 * d2;
+        s_m[r] = mij;
+        s_mw[r] = mw;
+        s_rs[r] = make_int2(li, lj);
       }
-      const float4* hi4 = reinterpret_cast<const float4*>(hi + node_i * H);
-      const float4* hj4 = reinterpret_cast<const float4*>(hj + node_j * H);
-#pragma unroll
-      for (int q = 0; q < H / 4; ++q) {
-        const float4 u = __ldg(hi4 + q);
-        const float4 v = __ldg(hj4 + q);
-        p1[4 * q + 0] = acc[4 * q + 0] + u.x + v.x + s_b1[4 * q + 0];
-        p1[4 * q + 1] = acc[4 * q + 1] + u.y + v.y + s_b1[4 * q + 1];
-        p1[4 * q + 2] = acc[4 * q + 2] + u.z + v.z + s_b1[4 * q + 2];
-        p1[4 * q + 3] = acc[4 * q + 3] + u.w + v.w + s_b1[4 * q + 3];
-      }
+      __syncwarp();
 
-      // pre2 = silu(pre1) @ W2 + b2
+      // ---- pre1 = r2 wg + efea @ we + hi + hj + b1 (padding rows: zeros) ----
+      {
+        float4 u[RPL], w[RPL];
 #pragma unroll
-      for (int o = 0; o < H; ++o) acc[o] = s_b2[o];
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float ak = silu(p1[k]);
-        const float4* wrow = reinterpret_cast<const float4*>(s_w2 + k * H);
+        for (int m = 0; m < RPL; ++m) {            // every row's loads in flight at once
+          const int2 rs = s_rs[r0 + sub + RPI * m];
+          u[m] = w[m] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (rs.x >= 0) {
+            u[m] = __ldg(hi4 + (nbase + rs.x) * CH + ch);
+            w[m] = __ldg(hj4 + (nbase + rs.y) * CH + ch);
+          }
+        }
+        const float4 wg4 = reinterpret_cast<const float4*>(s_wg)[ch];
+        const float4 b14 = reinterpret_cast<const float4*>(s_b1)[ch];
 #pragma unroll
-        for (int q = 0; q < H / 4; ++q) {
-          const float4 wv = wrow[q];
-          acc[4 * q + 0] = fmaf(ak, wv.x, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(ak, wv.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(ak, wv.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(ak, wv.w, acc[4 * q + 3]);
+        for (int m = 0; m < RPL; ++m) {
+          const int r = r0 + sub + RPI * m;
+          float4 p = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (s_rs[r].x >= 0) {
+            const float r2 = s_rij[r * 4 + 3];
+            float4 acc = make_float4(r2 * wg4.x, r2 * wg4.y, r2 * wg4.z, r2 * wg4.w);
+            for (int k = 0; k < e; ++k) {
+              const float v = s_ef[r * kMaxE + k];
+              const float4 we4 = reinterpret_cast<const float4*>(s_we + k * H)[ch];
+              acc.x = fmaf(v, we4.x, acc.x);
+              acc.y = fmaf(v, we4.y, acc.y);
+              acc.z = fmaf(v, we4.z, acc.z);
+              acc.w = fmaf(v, we4.w, acc.w);
+            }
+            p.x = acc.x + u[m].x + w[m].x + b14.x;
+            p.y = acc.y + u[m].y + w[m].y + b14.y;
+            p.z = acc.z + u[m].z + w[m].z + b14.z;
+            p.w = acc.w + u[m].w + w[m].w + b14.w;
+          }
+          ROW4(s_p1, r) = p;
         }
       }
-#pragma unroll
-      for (int o = 0; o < H; ++o) p2[o] = acc[o];
+      if (!staged) {    // the weights' copy ran under the first layer
+        split_weights<H>(s_w2, s_wc1);
+        staged = true;
+      }
+      __syncwarp();
 
-      // cpre = silu(pre2) @ Wc1 + bc1
+      // ---- pre2 = silu(pre1) @ W2 + b2 ----
+      float acc[H / 8][4];
+      rows_times_weight<H, false>(acc, s_p1 + r0 * LD, s_w2, Silu());
 #pragma unroll
-      for (int o = 0; o < H; ++o) acc[o] = s_bc1[o];
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float mk = silu(p2[k]);
-        const float4* wrow = reinterpret_cast<const float4*>(s_wc1 + k * H);
+      for (int nt = 0; nt < H / 8; ++nt) {
+        const float2 bias = *reinterpret_cast<const float2*>(s_b2 + 8 * nt + 2 * t4);
+        acc[nt][0] += bias.x;
+        acc[nt][1] += bias.y;
+        acc[nt][2] += bias.x;
+        acc[nt][3] += bias.y;
+      }
+      store_rows<H>(s_p2 + r0 * LD, acc);
+
+      // ---- cpre = silu(pre2) @ Wc1 + bc1; cw; the force's gradient ----
+      rows_times_weight<H, false>(acc, s_p2 + r0 * LD, s_wc1, Silu());
+      {
+        // z = cpre -> X and sigmoid(z) -> Y; each lane sums silu(z) wc2 over
+        // its columns of rows g and g + 8, the row's quad adds the four sums
+        // in a fixed butterfly
+        float p_lo = 0.0f, p_hi = 0.0f;
+        float* x_lo = s_x + (r0 + g) * LD + 2 * t4;
+        float* y_lo = s_y + (r0 + g) * LD + 2 * t4;
 #pragma unroll
-        for (int q = 0; q < H / 4; ++q) {
-          const float4 wv = wrow[q];
-          acc[4 * q + 0] = fmaf(mk, wv.x, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(mk, wv.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(mk, wv.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(mk, wv.w, acc[4 * q + 3]);
+        for (int nt = 0; nt < H / 8; ++nt) {
+          const int c = 8 * nt + 2 * t4;
+          const float z0 = acc[nt][0] + s_bc1[c], z1 = acc[nt][1] + s_bc1[c + 1];
+          const float z2 = acc[nt][2] + s_bc1[c], z3 = acc[nt][3] + s_bc1[c + 1];
+          const float q0 = sigmoid(z0), q1 = sigmoid(z1), q2 = sigmoid(z2), q3 = sigmoid(z3);
+          p_lo = fmaf(z0 * q0, s_wc2[c], p_lo);
+          p_lo = fmaf(z1 * q1, s_wc2[c + 1], p_lo);
+          p_hi = fmaf(z2 * q2, s_wc2[c], p_hi);
+          p_hi = fmaf(z3 * q3, s_wc2[c + 1], p_hi);
+          *reinterpret_cast<float2*>(x_lo + 8 * nt) = make_float2(z0, z1);
+          *reinterpret_cast<float2*>(x_lo + 8 * LD + 8 * nt) = make_float2(z2, z3);
+          *reinterpret_cast<float2*>(y_lo + 8 * nt) = make_float2(q0, q1);
+          *reinterpret_cast<float2*>(y_lo + 8 * LD + 8 * nt) = make_float2(q2, q3);
+        }
+        p_lo += __shfl_xor_sync(0xffffffffu, p_lo, 1);
+        p_hi += __shfl_xor_sync(0xffffffffu, p_hi, 1);
+        p_lo += __shfl_xor_sync(0xffffffffu, p_lo, 2);
+        p_hi += __shfl_xor_sync(0xffffffffu, p_hi, 2);
+        if (t4 < 2) {       // lane t4 = 0 takes row g, lane t4 = 1 row g + 8
+          const int r = r0 + g + 8 * t4;
+          const float cw = (t4 == 0 ? p_lo : p_hi) + bias_c2;
+          float dcw = 0.0f, dr0 = 0.0f, dr1 = 0.0f, dr2 = 0.0f;
+          const int li = s_rs[r].x;
+          if (li >= 0) {
+            const float mw = s_mw[r];
+            const float d0 = s_rij[r * 4 + 0], d1 = s_rij[r * 4 + 1], d2 = s_rij[r * 4 + 2];
+            float gf0 = __ldg(gtotf + (nbase + li) * 3 + 0) * mw;
+            float gf1 = __ldg(gtotf + (nbase + li) * 3 + 1) * mw;
+            float gf2 = __ldg(gtotf + (nbase + li) * 3 + 2) * mw;
+            if (clip_edges) {   // d clip / d f: 1 inside +-100, 0 outside (and for NaN)
+              gf0 *= fabsf(d0 * cw) <= kClip ? 1.0f : 0.0f;
+              gf1 *= fabsf(d1 * cw) <= kClip ? 1.0f : 0.0f;
+              gf2 *= fabsf(d2 * cw) <= kClip ? 1.0f : 0.0f;
+            }
+            dcw = gf0 * d0 + gf1 * d1 + gf2 * d2;
+            dr0 = gf0 * cw;
+            dr1 = gf1 * cw;
+            dr2 = gf2 * cw;
+          }
+          s_dcw[r] = dcw;
+          s_drij[r * 3 + 0] = dr0;
+          s_drij[r * 3 + 1] = dr1;
+          s_drij[r * 3 + 2] = dr2;
         }
       }
-
-      // cw = silu(cpre) . wc2 + bc2; the force and its gate
-      float cw = 0.0f;
+      __syncwarp();
+      // dcpre = dcw wc2 silu'(cpre); dwc2 += ca dcw, dbc1 += dcpre, dbc2 += dcw
+      {
+        const float4 wc24 = reinterpret_cast<const float4*>(s_wc2)[ch];
 #pragma unroll
-      for (int o = 0; o < H; ++o) cw = fmaf(silu(acc[o]), s_wc2[o], cw);
-      cw += bias_c2;
-      float gf0 = __ldg(gtotf + node_i * 3 + 0) * mw;
-      float gf1 = __ldg(gtotf + node_i * 3 + 1) * mw;
-      float gf2 = __ldg(gtotf + node_i * 3 + 2) * mw;
-      if (clip_edges) {   // d clip / d f: 1 inside +-100, 0 outside (and for NaN)
-        gf0 *= fabsf(d0 * cw) <= kClip ? 1.0f : 0.0f;
-        gf1 *= fabsf(d1 * cw) <= kClip ? 1.0f : 0.0f;
-        gf2 *= fabsf(d2 * cw) <= kClip ? 1.0f : 0.0f;
-      }
-      const float dcw = gf0 * d0 + gf1 * d1 + gf2 * d2;
-      float dr0 = gf0 * cw, dr1 = gf1 * cw, dr2v = gf2 * cw;
-
-      // dwc2 (per-warp sums of ca * dcw, fixed butterfly order) and dcpre
-#pragma unroll
-      for (int o = 0; o < H; ++o) {
-        const float z = acc[o];
-        const float s = sigmoid(z);
-        float v = valid ? z * s * dcw : 0.0f;
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        if (lane == 0) s_dwc2[warp * H + o] = v;
-        acc[o] = dcw * s_wc2[o] * (s * (1.0f + z * (1.0f - s)));
-        dc[o] = acc[o];
-      }
-
-      // dpre2 = (dcpre @ Wc1^T + gtotm * m) * silu'(pre2); pre2 -> msg
-      const float* gm = gtotm + node_i * H;
-#pragma unroll 2
-      for (int k = 0; k < H; ++k) {
-        const float4* wrow = reinterpret_cast<const float4*>(s_wc1 + k * H);
-        float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-#pragma unroll
-        for (int q = 0; q < H / 4; ++q) {
-          const float4 wv = wrow[q];
-          s0 = fmaf(acc[4 * q + 0], wv.x, s0);
-          s1 = fmaf(acc[4 * q + 1], wv.y, s1);
-          s2 = fmaf(acc[4 * q + 2], wv.z, s2);
-          s3 = fmaf(acc[4 * q + 3], wv.w, s3);
-        }
-        const float dm = ((s0 + s1) + (s2 + s3)) + __ldg(gm + k) * mij;
-        const float z = p2[k];
-        const float s = sigmoid(z);
-        dp2[k] = dm * (s * (1.0f + z * (1.0f - s)));
-        p2[k] = z * s;
-      }
-
-      // dpre1 = (dpre2 @ W2^T) * silu'(pre1); pre1 -> a1; dr2 = dpre1 . wg
-#pragma unroll
-      for (int o = 0; o < H; ++o) acc[o] = dp2[o];
-      float dr2 = 0.0f;
-#pragma unroll 2
-      for (int k = 0; k < H; ++k) {
-        const float4* wrow = reinterpret_cast<const float4*>(s_w2 + k * H);
-        float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-#pragma unroll
-        for (int q = 0; q < H / 4; ++q) {
-          const float4 wv = wrow[q];
-          s0 = fmaf(acc[4 * q + 0], wv.x, s0);
-          s1 = fmaf(acc[4 * q + 1], wv.y, s1);
-          s2 = fmaf(acc[4 * q + 2], wv.z, s2);
-          s3 = fmaf(acc[4 * q + 3], wv.w, s3);
-        }
-        const float z = p1[k];
-        const float s = sigmoid(z);
-        const float dp = ((s0 + s1) + (s2 + s3)) * (s * (1.0f + z * (1.0f - s)));
-        dp1[k] = dp;
-        p1[k] = z * s;
-        dr2 = fmaf(dp, s_wg[k], dr2);
-      }
-      dr0 += 2.0f * d0 * dr2;
-      dr1 += 2.0f * d1 * dr2;
-      dr2v += 2.0f * d2 * dr2;
-      s_drij[tid * 3 + 0] = dr0;
-      s_drij[tid * 3 + 1] = dr1;
-      s_drij[tid * 3 + 2] = dr2v;
-      s_r2[tid] = r2;
-      s_dcw[tid] = valid ? dcw : 0.0f;
-
-      // defea = dpre1 @ We^T
-      if (valid) {
-        for (int c = 0; c < e; ++c) {
-          float s = 0.0f;
-#pragma unroll 8
-          for (int k = 0; k < H; ++k) s = fmaf(dp1[k], s_we[c * H + k], s);
-          defea[edge * e + c] = s;
+        for (int m = 0; m < RPL; ++m) {
+          const int r = r0 + sub + RPI * m;
+          const float dcw = s_dcw[r];
+          float4& xv = ROW4(s_x, r);
+          const float4 s = ROW4(s_y, r);
+          const float4 z = xv;
+          xv.x = dcw * wc24.x * dsilu(z.x, s.x);
+          xv.y = dcw * wc24.y * dsilu(z.y, s.y);
+          xv.z = dcw * wc24.z * dsilu(z.z, s.z);
+          xv.w = dcw * wc24.w * dsilu(z.w, s.w);
+          v_wc2[0] = fmaf(z.x * s.x, dcw, v_wc2[0]);
+          v_wc2[1] = fmaf(z.y * s.y, dcw, v_wc2[1]);
+          v_wc2[2] = fmaf(z.z * s.z, dcw, v_wc2[2]);
+          v_wc2[3] = fmaf(z.w * s.w, dcw, v_wc2[3]);
+          v_bc1[0] += xv.x;
+          v_bc1[1] += xv.y;
+          v_bc1[2] += xv.z;
+          v_bc1[3] += xv.w;
+          if (ch == 0) v_bc2 += dcw;
         }
       }
+      __syncwarp();
+
+      // ---- dpre2 = (dcpre @ Wc1^T + gtotm[i] mask[i,j]) silu'(pre2); pre2 -> msg ----
+      rows_times_weight<H, true>(acc, s_x + r0 * LD, s_wc1, Identity());
+      store_rows<H>(s_y + r0 * LD, acc);
+      {
+        float4 gm[RPL];
+#pragma unroll
+        for (int m = 0; m < RPL; ++m) {            // every row's loads in flight at once
+          const int li = s_rs[r0 + sub + RPI * m].x;
+          gm[m] = li >= 0 ? __ldg(gtotm4 + (nbase + li) * CH + ch)
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+#pragma unroll
+        for (int m = 0; m < RPL; ++m) {
+          const int r = r0 + sub + RPI * m;
+          const bool valid = s_rs[r].x >= 0;
+          const float mij = s_m[r];
+          float4& yv = ROW4(s_y, r);
+          float4& pv = ROW4(s_p2, r);
+          const float4 z = pv;
+          const float4 s = make_float4(sigmoid(z.x), sigmoid(z.y), sigmoid(z.z), sigmoid(z.w));
+          float4 d = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (valid) {
+            d.x = (yv.x + gm[m].x * mij) * dsilu(z.x, s.x);
+            d.y = (yv.y + gm[m].y * mij) * dsilu(z.y, s.y);
+            d.z = (yv.z + gm[m].z * mij) * dsilu(z.z, s.z);
+            d.w = (yv.w + gm[m].w * mij) * dsilu(z.w, s.w);
+          }
+          yv = d;
+          pv = make_float4(z.x * s.x, z.y * s.y, z.z * s.z, z.w * s.w);
+          v_b2[0] += d.x;
+          v_b2[1] += d.y;
+          v_b2[2] += d.z;
+          v_b2[3] += d.w;
+        }
+      }
+      __syncthreads();
+
+      // ---- dWc1 += msg^T dcpre over the tile's rows (padding rows: dcpre 0) ----
+      tile_weight_grad<H, WT>(part + H * H, s_p2, s_x, (cnt + 7) / 8, mi, nb0, first_tile);
+      __syncthreads();
+
+      // ---- dpre1 = (dpre2 @ W2^T) silu'(pre1); dwg, db1, dwe ----
+      rows_times_weight<H, true>(acc, s_y + r0 * LD, s_w2, Identity());
+      {
+        // dpre1 on the accumulators (pre1 read at their places, a1 written
+        // back over it); dr2 = dpre1 . wg and defea = dpre1 @ We^T summed
+        // per row in the quad
+        const int r_lo = r0 + g, r_hi = r_lo + 8;
+        const bool v_lo = s_rs[r_lo].x >= 0, v_hi = s_rs[r_hi].x >= 0;
+        float* z_lo = s_p1 + r_lo * LD + 2 * t4;
+        float pw_lo = 0.0f, pw_hi = 0.0f, pe_lo[kMaxE], pe_hi[kMaxE];
+#pragma unroll
+        for (int m = 0; m < kMaxE; ++m) pe_lo[m] = pe_hi[m] = 0.0f;
+#pragma unroll
+        for (int nt = 0; nt < H / 8; ++nt) {
+          const int c = 8 * nt + 2 * t4;
+          float2* zlp = reinterpret_cast<float2*>(z_lo + 8 * nt);
+          float2* zhp = reinterpret_cast<float2*>(z_lo + 8 * LD + 8 * nt);
+          const float2 zl = *zlp, zh = *zhp;
+          const float s0 = sigmoid(zl.x), s1 = sigmoid(zl.y);
+          const float s2 = sigmoid(zh.x), s3 = sigmoid(zh.y);
+          *zlp = make_float2(zl.x * s0, zl.y * s1);     // pre1 -> a1, for dW2
+          *zhp = make_float2(zh.x * s2, zh.y * s3);
+          acc[nt][0] = v_lo ? acc[nt][0] * dsilu(zl.x, s0) : 0.0f;
+          acc[nt][1] = v_lo ? acc[nt][1] * dsilu(zl.y, s1) : 0.0f;
+          acc[nt][2] = v_hi ? acc[nt][2] * dsilu(zh.x, s2) : 0.0f;
+          acc[nt][3] = v_hi ? acc[nt][3] * dsilu(zh.y, s3) : 0.0f;
+          pw_lo = fmaf(acc[nt][0], s_wg[c], pw_lo);
+          pw_lo = fmaf(acc[nt][1], s_wg[c + 1], pw_lo);
+          pw_hi = fmaf(acc[nt][2], s_wg[c], pw_hi);
+          pw_hi = fmaf(acc[nt][3], s_wg[c + 1], pw_hi);
+#pragma unroll
+          for (int m = 0; m < kMaxE; ++m) {
+            if (m < e) {
+              pe_lo[m] = fmaf(acc[nt][0], s_we[m * H + c], pe_lo[m]);
+              pe_lo[m] = fmaf(acc[nt][1], s_we[m * H + c + 1], pe_lo[m]);
+              pe_hi[m] = fmaf(acc[nt][2], s_we[m * H + c], pe_hi[m]);
+              pe_hi[m] = fmaf(acc[nt][3], s_we[m * H + c + 1], pe_hi[m]);
+            }
+          }
+        }
+#pragma unroll
+        for (int x = 1; x <= 2; x <<= 1) {
+          pw_lo += __shfl_xor_sync(0xffffffffu, pw_lo, x);
+          pw_hi += __shfl_xor_sync(0xffffffffu, pw_hi, x);
+#pragma unroll
+          for (int m = 0; m < kMaxE; ++m) {
+            pe_lo[m] += __shfl_xor_sync(0xffffffffu, pe_lo[m], x);
+            pe_hi[m] += __shfl_xor_sync(0xffffffffu, pe_hi[m], x);
+          }
+        }
+        if (t4 < 2 && (t4 == 0 ? v_lo : v_hi)) {   // lane t4 = 0: row g; 1: row g + 8
+          const int r = t4 == 0 ? r_lo : r_hi;
+          const float dr2 = t4 == 0 ? pw_lo : pw_hi;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) s_drij[r * 3 + c] += 2.0f * s_rij[r * 4 + c] * dr2;
+          const long long edge = ebase + t0 + r;
+#pragma unroll
+          for (int m = 0; m < kMaxE; ++m)
+            if (m < e) defea[edge * e + m] = t4 == 0 ? pe_lo[m] : pe_hi[m];
+        }
+      }
+      store_rows<H>(s_x + r0 * LD, acc);
+      // dwg, db1, dwe: each lane sums its 4 columns over its rows
+#pragma unroll
+      for (int m = 0; m < RPL; ++m) {
+        const int r = r0 + sub + RPI * m;
+        const float r2 = s_rij[r * 4 + 3];
+        const float4 d = ROW4(s_x, r);
+        const float dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          v_wg[c] = fmaf(r2, dv[c], v_wg[c]);
+          v_b1[c] += dv[c];
+#pragma unroll
+          for (int k = 0; k < kMaxE; ++k)
+            if (k < e) v_we[k][c] = fmaf(s_ef[r * kMaxE + k], dv[c], v_we[k][c]);
+        }
+      }
+      __syncthreads();
+
+      // ---- dW2 += a1^T dpre2 over the tile's rows (padding rows: dpre2 0) ----
+      tile_weight_grad<H, WT>(part, s_p1, s_y, (cnt + 7) / 8, mi, nb0, first_tile);
+      first_tile = false;
+
+      // ---- node sums: over senders (dhi, dx) and over receivers (dhj, dx) ----
+      const int nodes = ng * n;
+      for (int q = tid; q < nodes * CH; q += kThreads) {
+        const int node = q / CH;
+        const int c4 = q - node * CH;
+        const int gl = node / n;
+        const int a = node - gl * n;
+        const int base_i = gl * nn + a * n - t0;   // edge (a, k) at base_i + k
+        const int base_j = gl * nn + a - t0;       // edge (k, a) at base_j + k n
+        float4 si = make_float4(0.0f, 0.0f, 0.0f, 0.0f), sj = si;
+        for (int k = 0; k < n; ++k) {
+          const int ei = base_i + k;
+          if (ei >= 0 && ei < cnt) {
+            const float4 v = *reinterpret_cast<const float4*>(s_x + ei * LD + 4 * c4);
+            si.x += v.x;
+            si.y += v.y;
+            si.z += v.z;
+            si.w += v.w;
+          }
+          const int ej = base_j + k * n;
+          if (ej >= 0 && ej < cnt) {
+            const float4 v = *reinterpret_cast<const float4*>(s_x + ej * LD + 4 * c4);
+            sj.x += v.x;
+            sj.y += v.y;
+            sj.z += v.z;
+            sj.w += v.w;
+          }
+        }
+        float4* oi = reinterpret_cast<float4*>(dhi + (nbase + node) * H) + c4;
+        float4* oj = reinterpret_cast<float4*>(dhj + (nbase + node) * H) + c4;
+        if (!first) {
+          const float4 pi = *oi, pj = *oj;
+          si = make_float4(pi.x + si.x, pi.y + si.y, pi.z + si.z, pi.w + si.w);
+          sj = make_float4(pj.x + sj.x, pj.y + sj.y, pj.z + sj.z, pj.w + sj.w);
+        }
+        *oi = si;
+        *oj = sj;
+      }
+      for (int q = tid; q < nodes * 3; q += kThreads) {
+        const int node = q / 3;
+        const int c = q - node * 3;
+        const int gl = node / n;
+        const int a = node - gl * n;
+        const int base_i = gl * nn + a * n - t0;
+        const int base_j = gl * nn + a - t0;
+        float si = 0.0f, sj = 0.0f;
+        for (int k = 0; k < n; ++k) {
+          const int ei = base_i + k;
+          if (ei >= 0 && ei < cnt) si += s_drij[ei * 3 + c];
+          const int ej = base_j + k * n;
+          if (ej >= 0 && ej < cnt) sj += s_drij[ej * 3 + c];
+        }
+        const long long out = (nbase + node) * 3 + c;
+        dx[out] = first ? si - sj : dx[out] + (si - sj);
+      }
+      __syncthreads();   // the next tile rewrites every per-edge tile
     }
-    __syncthreads();
+  }
+#undef ROW4
 
-    // ---- weight gradients over the tile's edges, in edge order ----
-    {
-      const int o = tid & (H - 1);
-      const int half = tid / H;          // this thread's rows: k = 2 r + half
-      float a[H / 2];
+  // ---- the vector gradients into the block's slot, summed over its lanes ----
+  // each (warp, sub) holds the sums of its rows for every column: its own
+  // stretch of s_p1 and s_p2, then a fixed-order sum over them
+  constexpr int V = (5 + kMaxE) * H + 1;
+  constexpr int slots = kWarps * RPI;
+  static_assert(slots * V <= 2 * kRows * LD, "the vector sums fit in two tiles");
+  float* vec = s_p1 + (warp * RPI + sub) * V;
 #pragma unroll
-      for (int r = 0; r < H / 2; ++r) a[r] = 0.0f;
-      for (int el = 0; el < cnt; ++el) {
-        const float dv = s_d2[el * R + o];
-        const float* row = s_p1 + el * R + half;
+  for (int t = 0; t < 4; ++t) {
+    const int c = 4 * ch + t;
+    vec[c] = v_wg[t];
+    vec[H + c] = v_b1[t];
+    vec[2 * H + c] = v_b2[t];
+    vec[3 * H + c] = v_bc1[t];
+    vec[4 * H + c] = v_wc2[t];
 #pragma unroll
-        for (int r = 0; r < H / 2; ++r) a[r] = fmaf(row[2 * r], dv, a[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < H / 2; ++r) {
-        float* dst = part + (2 * r + half) * H + o;                 // dW2
-        *dst = first ? a[r] : *dst + a[r];
-        a[r] = 0.0f;
-      }
-      for (int el = 0; el < cnt; ++el) {
-        const float dv = s_dc[el * R + o];
-        const float* row = s_p2 + el * R + half;
-#pragma unroll
-        for (int r = 0; r < H / 2; ++r) a[r] = fmaf(row[2 * r], dv, a[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < H / 2; ++r) {
-        float* dst = part + H * H + (2 * r + half) * H + o;         // dWc1
-        *dst = first ? a[r] : *dst + a[r];
-      }
-
-      float* vec = part + 2 * H * H;     // dwg, db1, db2, dbc1, dwc2, dwe, dbc2
-      if (half == 0) {
-        float swg = 0.0f, sb1 = 0.0f, sb2 = 0.0f;
-        for (int el = 0; el < cnt; ++el) {
-          const float dp = s_d1[el * R + o];
-          swg = fmaf(s_r2[el], dp, swg);
-          sb1 += dp;
-          sb2 += s_d2[el * R + o];
-        }
-        vec[o] = first ? swg : vec[o] + swg;
-        vec[H + o] = first ? sb1 : vec[H + o] + sb1;
-        vec[2 * H + o] = first ? sb2 : vec[2 * H + o] + sb2;
-        for (int c = 0; c < e; ++c) {
-          float s = 0.0f;
-          for (int el = 0; el < cnt; ++el) s = fmaf(s_ef[el * e + c], s_d1[el * R + o], s);
-          float* dst = vec + 5 * H + c * H + o;
-          *dst = first ? s : *dst + s;
-        }
-      } else {
-        float sbc1 = 0.0f, swc2 = 0.0f;
-        for (int el = 0; el < cnt; ++el) sbc1 += s_dc[el * R + o];
-        for (int w = 0; w < kWarps; ++w) swc2 += s_dwc2[w * H + o];
-        vec[3 * H + o] = first ? sbc1 : vec[3 * H + o] + sbc1;
-        vec[4 * H + o] = first ? swc2 : vec[4 * H + o] + swc2;
-        if (o == 0) {
-          float s = 0.0f;
-          for (int el = 0; el < cnt; ++el) s += s_dcw[el];
-          float* dst = vec + 5 * H + e * H;
-          *dst = first ? s : *dst + s;
-        }
-      }
-    }
-
-    // ---- node sums: over senders (dhi, dx) and over receivers (dhj, dx) ----
-    const int nodes = ng * n;
-    for (int q = tid; q < nodes * H; q += kThreads) {
-      const int node = q / H;
-      const int o = q - node * H;
-      const int gl = node / n;
-      const int a = node - gl * n;
-      const int base_i = gl * nn + a * n - t0;   // edge (a, k) at base_i + k
-      const int base_j = gl * nn + a - t0;       // edge (k, a) at base_j + k n
-      float si = 0.0f, sj = 0.0f;
-      for (int k = 0; k < n; ++k) {
-        const int ei = base_i + k;
-        if (ei >= 0 && ei < cnt) si += s_d1[ei * R + o];
-        const int ej = base_j + k * n;
-        if (ej >= 0 && ej < cnt) sj += s_d1[ej * R + o];
-      }
-      const long long out = (g0 * n + node) * H + o;
-      dhi[out] = first ? si : dhi[out] + si;
-      dhj[out] = first ? sj : dhj[out] + sj;
-    }
-    for (int q = tid; q < nodes * 3; q += kThreads) {
-      const int node = q / 3;
-      const int c = q - node * 3;
-      const int gl = node / n;
-      const int a = node - gl * n;
-      const int base_i = gl * nn + a * n - t0;
-      const int base_j = gl * nn + a - t0;
-      float si = 0.0f, sj = 0.0f;
-      for (int k = 0; k < n; ++k) {
-        const int ei = base_i + k;
-        if (ei >= 0 && ei < cnt) si += s_drij[ei * 3 + c];
-        const int ej = base_j + k * n;
-        if (ej >= 0 && ej < cnt) sj += s_drij[ej * 3 + c];
-      }
-      const long long out = (g0 * n + node) * 3 + c;
-      dx[out] = first ? si - sj : dx[out] + (si - sj);
-    }
-    __syncthreads();   // the tile's rows are rewritten by the next tile
+    for (int k = 0; k < kMaxE; ++k) vec[(5 + k) * H + c] = v_we[k][t];
+  }
+  if (ch == 0) vec[(5 + kMaxE) * H] = v_bc2;
+  __syncthreads();
+  const int nv = (5 + e) * H + 1;                  // dwg .. dwe, dbc2
+  for (int p = tid; p < nv; p += kThreads) {
+    const int at = p < (5 + e) * H ? p : (5 + kMaxE) * H;
+    float s = 0.0f;
+    for (int w = 0; w < slots; ++w) s += s_p1[w * V + at];
+    part[2 * H * H + p] = s;
   }
 }
 
 // Second pass: out[p] = sum over blocks b, in order, of partial[b][p].
 __global__ void egnn_pairwise_bwd_reduce(const float* __restrict__ partial,
-                                         float* __restrict__ out, int blocks, long long np) {
+                                         float* __restrict__ out, int blocks, long long slot,
+                                         long long np) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= np) return;
   float s = 0.0f;
-  for (int b = 0; b < blocks; ++b) s += partial[(long long)b * np + p];
+#pragma unroll 8
+  for (int b = 0; b < blocks; ++b) s += partial[(long long)b * slot + p];
   out[p] = s;
+}
+
+template <int H>
+cudaError_t grid_of(long long g, int n, int* grid, long long* units) {
+  const long long gpu = graphs_per_unit(n);
+  *units = (g + gpu - 1) / gpu;
+  return persistent_grid(egnn_pairwise_bwd_kernel<H>, sizeof(float) * smem_floats<H>(),
+                         *units, 1, grid);
 }
 
 }  // namespace
 
-// Floats of scratch the wrapper allocates for one call: one slot of partial
-// weight gradients per block.
+// Floats of scratch the wrapper allocates for one call on the current device:
+// one slot of partial weight gradients per block of the launch's grid. -1 if
+// the grid cannot be found.
 extern "C" long long egnn_pairwise_bwd_scratch_floats(long long g, int n, int h, int e) {
-  const long long gpb = graphs_per_block(n);
-  return (g + gpb - 1) / gpb * partial_floats(h, e);
+  if (g <= 0 || n < 1 || n > kMaxN || h != 64 || e < 1 || e > kMaxE) return -1;
+  int grid = 0;
+  long long units = 0;
+  if (grid_of<64>(g, n, &grid, &units) != cudaSuccess) return -1;
+  return grid * slot_floats(h, e);
 }
 
 // Plain C entry point, loaded with ctypes. Returns a cudaError_t (0 = both
 // kernels launched). Inputs as egnn_pairwise_fwd plus gtotf [G,N,3] and
 // gtotm [G,N,H]; outputs dx [G,N,3], dhi/dhj [G,N,H], defea [G,N,N,E] and
 // dweights, the flat [2H^2 + 5H + EH + 1] layout above; scratch holds
-// egnn_pairwise_bwd_scratch_floats floats. All fp32, contiguous, on the
-// current device.
+// egnn_pairwise_bwd_scratch_floats floats (256-byte aligned). All fp32,
+// contiguous, on the current device.
 extern "C" int egnn_pairwise_bwd(const float* x, const float* hi, const float* hj,
                                  const float* efea, const float* mask, const float* wg,
                                  const float* we, const float* b1, const float* w2,
@@ -470,23 +696,21 @@ extern "C" int egnn_pairwise_bwd(const float* x, const float* hi, const float* h
                                  const float* gtotm, float* dx, float* dhi, float* dhj,
                                  float* defea, float* dweights, float* scratch, long long g,
                                  int n, int h, int e, int clip_edges, void* stream_ptr) {
-  if (g <= 0 || n < 1 || n > 64 || h != 64 || e < 1) return (int)cudaErrorInvalidValue;
+  if (g <= 0 || n < 1 || n > kMaxN || h != 64 || e < 1 || e > kMaxE)
+    return (int)cudaErrorInvalidValue;
   constexpr int H = 64;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  const size_t smem = smem_bytes<H>(n, e);
-  cudaError_t err = cudaFuncSetAttribute(egnn_pairwise_bwd_kernel<H>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  int grid = 0;
+  long long units = 0;
+  cudaError_t err = grid_of<H>(g, n, &grid, &units);
   if (err != cudaSuccess) return (int)err;
-  const long long gpb = graphs_per_block(n);
-  const long long blocks = (g + gpb - 1) / gpb;
-  egnn_pairwise_bwd_kernel<H><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  egnn_pairwise_bwd_kernel<H><<<grid, kThreads, sizeof(float) * smem_floats<H>(), stream>>>(
       x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1, wc2, bc2, gtotf, gtotm, dx, dhi,
-      dhj, defea, scratch, g, n, e, clip_edges);
+      dhj, defea, scratch, g, units, n, e, clip_edges);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long np = partial_floats(H, e);
   egnn_pairwise_bwd_reduce<<<(unsigned)((np + 255) / 256), 256, 0, stream>>>(
-      scratch, dweights, (int)blocks, np);
+      scratch, dweights, grid, slot_floats(H, e), np);
   return (int)cudaGetLastError();
 }

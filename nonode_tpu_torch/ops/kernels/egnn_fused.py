@@ -35,6 +35,7 @@ BWD_SOURCE = "egnn_fused_bwd.cu"
 CLIP = 100.0
 HIDDEN = (64,)            # widths the kernel is instantiated for
 MAX_NODES = 64            # N * N <= 4096, as the TPU kernel's gate
+MAX_EDGE_FEATURES = 4     # E the kernels keep in registers
 
 # weights tuple layout (all pre-transposed to [in, out] / row vectors):
 #   wg [1,H], we [E,H], b1 [1,H], w2 [H,H], b2 [1,H],
@@ -129,8 +130,9 @@ def _check(name, t, shape, device):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
-    if name in ("hi", "hj") and t.data_ptr() % 16:
-        raise ValueError(f"{name} is not 16-byte aligned (read as float4)")
+    if name in ("hi", "hj", "w2", "wc1") and t.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned (read in 16-byte "
+                         f"pieces)")
 
 
 def _checked_inputs(x, hi, hj, efea, mask, weights):
@@ -141,9 +143,11 @@ def _checked_inputs(x, hi, hj, efea, mask, weights):
     g, n, _ = x.shape
     h = hi.shape[-1]
     e = efea.shape[-1]
-    if h not in HIDDEN or not 1 <= n <= MAX_NODES or e < 1:
+    if h not in HIDDEN or not 1 <= n <= MAX_NODES \
+            or not 1 <= e <= MAX_EDGE_FEATURES:
         raise ValueError(f"unsupported shape: N={n}, H={h}, E={e} "
-                         f"(kernel takes N<={MAX_NODES}, H in {HIDDEN}, E>=1)")
+                         f"(kernel takes N<={MAX_NODES}, H in {HIDDEN}, "
+                         f"1<=E<={MAX_EDGE_FEATURES})")
     weights = tuple(w.contiguous() for w in weights)
     dev = x.device
     for name, t, shape in (
@@ -213,8 +217,8 @@ def pairwise_message_bwd(clip_edges, x, hi, hj, efea, mask, weights, gtotf,
                          gtotm):
     """(dx, dhi, dhj, defea, dweights) of the chain for the cotangents
     (gtotf, gtotm): the backward kernel for CUDA tensors (its two launches,
-    the per-block pass and the fixed-order sum of the weight gradients, count
-    as one), the plain version for CPU tensors."""
+    the persistent blocks' pass and the fixed-order sum of their partial
+    weight gradients, count as one), the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return pairwise_message_bwd_reference(clip_edges, x, hi, hj, efea,
                                               mask, weights, gtotf, gtotm)
@@ -235,9 +239,13 @@ def pairwise_message_bwd(clip_edges, x, hi, hj, efea, mask, weights, gtotf,
                        device=dev)
     if g > 0:
         fn, scratch_floats = _bind_bwd()
-        scratch = torch.empty(scratch_floats(g, n, h, e), dtype=torch.float32,
-                              device=dev)
         with torch.cuda.device(dev):
+            # one slot per block of the launch's grid on this device
+            size = scratch_floats(g, n, h, e)
+            if size < 0:
+                raise RuntimeError("egnn_pairwise_bwd: no launch grid for "
+                                   f"N={n}, H={h}, E={e} on {dev}")
+            scratch = torch.empty(size, dtype=torch.float32, device=dev)
             err = fn(*(t.data_ptr() for t in (
                 x, hi, hj, efea, mask, *weights, gtotf, gtotm, dx, dhi, dhj,
                 defea, flat, scratch)),

@@ -94,3 +94,59 @@ def test_block_kernels_line_reports_the_launch_and_time_per_step():
     # the probe's 0.099 ms over the charged kernel's 99 steps and 0.198 ms
     assert line.endswith("probe without the pair sums 1.000 us per "
                          "micro-step, 0.500 of the charged kernel's")
+
+
+def test_pairwise_tc_bound_takes_the_longest_pipe_of_the_split_tf32_route():
+    h, e = 64, 2
+    off = 1.0 - torch.eye(5)
+    edges = 2560 * 20                         # the 51,200 kept edges
+    # forward: 2 products x 2 H^2 FLOP, three times over at the TF32 peak
+    ms, pipe = chip_smoke.pairwise_tc_bound_ms(2560, off, h, e)
+    assert pipe == "tensor cores"
+    assert ms == pytest.approx(1e3 * edges * 3 * 4 * h * h
+                               / chip_smoke.PEAK_TF32_FLOPS)
+    assert 0.0050 < ms < 0.0051               # 5.08 us
+    # the other pipes: the rest of the FLOP on the CUDA cores (0.98 us), an
+    # exp and a reciprocal per SiLU on the SFUs (4.70 us), the bytes (3.19 us)
+    rest = chip_smoke.pairwise_flops_per_edge(h, e) - 4 * h * h
+    assert rest == 1280
+    assert 1e3 * edges * rest / chip_smoke.PEAK_FP32_FLOPS == \
+        pytest.approx(0.000978, rel=1e-3)
+    assert 1e3 * edges * 6 * h / chip_smoke.PEAK_RSQRT == \
+        pytest.approx(0.00470, rel=1e-3)
+    assert 1e3 * chip_smoke.pairwise_bytes(2560, 5, h, e) \
+        / chip_smoke.PEAK_BYTES == pytest.approx(0.00319, rel=1e-3)
+    # backward: 6 products (15.25 us), above its SFU time
+    ms_b, pipe_b = chip_smoke.pairwise_tc_bound_ms(2560, off, h, e,
+                                                   backward=True)
+    assert pipe_b == "tensor cores"
+    assert ms_b == pytest.approx(3 * ms)
+    assert 0.01524 < ms_b < 0.01526
+    # both sit well under the fp32 bounds (13.5 and 40.6 us)
+    assert ms < chip_smoke.pairwise_bound_ms(2560, off, h, e)[0] / 2
+    assert ms_b < chip_smoke.pairwise_bwd_bound_ms(2560, off, h, e)[0] / 2
+    # a sparser mask keeps fewer edges; a tiny width moves more bytes than
+    # it computes; at width 16 the SFUs outlast the products
+    sparse = off.clone()
+    sparse[0] = 0.0
+    assert chip_smoke.pairwise_tc_bound_ms(2560, sparse, h, e)[0] == \
+        pytest.approx(ms * 16 / 20)
+    assert chip_smoke.pairwise_tc_bound_ms(2560, off, 1, 64)[1] == "bytes"
+    assert chip_smoke.pairwise_tc_bound_ms(2560, off, 16, 2)[1] == \
+        "special-function units"
+
+
+def test_route_row_holds_a_kernel_to_its_split_tf32_bound():
+    row = chip_smoke.route_row(0.05, (0.0135, "operations"),
+                               (0.005, "tensor cores"))
+    assert row.pop("bound_share") == pytest.approx(0.1)
+    assert row == dict(bound_ms=0.005, bound_by="operations",
+                       bound_pipe="tensor cores", fp32_bound_ms=0.0135,
+                       fp32_bound_by="operations")
+    assert chip_smoke.route_row(1.0, (0.2, "bytes"), (0.2, "bytes"))[
+        "bound_by"] == "bytes"
+    text = chip_smoke.bounds_text((0.0135, "operations"),
+                                  (0.005, "tensor cores"), 0.05)
+    assert text == ("bound 0.0050 ms in split TF32 (set by the tensor cores; "
+                    "the route's bound, 0.100 of it), 0.0135 ms in fp32 on "
+                    "the CUDA cores (by operations)")

@@ -8,9 +8,10 @@ runs on the card's machine, which has neither:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerance: max|kernel - plain| <= 1e-4 x max(1, max|plain|); both are fp32,
-with sums of up to 64 products (the N-body kernels: up to N pair terms, and
-up to 99 micro-steps) taken in another order.
+Tolerance: max|kernel - plain| <= 1e-4 x max(1, max|plain|); both are fp32
+(the EGNO kernels' products in split TF32, fp32-class), with sums of up to
+64 products (the N-body kernels: up to N pair terms, and up to 99
+micro-steps) taken in another order.
 """
 
 import numpy as np
@@ -158,6 +159,44 @@ def test_backward_kernel_is_deterministic(dev):
     a = _flat(egnn_fused.pairwise_message_bwd(False, *args, *cot))
     b = _flat(egnn_fused.pairwise_message_bwd(False, *args, *cot))
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _scaled_inputs(g, n, e, scale, dev):
+    """_bwd_inputs with hi and hj multiplied by ``scale``."""
+    (x, hi, hj, efea, mask, weights), cot = _bwd_inputs(g, n, e, False, None,
+                                                        dev)
+    return (x, hi * scale, hj * scale, efea, mask, weights), cot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["G=1", "G=2561", "N=64 E=3 many graphs",
+                                  "activations x200"])
+def test_split_tf32_kernels_on_the_persistent_grid(dev, case):
+    """Both EGNO kernels on the shapes that exercise the persistent grid and
+    the split TF32 products: fewer graphs than blocks; units that do not
+    divide evenly over the grid; N=64 graphs of 32 tiles each, several to a
+    block; activations of order 10^2, where the TF32 rounding of the
+    operands weighs most. Each within RTOL of its plain version, two runs
+    bitwise equal."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g, n, e, scale = {"G=1": (1, 5, 2, 1.0), "G=2561": (2561, 5, 2, 1.0),
+                      "N=64 E=3 many graphs": (2 * sms + 7, 64, 3, 1.0),
+                      "activations x200": (2560, 5, 2, 200.0)}[case]
+    args, cot = _scaled_inputs(g, n, e, scale, dev)
+    with torch.no_grad():
+        got = egnn_fused.pairwise_message(False, *args)
+        again = egnn_fused.pairwise_message(False, *args)
+        torch.cuda.synchronize()
+        want = egnn_fused.pairwise_message_reference(False, *args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _assert_close(got, want)
+    got = _flat(egnn_fused.pairwise_message_bwd(False, *args, *cot))
+    again = _flat(egnn_fused.pairwise_message_bwd(False, *args, *cot))
+    torch.cuda.synchronize()
+    want = _flat(egnn_fused.pairwise_message_bwd_reference(False, *args,
+                                                           *cot))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _assert_close(got, want)
 
 
 @pytest.mark.cuda
