@@ -11,9 +11,13 @@ Phases, each timed on its own line:
    the main paths' shapes and on the edge cases, then both timed; every
    kernel twice, bitwise equal; the EGNO kernels (split TF32 on the tensor
    cores) within 1e-5 relative at the slice shape, with their bound on that
-   route beside the fp32 one; the leapfrog block kernels' launch and time a
+   route beside the fp32 one; the charged block kernel as the stretch run
+   launches it (100 micro-steps recording the last) beside a 99-step block
+   without records; the leapfrog block kernels' launch and time a
    micro-step, and the share of it that the probe without the pair sums
-   takes;
+   takes; the force kernels' launch; then the first 3 frames of the stretch
+   run, one recorded block each, bitwise against the chain they replace
+   (a 99-step block, the drift, the record, the force kernel, the kick);
 4. main path: ``nonode_tpu_torch.main --model egno --only_test true`` on the
    committed charged-5 test split at the canonical EGNO width (4 layers,
    hidden 64, T=10, batch 256, traj_len 20), weights from --seed 42. Checks
@@ -29,8 +33,9 @@ Phases, each timed on its own line:
    wall of a training step;
 7. stretch: the 1000-body charged run (as bench.py:bench_large_n),
    ``LargeNChargedSim(n_balls=1000)``, T=20000, sample_freq 100, from
-   --seed 42: 199 finite frames, 200 launches of the force kernel and 199
-   of the charged block kernel, the energy drift in float64 under 5 x the
+   --seed 42: 199 finite frames, 1 launch of the force kernel (the kick
+   before the loop) and 199 of the charged block kernel (a frame each), the
+   energy drift in float64 under 5 x the
    first frame's kinetic energy (tests/test_large_sim.py:80-103); then the
    port's large-N and dense charged simulators from one state (N=20,
    T=300) on the card;
@@ -87,9 +92,10 @@ SPLITS = ("test", "train", "valid")
 # same rate bounds the EGNO kernels' exps and reciprocals).
 FLOP_PER_PAIR = 22
 PEAK_RSQRT = 16 * 132 * 1.98e9
-# per kernel: fp32 values read and written per body
+# per kernel: fp32 values read and written per body (the charged block with
+# the records that the stretch run asks for)
 NBODY_IO = {"nbody_charged_force": (4, 3), "nbody_gravity_accel": (4, 3),
-            "nbody_charged_leapfrog": (7, 6),
+            "nbody_charged_leapfrog": (7, 12),
             "nbody_gravity_leapfrog": (10, 9)}
 STRETCH_N, STRETCH_T, SAMPLE_FREQ = 1000, 20000, 100
 GRAVITY_T = 2000
@@ -422,16 +428,22 @@ def nbody_bound_ms(name, n, steps=1):
 
 
 def nbody_cases(name, dev):
-    """(label, n, steps, wrapper args) of a kernel: the main path's shape
-    first (N=1000; a 99-step block for the charged kernel, as the stretch
-    run's sample_freq - 1, and a 100-step block for gravity), then the edge
-    N. Inputs are the simulators' own initial states from a fixed seed."""
+    """(label, n, steps, wrapper args, records) of a kernel: the main path's
+    shape first (N=1000; for the charged kernel a 100-step block that
+    records its last micro-step, as the stretch run launches it a frame,
+    then a 99-step block without records; a 100-step block for gravity),
+    then the edge N. Inputs are the simulators' own initial states from a
+    fixed seed."""
     from nonode_tpu_torch.ops.kernels.pairwise import gravity_accel_reference
     from nonode_tpu_torch.sim.simulators import ChargedSim, GravitySim
 
-    steps = {"nbody_charged_leapfrog": SAMPLE_FREQ - 1,
-             "nbody_gravity_leapfrog": SAMPLE_FREQ}.get(name, 1)
-    for n in (STRETCH_N, 1, 5, 129):
+    path_steps = SAMPLE_FREQ if "leapfrog" in name else 1
+    records = name == "nbody_charged_leapfrog"
+    cases = [(STRETCH_N, path_steps, records)]
+    if records:
+        cases.append((STRETCH_N, SAMPLE_FREQ - 1, False))
+    cases += [(n, path_steps, records) for n in (1, 5, 129)]
+    for n, steps, record in cases:
         gen = torch.Generator().manual_seed(n)
         if "gravity" in name:
             pos, vel, mass = (a.to(dev) for a in
@@ -445,8 +457,18 @@ def nbody_cases(name, dev):
                               ChargedSim(n_balls=n).init_state(gen))
             args = {"nbody_charged_force": (loc, q),
                     "nbody_charged_leapfrog": (loc, vel, q, steps)}[name]
-        yield f"N={n}" + (f" steps={steps}" if steps > 1 else ""), n, steps, \
-            args
+        label = (f"N={n}" + (f" steps={steps}" if steps > 1 else "")
+                 + (" with records" if record else ""))
+        yield label, n, steps, args, record
+
+
+def with_records(fn):
+    """``charged_leapfrog`` or its plain version asked for the records, into
+    new tensors: (pos, vel, recorded pos, recorded vel)."""
+    def run(pos, vel, q, steps):
+        rec = (torch.empty_like(pos), torch.empty_like(vel))
+        return (*fn(pos, vel, q, steps, record=rec), *rec)
+    return run
 
 
 def check_nbody_kernels(dev):
@@ -464,8 +486,10 @@ def check_nbody_kernels(dev):
            "nbody_gravity_leapfrog": (nbody_sim.gravity_leapfrog,
                                       nbody_sim.gravity_leapfrog_reference)}
     rows, blocks = {}, {}
-    for name, (kernel, plain) in fns.items():
-        for label, n, steps, args in nbody_cases(name, dev):
+    for name, fn_pair in fns.items():
+        for label, n, steps, args, records in nbody_cases(name, dev):
+            kernel, plain = (map(with_records, fn_pair) if records
+                             else fn_pair)
             as_tuple = lambda out: out if isinstance(out, tuple) else (out,)
             got = as_tuple(kernel(*args))
             again = as_tuple(kernel(*args))
@@ -492,7 +516,7 @@ def check_nbody_kernels(dev):
                   f"{max(r for _, r in errs):.3e} (tolerance {KERNEL_RTOL:g} "
                   f"x max(1, max|plain|) per output); two runs bitwise equal",
                   flush=True)
-            if name not in rows:
+            if n == STRETCH_N:
                 ms = device_ms(lambda: kernel(*args))
                 plain_ms = device_ms(lambda: plain(*args), iters=5)
                 bound_ms, bound_by = nbody_bound_ms(name, n, steps)
@@ -500,10 +524,21 @@ def check_nbody_kernels(dev):
                       f"{plain_ms:.4f} ms (no yardstick), bound "
                       f"{bound_ms:.4f} ms by {bound_by}; no single PyTorch "
                       f"call computes this function", flush=True)
+                if name in rows:             # the charged block's 99 steps
+                    rows[name].update({f"{steps}_steps_no_records_ms": ms,
+                                       f"{steps}_steps_no_records_plain_ms":
+                                       plain_ms})
+                    continue
                 rows[name] = dict(max_abs_err=max(e for e, _ in errs), ms=ms,
                                   plain_ms=plain_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by, library_ms=None)
-                if "leapfrog" in name:
+                                  bound_by=bound_by, library_ms=None,
+                                  steps=steps)
+                if "leapfrog" not in name:
+                    shape = pairwise.launch_shape(n, "gravity" in name)
+                    print(f"  {name} launch at N={n}: {json.dumps(shape)}",
+                          flush=True)
+                    rows[name]["launch"] = shape
+                else:
                     blocks[name] = (nbody_sim.launch_shape(
                         n, gravity="gravity" in name), ms, steps)
                 if name == "nbody_charged_leapfrog":
@@ -511,6 +546,40 @@ def check_nbody_kernels(dev):
                         *args[:3], steps))
     print(f"  {block_kernels_line(STRETCH_N, blocks, probe_ms)}", flush=True)
     return rows
+
+
+def check_fused_frames(dev, frames=3):
+    """The first frames of the stretch run through the user's entry point
+    (``LargeNChargedSim.integrate``: one recorded 100-step block a frame)
+    against the chain they replace, written out: a 99-step block, the
+    drift, the record, the force kernel and the kick on the host's stream.
+    Bitwise: the force kernel sums in the block kernel's order, and both
+    round the drift and the kick as PyTorch does."""
+    from nonode_tpu_torch.ops.kernels import nbody_sim, pairwise
+    from nonode_tpu_torch.sim.large import LargeNChargedSim
+
+    sim = LargeNChargedSim(n_balls=STRETCH_N)
+    state = tuple(a.to(dev) for a in
+                  sim.init_state(torch.Generator().manual_seed(SEED)))
+    locs, vels, _, _ = sim.integrate(state, (frames + 1) * SAMPLE_FREQ,
+                                     SAMPLE_FREQ)
+    loc, vel, _, q = state
+    kw = dict(k=sim.interaction_strength, max_f=sim._max_f)
+    vel = vel + sim.dt * pairwise.charged_force(loc, q, **kw)
+    for f in range(frames):
+        loc, vel = nbody_sim.charged_leapfrog(loc, vel, q, SAMPLE_FREQ - 1,
+                                              dt=sim.dt, **kw)
+        loc = loc + sim.dt * vel
+        if not (torch.equal(locs[f], loc) and torch.equal(vels[f], vel)):
+            raise AssertionError(
+                f"fused frame {f} differs from the unfused chain: positions "
+                f"by {float((locs[f] - loc).abs().max())}, velocities by "
+                f"{float((vels[f] - vel).abs().max())}")
+        vel = vel + sim.dt * pairwise.charged_force(loc, q, **kw)
+    print(f"  stretch run's first {frames} frames, N={STRETCH_N}: one "
+          f"recorded {SAMPLE_FREQ}-step block a frame bitwise equal to a "
+          f"{SAMPLE_FREQ - 1}-step block, the drift, the record, the force "
+          f"kernel and the kick", flush=True)
 
 
 def block_kernels_line(n, blocks, probe_ms):
@@ -565,9 +634,10 @@ def run_stretch(kernels, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     frames = T // freq - 1
-    launches = read_launches(kernels, {"nbody_charged_force": frames + 1,
+    launches = read_launches(kernels, {"nbody_charged_force": 1,
                                        "nbody_charged_leapfrog": frames},
-                             "stretch run")
+                             "stretch run (the kick before the loop, then "
+                             "one recorded block a frame)")
     if loc.shape != (frames, n, 3) or not (torch.isfinite(loc).all()
                                            and torch.isfinite(vel).all()):
         raise AssertionError(f"stretch run: loc {tuple(loc.shape)}, "
@@ -988,6 +1058,7 @@ def main():
     rows = {"egnn_pairwise_fwd": check_pairwise_kernel(egnn_fused, dev),
             "egnn_pairwise_bwd": check_pairwise_bwd_kernel(egnn_fused, dev),
             **check_nbody_kernels(dev)}
+    check_fused_frames(dev)
     phase("kernels", t0)
 
     paths = {}

@@ -57,11 +57,19 @@
 // - More threads per receiver: kBodyWarps warps sum one receiver, its
 //   senders split over their threads in a fixed interleave (thread t takes
 //   j = t, t + kBodyThreads, ... in increasing order), the lanes combined by
-//   the xor butterfly and the warps in warp order through shared memory.
-//   The order of every sum depends on N alone, never on the grid: the same
-//   bits from run to run and as a chain of one-step launches, no atomics.
+//   the xor butterfly and the warps in warp order through shared memory:
+//   the sum order of nbody_pair.cuh, which the standalone force kernels
+//   share. The order of every sum depends on N alone, never on the grid:
+//   the same bits from run to run, as a chain of one-step launches, and as
+//   a micro-step whose force comes from nbody_pairwise.cu; no atomics.
 //   All N(N-1) pairs are evaluated (no Newton's-third-law halving, which
 //   would need scattered sums).
+// - Records (charged kernel, optional): the stretch run saves, at the end
+//   of each sampling block, the position after the last micro-step's drift
+//   and the velocity before its kick. The owners write both to rec_pos and
+//   rec_vel between that drift and that kick, so a frame is one launch of
+//   `sample_freq` micro-steps, not a block of sample_freq - 1 followed by a
+//   drift, a force launch and a kick on the host's stream.
 // Tried on the card and dropped (PERF.md): 4 warps a receiver (more warps
 // make every barrier phase longer), a double-buffered tile without the
 // first barrier, unrolling the pair loop by 8, thread-block clusters
@@ -80,10 +88,8 @@ namespace {
 
 using namespace nbody;
 
-constexpr int kSlots = 8;                        // receivers a block a pass
-constexpr int kBodyWarps = 2;                    // warps that sum a receiver
-constexpr int kBodyThreads = 32 * kBodyWarps;
-constexpr int kBlock = kSlots * kBodyThreads;    // threads, one block per SM
+// kSlots receivers a block a pass, kBlock threads (nbody_pair.cuh), one
+// block per SM.
 constexpr int kStage = 1024;                     // senders staged a tile
 constexpr int kPerThread = kStage / kBlock;      // senders a thread stages
 constexpr long long kSpinCycles = 20000000000ll; // about 10 s
@@ -101,7 +107,9 @@ struct Params {
   int n, steps;
   float dt, half_dt;
   float scale;                       // charged: max_f; gravity: G
-};
+  float* rec_pos;                    // charged only, optional: the last
+  float* rec_vel;                    // micro-step's drifted position and
+};                                   // velocity before its kick
 
 __device__ __forceinline__ void publish(unsigned long long* p, float v,
                                         unsigned tag) {
@@ -200,7 +208,7 @@ leapfrog_kernel(Law law, Params a) {
   float* state = part + 3 * (kBlock / 32);     // [passes][kSlots][kState]
 
   const int n = a.n;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
   const int r = tid / kBodyThreads, t = tid % kBodyThreads;
   const int passes =
       ((n + kSlots - 1) / kSlots + (int)gridDim.x - 1) / (int)gridDim.x;
@@ -267,11 +275,8 @@ leapfrog_kernel(Law law, Params a) {
             wi = __ldg(a.w + i);
           }
           if (kProbe == kKernel) {
-#pragma unroll 4
-            for (int u = t; u < cnt; u += kBodyThreads) {
-              const float4 q = tile[u];
-              law.add(i, base + u, xi, yi, zi, wi, q.x, q.y, q.z, q.w, f);
-            }
+            add_senders(law, i, xi, yi, zi, wi, base, cnt, t,
+                        [&](int u) { return tile[u]; }, f);
           } else {
             const float4 q = tile[t % cnt];
             f.x += q.x;
@@ -280,15 +285,10 @@ leapfrog_kernel(Law law, Params a) {
           }
         }
       }
-      f.x = warp_sum(f.x);
-      f.y = warp_sum(f.y);
-      f.z = warp_sum(f.z);
-      if (lane < 3) part[3 * warp + lane] = component(f, lane);
+      warp_partials(f, part);
       __syncthreads();
       if (owner && i < n) {              // combine in warp order, update
-        float tot = part[3 * (r * kBodyWarps) + t];
-        for (int q = 1; q < kBodyWarps; ++q)
-          tot += part[3 * (r * kBodyWarps + q) + t];
+        const float tot = receiver_total(part, r, t);
         float v = st[3 + t];
         if (kGravity) {
           const float ac = __fmul_rn(a.scale, tot);
@@ -299,6 +299,11 @@ leapfrog_kernel(Law law, Params a) {
             st[t] = __fadd_rn(st[t], __fmul_rn(v, a.dt));   // next drift
           }
         } else {
+          if (s == a.steps && a.rec_pos != nullptr) {          // record
+            const size_t c = 3 * (size_t)i + t;
+            a.rec_pos[c] = st[t];
+            a.rec_vel[c] = v;
+          }
           v = __fadd_rn(v, __fmul_rn(a.dt, clip(tot, a.scale)));   // kick
           if (s < a.steps)                                   // next drift
             st[t] = __fadd_rn(st[t], __fmul_rn(a.dt, v));
@@ -385,6 +390,14 @@ int launch(Law law, Params a, cudaStream_t stream) {
 // the drift, one grid.sync() and a restage of every position and charge
 // from L2, then a kick by one staged value, with no pair sums. parts: 1 the
 // barrier, 2 the restage, 3 both. buf: 2 x [n, 3] floats.
+constexpr int kWarps = 8;                // receivers a block at a time
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 1024;              // senders staged per pass (16 KB)
+
+struct Tile {
+  float x[kTile], y[kTile], z[kTile], w[kTile];
+};
+
 __global__ void __launch_bounds__(kThreads)
 barrier_probe_kernel(const float* pos_in, const float* __restrict__ vel_in,
                      const float* __restrict__ q, float* pos_out,
@@ -458,16 +471,21 @@ int launch_barrier_probe(void** args, int n, cudaStream_t stream) {
 
 }  // namespace
 
-// pos/vel [n, 3], q [n] in; pos_out/vel_out [n, 3] out; words 2 x [3, n]
-// 64-bit scratch; all on the device, outputs distinct from inputs.
+// pos/vel [n, 3], q [n] in; pos_out/vel_out [n, 3] out; rec_pos/rec_vel
+// [n, 3] out or both null (the records of the last micro-step: position
+// after its drift, velocity before its kick); words 2 x [3, n] 64-bit
+// scratch; all on the device, outputs distinct from inputs.
 extern "C" int nbody_charged_leapfrog(const float* pos, const float* vel,
                                       const float* q, float* pos_out,
-                                      float* vel_out, void* words, int n,
+                                      float* vel_out, float* rec_pos,
+                                      float* rec_vel, void* words, int n,
                                       int steps, float dt, float k,
                                       float max_f, void* stream) {
-  if (!(max_f > 0.0f)) return (int)cudaErrorInvalidValue;
+  if (!(max_f > 0.0f) || (rec_pos == nullptr) != (rec_vel == nullptr))
+    return (int)cudaErrorInvalidValue;
   const Params a{pos, vel, nullptr, q, pos_out, vel_out, nullptr,
-                 (unsigned long long*)words, n, steps, dt, 0.0f, max_f};
+                 (unsigned long long*)words, n, steps, dt, 0.0f, max_f,
+                 rec_pos, rec_vel};
   return launch<Charged, false, kKernel>(Charged{k}, a, (cudaStream_t)stream);
 }
 

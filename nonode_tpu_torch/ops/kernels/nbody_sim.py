@@ -12,6 +12,11 @@ Counterparts of nonode_tpu/ops/pallas/nbody_sim.py:
   ``vel += acc * (dt/2); pos += vel * dt; acc = a(pos); vel += acc * (dt/2)``
   with the softened gravity of ``pairwise.gravity_accel``.
 
+``charged_leapfrog`` can also record the last micro-step between its drift
+and its kick (``record=``): the position after the drift and the velocity
+before the kick, the state that ``LargeNChargedSim`` saves at each sample
+point, so that a whole frame is one launch.
+
 On the card one launch is a persistent cooperative grid, one block per SM,
 that keeps the bodies' state in shared memory for all its micro-steps and
 exchanges only the new positions, once a micro-step, as tagged 64-bit words
@@ -40,10 +45,15 @@ SOURCE = "nbody_leapfrog.cu"
 
 
 def charged_leapfrog_reference(pos, vel, charges, steps, dt=0.001, k=1.0,
-                               max_f=100.0):
-    """Plain PyTorch version of ``charged_leapfrog``: (pos, vel)."""
-    for _ in range(steps):
+                               max_f=100.0, record=None):
+    """Plain PyTorch version of ``charged_leapfrog``: (pos, vel), and the
+    last micro-step's drifted position and unkicked velocity copied into
+    ``record`` when it is given."""
+    for s in range(steps):
         pos = pos + dt * vel
+        if record is not None and s == steps - 1:
+            record[0].copy_(pos)
+            record[1].copy_(vel)
         vel = vel + dt * charged_force_reference(pos, charges, k, max_f)
     return pos, vel
 
@@ -69,7 +79,7 @@ def _check_steps(steps):
 def _bind():
     lib = load(SOURCE)
     lib.nbody_charged_leapfrog.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
         + [ctypes.c_void_p])
     lib.nbody_gravity_leapfrog.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_float] * 4
@@ -107,22 +117,32 @@ def _words(n, dev):
     return torch.empty((2, 3, n), dtype=torch.int64, device=dev)
 
 
-def charged_leapfrog(pos, vel, charges, steps, dt=0.001, k=1.0, max_f=100.0):
+def charged_leapfrog(pos, vel, charges, steps, dt=0.001, k=1.0, max_f=100.0,
+                     record=None):
     """Advance (pos, vel) by ``steps`` drift-force-kick micro-steps.
-    pos/vel [N, 3]; charges [N] or [N, 1]."""
+    pos/vel [N, 3]; charges [N] or [N, 1]. ``record``, a pair of contiguous
+    fp32 [N, 3] tensors on pos's device (rows of the caller's trajectory),
+    receives the last micro-step's position after its drift and velocity
+    before its kick."""
     steps = _check_steps(steps)
+    if record is not None:
+        rec_pos, rec_vel = record
+        check_bodies(pos, charges, rec_pos=rec_pos, rec_vel=rec_vel)
     if pos.device.type == "cpu":
         return charged_leapfrog_reference(pos, vel, charges, steps, dt, k,
-                                          max_f)
+                                          max_f, record)
     dev = cuda_device(pos)
     n, q = check_bodies(pos, charges, vel=vel)
     pos_out, vel_out = (torch.empty_like(pos) for _ in range(2))
+    rec = (None, None) if record is None else (rec_pos.data_ptr(),
+                                               rec_vel.data_ptr())
     buf = _words(n, dev)
     lib = _bind()
     with torch.cuda.device(dev):
         err = lib.nbody_charged_leapfrog(
-            *(t.data_ptr() for t in (pos, vel, q, pos_out, vel_out, buf)),
-            n, steps, dt, k, max_f, torch.cuda.current_stream(dev).cuda_stream)
+            *(t.data_ptr() for t in (pos, vel, q, pos_out, vel_out)), *rec,
+            buf.data_ptr(), n, steps, dt, k, max_f,
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(lib, "nbody_charged_leapfrog", err)
     charged_leapfrog.launches += 1
     return pos_out, vel_out

@@ -16,6 +16,11 @@ simulators' in one place: a distinct pair at distance 0 is not masked
 ``block_i`` and ``interpret`` have no counterpart: the kernels choose their
 own launch, and need no padding. The wrappers take the plain version for CPU
 tensors only; for CUDA tensors they launch the kernel or raise.
+
+On the card both kernels sum in the order of the leapfrog block kernels
+(``csrc/nbody_pair.cuh``), so a force from here has the bits of the force a
+micro-step of ``nbody_sim.charged_leapfrog`` (or ``gravity_leapfrog``)
+computes from the same positions.
 """
 
 from __future__ import annotations
@@ -97,7 +102,28 @@ def _bind():
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.nbody_pairwise_shape.argtypes = [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
+    lib.nbody_pairwise_shape.restype = ctypes.c_int
     return lib
+
+
+SHAPE_KEYS = ("blocks", "threads", "receivers_per_block",
+              "warps_per_receiver", "senders_per_tile", "tiles", "smem_bytes")
+
+
+def launch_shape(n, gravity=False):
+    """The launch a force kernel makes for n bodies on the current CUDA
+    device: blocks of threads, each summing ``receivers_per_block``
+    receivers at a time with ``warps_per_receiver`` warps each; the senders
+    staged in ``tiles`` tiles of up to ``senders_per_tile`` (one tile, staged
+    in one wave, while they fit a block's shared memory); its dynamic shared
+    memory."""
+    lib = _bind()
+    out = (ctypes.c_int * len(SHAPE_KEYS))()
+    raise_on_error(lib, "nbody_pairwise_shape",
+                   lib.nbody_pairwise_shape(int(n), int(bool(gravity)), out))
+    return dict(zip(SHAPE_KEYS, out))
 
 
 def _launch(name, pos, weights, *constants):

@@ -4,8 +4,9 @@ nonode_tpu/sim/large.py).
 Same physics, state and cadence as ``simulators.py``, for one large system
 (the 1000-body stretch run) rather than batches of small ones: each sampling
 block of micro-steps is one launch of a fused integration kernel
-(``ops/kernels/nbody_sim.py``), and the single force evaluations go to the
-pairwise kernels (``ops/kernels/pairwise.py``). On CUDA tensors every call
+(``ops/kernels/nbody_sim.py``), which for the charged system also records
+the frame, and the single force evaluation before the loop goes to a
+pairwise kernel (``ops/kernels/pairwise.py``). On CUDA tensors every call
 launches a kernel or raises; on CPU tensors the kernels' plain versions run.
 
 One deliberate difference: ``LargeNGravitySim`` takes its first
@@ -57,28 +58,26 @@ class LargeNChargedSim(ChargedSim):
     """ChargedSim with fused drift-force-kick blocks.
 
     The state saved at each sample point is the position after the drift
-    and the velocity before that step's kick, so each block runs freq - 1
-    fused steps and the last drift, record and kick happen here.
+    and the velocity before that step's kick: each frame is one block of
+    freq micro-steps that records its last one between its drift and its
+    kick, straight into the frame's rows of the trajectory. (The JAX class
+    runs freq - 1 fused steps and the last drift, force and kick outside
+    the kernel; the arithmetic is the same.)
     """
-
-    def _force_large(self, loc, charges):
-        return charged_force(loc, charges, k=self.interaction_strength,
-                             max_f=self._max_f)
 
     def integrate(self, state, T=10000, sample_freq=10):
         """(locs [T/freq - 1, N, 3], vels, edges, charges)."""
         _check_cadence(T, sample_freq)
         loc, vel, edges, charges = state
         _one_system(loc)
-        vel = vel + self.dt * self._force_large(loc, charges)  # pre-loop kick
-        locs, vels = [], []
-        for _ in range(T // sample_freq - 1):
-            if sample_freq > 1:
-                loc, vel = charged_leapfrog(
-                    loc, vel, charges, steps=sample_freq - 1, dt=self.dt,
-                    k=self.interaction_strength, max_f=self._max_f)
-            loc = loc + self.dt * vel
-            locs.append(loc)
-            vels.append(vel)
-            vel = vel + self.dt * self._force_large(loc, charges)
-        return torch.stack(locs), torch.stack(vels), edges, charges
+        kw = dict(k=self.interaction_strength, max_f=self._max_f)
+        # the kick before the loop, then one recorded block a frame
+        vel = vel + self.dt * charged_force(loc, charges, **kw)
+        frames = T // sample_freq - 1
+        locs = loc.new_empty((frames, *loc.shape))
+        vels = vel.new_empty((frames, *vel.shape))
+        for f in range(frames):
+            loc, vel = charged_leapfrog(loc, vel, charges, steps=sample_freq,
+                                        dt=self.dt, record=(locs[f], vels[f]),
+                                        **kw)
+        return locs, vels, edges, charges

@@ -10,7 +10,7 @@ runs on the card's machine, which has neither:
 
 Tolerance: max|kernel - plain| <= 1e-4 x max(1, max|plain|); both are fp32
 (the EGNO kernels' products in split TF32, fp32-class), with sums of up to
-64 products (the N-body kernels: up to N pair terms, and up to 99
+64 products (the N-body kernels: up to N pair terms, and up to 100
 micro-steps) taken in another order.
 """
 
@@ -269,19 +269,93 @@ def _gravity_state(n, dev, seed=0):
     return pos, vel, pairwise.gravity_accel_reference(pos, mass), mass
 
 
+def _one_wave():
+    """The most senders one tile holds (a tile of a launch for more)."""
+    return pairwise.launch_shape(10 ** 7)["senders_per_tile"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 5, 129, 1000, 2500])
+@pytest.mark.parametrize("n", [1, 5, 129, 1000, 2500, "past one wave"])
 def test_nbody_force_kernels_match_plain_versions(dev, n):
-    """2500 bodies span three sender tiles of the kernel."""
+    """Every sender is staged in one wave while the senders fit a block's
+    shared memory (2500 bodies take 40 KB); past that they come in tiles,
+    each staged once for each group of receivers. Two launches give the
+    same bits."""
+    if n == "past one wave":
+        n = _one_wave() + 37
+        assert pairwise.launch_shape(n)["tiles"] == 2
+    else:
+        assert pairwise.launch_shape(n)["tiles"] == 1
     loc, _, q = _charged_state(n, dev, seed=n)
     pos, _, _, mass = _gravity_state(n, dev, seed=n)
     before = (pairwise.charged_force.launches, pairwise.gravity_accel.launches)
     got = (pairwise.charged_force(loc, q), pairwise.gravity_accel(pos, mass))
+    again = (pairwise.charged_force(loc, q), pairwise.gravity_accel(pos, mass))
     torch.cuda.synchronize()
     assert (pairwise.charged_force.launches,
-            pairwise.gravity_accel.launches) == (before[0] + 1, before[1] + 1)
+            pairwise.gravity_accel.launches) == (before[0] + 2, before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     _assert_close(got, (pairwise.charged_force_reference(loc, q),
                         pairwise.gravity_accel_reference(pos, mass)))
+
+
+@pytest.mark.cuda
+def test_nbody_force_kernel_launch_shape(dev):
+    """8 receivers to a 512-thread block, 2 warps each, so 1000 bodies are
+    125 blocks; all senders in one tile up to what a block's shared memory
+    holds (16 bytes a sender)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shape = pairwise.launch_shape(1000)
+    assert shape == dict(blocks=min(125, 4 * sms), threads=512,
+                         receivers_per_block=8, warps_per_receiver=2,
+                         senders_per_tile=1000, tiles=1,
+                         smem_bytes=shape["smem_bytes"])
+    assert 16 * 1000 < shape["smem_bytes"] < 16 * 1000 + 256
+    assert pairwise.launch_shape(1)["senders_per_tile"] == 1
+    wave = _one_wave()
+    assert wave % 64 == 0 and 10000 < wave and 16 * wave < 232448
+    assert pairwise.launch_shape(wave)["tiles"] == 1
+    assert pairwise.launch_shape(wave + 1)["tiles"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 1000, 2500])
+def test_force_kernels_give_the_bits_of_a_micro_step(dev, n):
+    """The force kernels sum in the block kernels' order with their laws:
+    a one-step gravity block's acceleration is gravity_accel at its new
+    positions, and a one-step charged block's kick is dt x charged_force
+    at its recorded positions, bit for bit. 2500 bodies take three tiles of
+    the block kernels' exchange and one wave of the force kernels'."""
+    pos, vel, acc, mass = _gravity_state(n, dev, seed=n + 1)
+    new_pos, _, new_acc = nbody_sim.gravity_leapfrog(pos, vel, acc, mass, 1)
+    assert torch.equal(new_acc, pairwise.gravity_accel(new_pos, mass))
+    loc, vel, q = _charged_state(n, dev, seed=n + 1)
+    rec = (torch.empty_like(loc), torch.empty_like(vel))
+    _, kicked = nbody_sim.charged_leapfrog(loc, vel, q, 1, record=rec)
+    assert torch.equal(rec[0], loc + 0.001 * vel) and torch.equal(rec[1], vel)
+    assert torch.equal(kicked, rec[1] + 0.001 * pairwise.charged_force(rec[0],
+                                                                       q))
+
+
+@pytest.mark.cuda
+def test_recorded_blocks_give_the_bits_of_the_unfused_frames(dev):
+    """Three frames of the stretch run's loop at N=1000: a 100-step block
+    that records its last micro-step against the chain it replaces (a
+    99-step block, the drift on the host's stream, the record, the force
+    kernel, the kick). The recorded launch's outputs are those of a
+    100-step launch without records."""
+    loc, vel, q = _charged_state(1000, dev, seed=4)
+    fused, chain = (loc, vel), (loc, vel)
+    for _ in range(3):
+        rec = (torch.empty_like(loc), torch.empty_like(vel))
+        plain_block = nbody_sim.charged_leapfrog(*fused, q, 100)
+        fused = nbody_sim.charged_leapfrog(*fused, q, 100, record=rec)
+        assert all(torch.equal(a, b) for a, b in zip(fused, plain_block))
+        p, v = nbody_sim.charged_leapfrog(*chain, q, 99)
+        p = p + 0.001 * v
+        assert torch.equal(rec[0], p) and torch.equal(rec[1], v)
+        chain = (p, v + 0.001 * pairwise.charged_force(p, q))
+        assert all(torch.equal(a, b) for a, b in zip(fused, chain))
 
 
 @pytest.mark.cuda
@@ -375,6 +449,12 @@ def test_nbody_wrappers_refuse_what_the_kernels_do_not_take(dev):
         pairwise.gravity_accel(loc.T.contiguous().T, q.abs())
     with pytest.raises(ValueError, match="vel has shape"):
         nbody_sim.charged_leapfrog(loc, vel[:4], q, 1)
+    with pytest.raises(ValueError, match="rec_pos is on cpu"):
+        nbody_sim.charged_leapfrog(loc, vel, q, 1,
+                                   record=(loc.cpu(), torch.empty_like(vel)))
+    with pytest.raises(ValueError, match="rec_vel is not contiguous"):
+        nbody_sim.charged_leapfrog(loc, vel, q, 1, record=(
+            torch.empty_like(loc), torch.empty(3, 8, device=dev).T))
     with pytest.raises(ValueError, match="on cpu"):
         pairwise.charged_force(loc, q.cpu())
     # more bodies than the owners' state fits in shared memory

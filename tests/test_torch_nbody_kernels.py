@@ -140,6 +140,46 @@ def test_gravity_leapfrog_plain_version_matches_pallas(n, steps):
     _close_scaled(ta, ja, rel=False)
 
 
+@pytest.mark.parametrize("f", [1, 2, 100])
+def test_recorded_block_is_the_unfused_frame(f):
+    """A block of f micro-steps with records gives exactly the frame that
+    the simulator used to compose: f - 1 fused steps, then the drift, the
+    record, a force evaluation and the kick, the same torch ops in the same
+    order. Through the wrapper (the plain version on the CPU) and the plain
+    version alike."""
+    pos, q = _bodies(9, seed=f)
+    pos, q = t(pos), t(q)
+    vel = t(0.3 * np.random.RandomState(f).randn(9, 3))
+    p, v = (pos, vel) if f == 1 else nbody_sim.charged_leapfrog_reference(
+        pos, vel, q, f - 1)
+    p = p + 0.001 * v
+    want = (p, v + 0.001 * pairwise.charged_force_reference(p, q), p, v)
+    for fn in (nbody_sim.charged_leapfrog,
+               nbody_sim.charged_leapfrog_reference):
+        rec = (torch.full((9, 3), np.nan), torch.full((9, 3), np.nan))
+        got = (*fn(pos, vel, q, f, record=rec), *rec)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        # records change nothing else
+        assert all(torch.equal(a, b) for a, b in zip(got, fn(pos, vel, q, f)))
+
+
+@pytest.mark.parametrize("bad,error,match", [
+    (lambda: torch.zeros(9, 2), ValueError, r"rec_vel has shape \(9, 2\)"),
+    (lambda: torch.zeros(9, 3, dtype=torch.float64), TypeError, "float32"),
+    (lambda: torch.zeros(9, 3, device="meta"), ValueError,
+     "rec_vel is on meta"),
+    (lambda: torch.zeros(3, 9).T, ValueError, "rec_vel is not contiguous"),
+], ids=["shape", "dtype", "device", "contiguity"])
+def test_wrapper_refuses_a_record_unlike_the_state(bad, error, match):
+    pos, q = _bodies(9, seed=8)
+    with pytest.raises(error, match=match):
+        nbody_sim.charged_leapfrog(t(pos), t(pos), t(q), 3,
+                                   record=(torch.zeros(9, 3), bad()))
+    with pytest.raises(error):
+        nbody_sim.charged_leapfrog(t(pos), t(pos), t(q), 3,
+                                   record=(bad(), torch.zeros(9, 3)))
+
+
 def test_wrappers_take_plain_versions_only_on_cpu():
     pos, q = _bodies(7, seed=5)
     vel = torch.zeros(7, 3)

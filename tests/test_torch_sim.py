@@ -26,7 +26,7 @@ from nonode_tpu.sim import generate as jgen
 from nonode_tpu.sim import simulators as jsim
 from nonode_tpu.sim.large import LargeNChargedSim as JaxLargeCharged
 from nonode_tpu.sim.large import LargeNGravitySim as JaxLargeGravity
-from nonode_tpu_torch.ops.kernels import KERNELS
+from nonode_tpu_torch.ops.kernels import KERNELS, nbody_sim, pairwise
 from nonode_tpu_torch.sim import generate, simulators
 from nonode_tpu_torch.sim.large import LargeNChargedSim, LargeNGravitySim
 from torch_port_util import assert_close, t
@@ -178,6 +178,51 @@ def test_large_n_charged_matches_jax_interpret():
     assert_close(q2, q1, rtol=0.0, atol=0.0)
     _close_by_scale(l2, l1, 2e-4)
     _close_by_scale(v2, v1, 2e-4)
+
+
+def test_large_n_charged_matches_jax_interpret_at_every_step():
+    """sample_freq 1: every frame is a block of one recorded micro-step
+    (the JAX class runs no block, only the drift, force and kick)."""
+    key = jax.random.PRNGKey(2)
+    n, T = 20, 20
+    big = JaxLargeCharged(n_balls=n, interpret=True)
+    l1, v1, _, _ = big.sample_trajectory(key, T=T, sample_freq=1)
+    l2, v2, _, _ = LargeNChargedSim(n_balls=n).integrate(
+        _state(big._init_state(key)), T, 1)
+    assert l2.shape == (T - 1, n, 3)
+    _close_by_scale(l2, l1, 2e-4)
+    _close_by_scale(v2, v1, 2e-4)
+
+
+def _unfused_charged_frames(sim, state, T, freq):
+    """The charged frame loop before each frame became one recorded block:
+    freq - 1 fused steps, then the drift, the record, a force evaluation and
+    the kick (the loop of nonode_tpu/sim/large.py), on the plain versions."""
+    loc, vel, _, charges = state
+    kw = dict(k=sim.interaction_strength, max_f=sim._max_f)
+    vel = vel + sim.dt * pairwise.charged_force_reference(loc, charges, **kw)
+    locs, vels = [], []
+    for _ in range(T // freq - 1):
+        if freq > 1:
+            loc, vel = nbody_sim.charged_leapfrog_reference(
+                loc, vel, charges, freq - 1, sim.dt, **kw)
+        loc = loc + sim.dt * vel
+        locs.append(loc)
+        vels.append(vel)
+        vel = vel + sim.dt * pairwise.charged_force_reference(loc, charges,
+                                                              **kw)
+    return torch.stack(locs), torch.stack(vels)
+
+
+@pytest.mark.parametrize("T,freq", [(300, 100), (12, 3), (6, 1)])
+def test_large_n_charged_is_the_unfused_frame_loop_exactly(T, freq):
+    sim = LargeNChargedSim(n_balls=11)
+    state = sim.init_state(torch.Generator().manual_seed(freq))
+    got = sim.integrate(state, T, freq)
+    want = _unfused_charged_frames(sim, state, T, freq)
+    assert got[0].shape == (T // freq - 1, 11, 3)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[2] is state[2] and got[3] is state[3]
 
 
 def test_large_n_gravity_matches_jax_interpret():
