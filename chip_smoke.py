@@ -17,7 +17,9 @@ Phases, each timed on its own line:
    micro-step, and the share of it that the probe without the pair sums
    takes; the force kernels' launch; then the first 3 frames of the stretch
    run, one recorded block each, bitwise against the chain they replace
-   (a 99-step block, the drift, the record, the force kernel, the kick);
+   (a 99-step block, the drift, the record, the force kernel, the kick).
+   #1 and #2 also run at SEGNO's shape (G=256, the per-edge clip engaged),
+   timed, and at a G whose edge rows leave the last tile ragged (G=3);
 4. main path: ``nonode_tpu_torch.main --model egno --only_test true`` on the
    committed charged-5 test split at the canonical EGNO width (4 layers,
    hidden 64, T=10, batch 256, traj_len 20), weights from --seed 42. Checks
@@ -31,7 +33,12 @@ Phases, each timed on its own line:
 6. train step: the loss and the gradient of every parameter on train batch 0
    from the seed-42 weights, card against the port's CPU; then the median
    wall of a training step;
-7. stretch: the 1000-body charged run (as bench.py:bench_large_n),
+7.-9. segno main path, segno train path, segno train step: phases 4-6 for
+   ``--model segno`` at the model_confs.yaml:SEGNO width (hidden 64, T=10
+   weight-tied steps, the per-edge clip): #1 launched once a step, 10 times
+   a forward, #2 10 times a training step (``path_launches``); the rollout's
+   artifact has one frame a window;
+10. stretch: the 1000-body charged run (as bench.py:bench_large_n),
    ``LargeNChargedSim(n_balls=1000)``, T=20000, sample_freq 100, from
    --seed 42: 199 finite frames, 1 launch of the force kernel (the kick
    before the loop) and 199 of the charged block kernel (a frame each), the
@@ -39,10 +46,10 @@ Phases, each timed on its own line:
    first frame's kinetic energy (tests/test_large_sim.py:80-103); then the
    port's large-N and dense charged simulators from one state (N=20,
    T=300) on the card;
-8. gravity: ``LargeNGravitySim(n_balls=1000)``, T=2000, sample_freq 100:
+11. gravity: ``LargeNGravitySim(n_balls=1000)``, T=2000, sample_freq 100:
    20 launches of the gravity block kernel and 1 of the gravity kernel,
    total momentum conserved; then large-N against dense (N=40, T=300);
-9. generate: ``python -m nonode_tpu_torch.sim.generate --simulation gravity``
+12. generate: ``python -m nonode_tpu_torch.sim.generate --simulation gravity``
    (in-process) writes small gravity splits on the card; ``main --dataset
    gravity --only_test false --epochs 1`` trains and rolls out on them.
 
@@ -67,6 +74,19 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SEED = 42
 BATCH, TRAJ_LEN, LAYERS = 256, 20, 4
+# frames a window decodes (EGNO) and integrator steps a forward (SEGNO):
+# model_confs.yaml's num_timesteps for both
+T_MODEL = 10
+# what a driver run of each model must show: launches of #1 a model forward
+# (EGNO: one a layer; SEGNO: one an integrator step), frames a test window
+# predicts (EGNO decodes T; SEGNO steps T ahead to one frame) and the share
+# of the horizon its artifact keeps; the parameters a training step must give
+# a gradient (EGNO's last node MLP feeds no loss term; each of SEGNO's 14 is
+# used by all T weight-tied steps)
+EXPECT = {"egno": dict(per_forward=LAYERS, window_frames=T_MODEL, cut=0.4,
+                       grads=40),
+          "segno": dict(per_forward=T_MODEL, window_frames=1, cut=1.0,
+                        grads=14)}
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3,
 # TF32 on the tensor cores (dense).
 PEAK_FP32_FLOPS = 67e12
@@ -246,14 +266,28 @@ def bounds_text(fp32_bound, tc_bound, ms):
             f"fp32 on the CUDA cores (by {fp32_by})")
 
 
+# #1/#2 cases: (label, shape and inputs, clip_edges, the row it times or
+# None). The EGNO slice shape first (held to the split-TF32 budget), then
+# SEGNO's: G = its batch, the clip engaged; a G whose 25 G edge rows leave the
+# last 128-row tile ragged; the mocap-like sparse graph.
+PAIRWISE_CASES = [
+    ("slice G=2560 N=5 H=64 E=2", dict(g=2560, n=5), False, "slice"),
+    ("clip_edges=True", dict(g=2560, n=5, coord_scale=400.0), True, None),
+    ("SEGNO G=256 N=5 H=64 E=2 clip_edges=True",
+     dict(g=256, n=5, coord_scale=400.0), True, "segno"),
+    ("ragged G=3 clip_edges=True", dict(g=3, n=5, coord_scale=400.0), True,
+     "ragged"),
+    ("2-D edge_mask N=31 (mocap)", dict(g=256, n=31, isolated=3), False,
+     None),
+]
+
+
 def check_pairwise_kernel(egnn_fused, dev):
-    """Kernel vs plain version in three cases; returns the slice-shape row."""
-    cases = [("slice G=2560 N=5 H=64 E=2", dict(g=2560, n=5), False),
-             ("clip_edges=True", dict(g=2560, n=5, coord_scale=400.0), True),
-             ("2-D edge_mask N=31 (mocap)", dict(g=256, n=31, isolated=3),
-              False)]
-    row = None
-    for label, kw, clip in cases:
+    """Kernel vs plain version in PAIRWISE_CASES; returns the timed rows
+    ({"slice": ..., "segno": ..., "ragged": ...})."""
+    rows = {}
+    for label, kw, clip, timed in PAIRWISE_CASES:
+        kw = dict(kw)
         g, n = kw.pop("g"), kw.pop("n")
         args = pairwise_inputs(g, n, 64, 2, seed=n, dev=dev, **kw)
         with torch.no_grad():
@@ -261,6 +295,10 @@ def check_pairwise_kernel(egnn_fused, dev):
             again = egnn_fused.pairwise_message(clip, *args)
             torch.cuda.synchronize()
             want = egnn_fused.pairwise_message_reference(clip, *args)
+        if clip:
+            free = egnn_fused.pairwise_message_reference(False, *args)[0]
+            if float((free - want[0]).abs().max()) <= 1e-3:
+                raise AssertionError(f"{label}: the clip never engaged")
         errs = []
         for name, a, b, c in zip(("tot_f", "tot_m"), got, want, again):
             if not torch.isfinite(a).all():
@@ -278,30 +316,30 @@ def check_pairwise_kernel(egnn_fused, dev):
                 raise AssertionError(f"{label}: {name} disagrees with the "
                                      f"plain version: {err} > "
                                      f"{KERNEL_RTOL} x {scale}")
-            if row is None and err > SPLIT_TF32_RTOL * scale:
+            if timed == "slice" and err > SPLIT_TF32_RTOL * scale:
                 raise AssertionError(f"{label}: {name} relative error "
                                      f"{err / scale} over the split-TF32 "
                                      f"budget {SPLIT_TF32_RTOL}")
             errs.append(err)
-        if row is None:
-            with torch.no_grad():
-                ms = device_ms(lambda: egnn_fused.pairwise_message(
-                    clip, *args))
-                plain_ms = device_ms(
-                    lambda: egnn_fused.pairwise_message_reference(clip,
-                                                                  *args))
-            fp32 = pairwise_bound_ms(g, args[4], 64, 2)
-            tc = pairwise_tc_bound_ms(g, args[4], 64, 2)
-            kept = g * int((args[4] != 0).sum())
-            print(f"  kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms "
-                  f"(no yardstick), {bounds_text(fp32, tc, ms)}, over the "
-                  f"{kept} edges the mask keeps; the kernel also computes "
-                  f"the {g * n * n - kept} masked-out edge rows; no single "
-                  f"PyTorch call computes this function; slice-shape "
-                  f"relative error within {SPLIT_TF32_RTOL:g}", flush=True)
-            row = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                       library_ms=None, **route_row(ms, fp32, tc))
-    return row
+        if timed is None:
+            continue
+        with torch.no_grad():
+            ms = device_ms(lambda: egnn_fused.pairwise_message(clip, *args))
+            plain_ms = device_ms(
+                lambda: egnn_fused.pairwise_message_reference(clip, *args))
+        fp32 = pairwise_bound_ms(g, args[4], 64, 2)
+        tc = pairwise_tc_bound_ms(g, args[4], 64, 2)
+        kept = g * int((args[4] != 0).sum())
+        print(f"  {label}: kernel {ms:.4f} ms, plain version {plain_ms:.4f} "
+              f"ms (no yardstick), {bounds_text(fp32, tc, ms)}, over the "
+              f"{kept} edges the mask keeps; the kernel also computes the "
+              f"{g * n * n - kept} masked-out edge rows; no single PyTorch "
+              f"call computes this function"
+              + (f"; slice-shape relative error within {SPLIT_TF32_RTOL:g}"
+                 if timed == "slice" else ""), flush=True)
+        rows[timed] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                           library_ms=None, **route_row(ms, fp32, tc))
+    return rows
 
 
 def pairwise_bwd_flops_per_edge(h, e):
@@ -343,13 +381,10 @@ def bwd_outputs(out):
 
 def check_pairwise_bwd_kernel(egnn_fused, dev):
     """Backward kernel vs plain version in the forward's cases, each run
-    twice and held bitwise equal; returns the slice-shape row."""
-    cases = [("slice G=2560 N=5 H=64 E=2", dict(g=2560, n=5), False),
-             ("clip_edges=True", dict(g=2560, n=5, coord_scale=400.0), True),
-             ("2-D edge_mask N=31 with an isolated node (mocap)",
-              dict(g=256, n=31, isolated=3), False)]
-    row = None
-    for label, kw, clip in cases:
+    twice and held bitwise equal; returns the timed rows."""
+    rows = {}
+    for label, kw, clip, timed in PAIRWISE_CASES:
+        kw = dict(kw)
         g, n = kw.pop("g"), kw.pop("n")
         args = pairwise_inputs(g, n, 64, 2, seed=n + 1, dev=dev, **kw)
         rng = np.random.RandomState(n)
@@ -383,7 +418,7 @@ def check_pairwise_bwd_kernel(egnn_fused, dev):
                 raise AssertionError(f"{label}: {name} disagrees with the "
                                      f"plain version: {err} > "
                                      f"{KERNEL_RTOL} x {scale}")
-            if row is None and err > SPLIT_TF32_RTOL * scale:
+            if timed == "slice" and err > SPLIT_TF32_RTOL * scale:
                 raise AssertionError(f"{label}: {name} relative error "
                                      f"{err / scale} over the split-TF32 "
                                      f"budget {SPLIT_TF32_RTOL}")
@@ -393,22 +428,24 @@ def check_pairwise_bwd_kernel(egnn_fused, dev):
               f"relative {worst[0]:.3e} ({worst[1]}; tolerance "
               f"{KERNEL_RTOL:g} x max(1, max|plain|) per output); two runs "
               f"bitwise equal", flush=True)
-        if row is None:
-            ms = device_ms(lambda: egnn_fused.pairwise_message_bwd(
+        if timed is None:
+            continue
+        ms = device_ms(lambda: egnn_fused.pairwise_message_bwd(
+            clip, *args, *cot))
+        plain_ms = device_ms(
+            lambda: egnn_fused.pairwise_message_bwd_reference(
                 clip, *args, *cot))
-            plain_ms = device_ms(
-                lambda: egnn_fused.pairwise_message_bwd_reference(
-                    clip, *args, *cot))
-            fp32 = pairwise_bwd_bound_ms(g, args[4], 64, 2)
-            tc = pairwise_tc_bound_ms(g, args[4], 64, 2, backward=True)
-            print(f"  backward kernel {ms:.4f} ms (both launches), plain "
-                  f"version {plain_ms:.4f} ms (no yardstick), "
-                  f"{bounds_text(fp32, tc, ms)}; no single PyTorch call "
-                  f"computes this function; slice-shape relative error "
-                  f"within {SPLIT_TF32_RTOL:g}", flush=True)
-            row = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                       library_ms=None, **route_row(ms, fp32, tc))
-    return row
+        fp32 = pairwise_bwd_bound_ms(g, args[4], 64, 2)
+        tc = pairwise_tc_bound_ms(g, args[4], 64, 2, backward=True)
+        print(f"  {label}: backward kernel {ms:.4f} ms (both launches), "
+              f"plain version {plain_ms:.4f} ms (no yardstick), "
+              f"{bounds_text(fp32, tc, ms)}; no single PyTorch call "
+              f"computes this function"
+              + (f"; slice-shape relative error within {SPLIT_TF32_RTOL:g}"
+                 if timed == "slice" else ""), flush=True)
+        rows[timed] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                           library_ms=None, **route_row(ms, fp32, tc))
+    return rows
 
 
 def nbody_bound_ms(name, n, steps=1):
@@ -745,13 +782,31 @@ def split_size(data_dir, split):
                        mmap_mode="r").shape[0])
 
 
-def check_artifact(path, total, traj_len=TRAJ_LEN):
-    """The test rollout's artifact has the shapes of ``total`` samples,
-    ``traj_len`` windows of T=10 frames and the 40% horizon cut."""
+def path_launches(per_forward, test_batches, traj_len, epochs=0,
+                  train_batches=0, validations=0, val_batches=0):
+    """Launches of #1 and #2 on a driver run: a model forward launches #1
+    ``per_forward`` times (EGNO: once a layer; SEGNO: once an integrator
+    step) and a training step's backward #2 as often; training runs
+    ``epochs`` x ``train_batches`` steps, each validation ``val_batches``
+    forwards, and the test rollout ``traj_len`` windows of one forward a
+    test batch."""
+    bwd = epochs * train_batches * per_forward
+    fwd = (bwd + validations * val_batches * per_forward
+           + test_batches * traj_len * per_forward)
+    return {"egnn_pairwise_fwd": fwd, "egnn_pairwise_bwd": bwd}
+
+
+def check_artifact(path, total, traj_len=TRAJ_LEN, model="egno"):
+    """The test rollout's artifact has the shapes of ``total`` samples and
+    ``traj_len`` windows (``EXPECT``): EGNO's of T=10 frames each, cut at
+    40% of the horizon; SEGNO's of one frame each, not cut."""
     art = np.load(path)
-    shapes = {"targets": (total, traj_len * 10, 5, 3),
-              "preds": (total, int(0.4 * traj_len * 10), 5, 3),
-              "energy_conservation": (total, int(0.4 * traj_len * 10), 1)}
+    spec = EXPECT[model]
+    full = traj_len * spec["window_frames"]
+    cut = int(spec["cut"] * traj_len * spec["window_frames"])
+    shapes = {"targets": (total, full, 5, 3),
+              "preds": (total, cut, 5, 3),
+              "energy_conservation": (total, cut, 1)}
     for key, shape in shapes.items():
         if art[key].shape != shape:
             raise AssertionError(f"{key} has shape {art[key].shape}, "
@@ -775,14 +830,38 @@ def run_echoed(fn, *args):
     return lines, result
 
 
-def run_main_path(nt_main, kernels, data_dir, out_dir):
-    from nonode_tpu_torch.analysis.registry import artifact_stem
+def seed_experiment(nt_main, model, where):
+    """The driver's experiment of ``model`` with the seed-42 weights on
+    ``where``, as ``main`` builds it."""
+    args = nt_main.get_args(["--model", model, "--seed", str(SEED)])
+    return nt_main.build_experiment(args, torch.device(where),
+                                    torch.Generator().manual_seed(SEED))
+
+
+def cpu_first_windows(nt_main, model, data_dir):
+    """The port's own CPU rollout of the seed-42 weights over the first two
+    windows of test batch 0, as [BATCH, frames, N, 3]: the windows that the
+    test rollout draws from a fresh seed-42 RandomState."""
     from nonode_tpu_torch.data.nbody import NBodyDataset
-    from nonode_tpu_torch.models.egno import EGNO
-    from nonode_tpu_torch.train.loop import EGNOExperiment
+
+    exp = seed_experiment(nt_main, model, "cpu")
+    ds = NBodyDataset(data_dir, partition="test", traj_len=2,
+                      max_samples=BATCH, device="cpu")
+    perm, windows = exp.draw_epoch(ds, np.random.RandomState(SEED), BATCH,
+                                   shuffle=False)
+    pred, _ = exp.rollout(exp.batch(ds, windows, 0, torch.from_numpy(perm[0])),
+                          2, "charged")
+    return pred.transpose(0, 1).numpy()
+
+
+def run_main_path(nt_main, kernels, data_dir, out_dir, model="egno"):
+    """``main --only_test true``: the test rollout of the seed-42 weights on
+    the committed test split, #1 only; the first two windows of batch 0
+    against the port's CPU rollout."""
+    from nonode_tpu_torch.analysis.registry import artifact_stem
 
     args = nt_main.get_args([
-        "--model", "egno", "--only_test", "true", "--device", "cuda",
+        "--model", model, "--only_test", "true", "--device", "cuda",
         "--data_dir", str(data_dir), "--outf", str(out_dir),
         "--batch_size", str(BATCH), "--traj_len", str(TRAJ_LEN),
         "--seed", str(SEED)])
@@ -792,33 +871,24 @@ def run_main_path(nt_main, kernels, data_dir, out_dir):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     batches = split_size(data_dir, "test") // BATCH
+    per_forward = EXPECT[model]["per_forward"]
     launches = read_launches(
-        kernels, {"egnn_pairwise_fwd": LAYERS * TRAJ_LEN * batches},
-        f"main path ({LAYERS} x {TRAJ_LEN} x {batches} forward, nothing else)")
+        kernels, path_launches(per_forward, batches, TRAJ_LEN),
+        f"{model} main path ({per_forward} x {TRAJ_LEN} x {batches} "
+        f"forward, nothing else)")
 
-    stem = artifact_stem("egno", "charged", SEED, 5)
+    stem = artifact_stem(model, "charged", SEED, 5)
     metrics = [json.loads(line) for line in
                (out_dir / args.exp_name / f"{stem}_metrics.jsonl")
                .read_text().splitlines()]
     art = check_artifact(out_dir / args.exp_name / f"{stem}_results.npz",
-                         batches * BATCH)
-    first = art["preds"][:BATCH, :20]
+                         batches * BATCH, model=model)
+    first = art["preds"][:BATCH, :2 * EXPECT[model]["window_frames"]]
     if not np.isfinite(first).all():
         raise AssertionError("the first two windows of batch 0 are not finite")
 
-    # the port's own CPU rollout of the same weights and batch
     t1 = time.perf_counter()
-    cpu_model = EGNO(device="cpu",
-                     generator=torch.Generator().manual_seed(SEED))
-    cpu_ds = NBodyDataset(data_dir, partition="test", traj_len=2,
-                          max_samples=BATCH, device="cpu")
-    exp = EGNOExperiment(cpu_model)
-    idx_np = exp.epoch_index_arrays(cpu_ds, np.random.RandomState(SEED))
-    idx = {k: torch.from_numpy(v) for k, v in idx_np.items()}
-    batch = exp._batch((cpu_ds.loc, cpu_ds.vel, cpu_ds.charges,
-                        cpu_ds.edge_weights), idx, torch.arange(BATCH))
-    cpu_pred, _ = exp.rollout(batch, 2, "charged")
-    cpu_first = cpu_pred.transpose(0, 1).numpy()
+    cpu_first = cpu_first_windows(nt_main, model, data_dir)
     err = float(np.abs(first - cpu_first).max())
     scale = max(1.0, float(np.abs(cpu_first).max()))
     print(f"  card vs CPU rollout, batch 0 windows 0-1: max_abs_err "
@@ -834,16 +904,15 @@ def run_main_path(nt_main, kernels, data_dir, out_dir):
     return launches
 
 
-def run_train_path(nt_main, kernels, data_dir, out_dir):
-    """``main --only_test false`` for two epochs: 2 x (train batches) x 4
-    backward launches; the same forward launches plus (valid batches) x 4 at
-    the epoch-1 validation and the test rollout's 4 x TRAJ_LEN x (test
-    batches)."""
+def run_train_path(nt_main, kernels, data_dir, out_dir, model="egno"):
+    """``main --only_test false`` for two epochs: training, the validation
+    at epoch 1, the best checkpoint saved and reloaded, the test rollout
+    (``path_launches``)."""
     from nonode_tpu_torch.analysis.registry import artifact_stem
 
     epochs = 2
     args = nt_main.get_args([
-        "--model", "egno", "--only_test", "false", "--device", "cuda",
+        "--model", model, "--only_test", "false", "--device", "cuda",
         "--data_dir", str(data_dir), "--outf", str(out_dir),
         "--epochs", str(epochs), "--test_interval", "1",
         "--batch_size", str(BATCH), "--traj_len", str(TRAJ_LEN),
@@ -857,15 +926,16 @@ def run_train_path(nt_main, kernels, data_dir, out_dir):
     train_b = min(args.max_samples, split_size(data_dir, "train")) // BATCH
     val_b = split_size(data_dir, "valid") // BATCH
     test_b = split_size(data_dir, "test") // BATCH
-    bwd = epochs * train_b * LAYERS
+    per_forward = EXPECT[model]["per_forward"]
     launches = read_launches(
-        kernels, {"egnn_pairwise_fwd": bwd + val_b * LAYERS
-                  + LAYERS * TRAJ_LEN * test_b, "egnn_pairwise_bwd": bwd},
-        f"train path ({epochs} epochs x {train_b} batches x {LAYERS} layers "
-        f"backward; as many forward plus {val_b} validation batches x "
-        f"{LAYERS} and {LAYERS} x {TRAJ_LEN} x {test_b} in the test rollout)")
+        kernels, path_launches(per_forward, test_b, TRAJ_LEN, epochs,
+                               train_b, 1, val_b),
+        f"{model} train path ({epochs} epochs x {train_b} batches x "
+        f"{per_forward} backward; as many forward plus {val_b} validation "
+        f"batches x {per_forward} and {per_forward} x {TRAJ_LEN} x {test_b} "
+        f"in the test rollout)")
 
-    stem = artifact_stem("egno", "charged", SEED, 5)
+    stem = artifact_stem(model, "charged", SEED, 5)
     run = out_dir / args.exp_name
     results = json.loads((run / f"{stem}.json").read_text())
     losses = results["train loss"] + results["val loss"]
@@ -883,7 +953,7 @@ def run_train_path(nt_main, kernels, data_dir, out_dir):
             or loaded[-1] < trained[-1]:
         raise AssertionError("the test rollout did not load the checkpoint "
                              "that training saved")
-    check_artifact(run / f"{stem}_results.npz", test_b * BATCH)
+    check_artifact(run / f"{stem}_results.npz", test_b * BATCH, model=model)
     print(f"  train losses {results['train loss']} val loss {best_val} "
           f"test_loss {test_loss} train path wall {wall:.3f} s launches "
           f"{json.dumps(launches)}", flush=True)
@@ -945,9 +1015,7 @@ def run_generate_and_gravity_main(nt_main, kernels, tmp):
     train_b = sizes["train"] // BATCH
     test_b = sizes["test"] // BATCH
     launches = read_launches(
-        kernels, {"egnn_pairwise_fwd": train_b * LAYERS
-                  + LAYERS * traj_len * test_b,
-                  "egnn_pairwise_bwd": train_b * LAYERS},
+        kernels, path_launches(LAYERS, test_b, traj_len, 1, train_b),
         f"gravity main (1 epoch x {train_b} batches x {LAYERS} layers "
         f"backward; as many forward and {LAYERS} x {traj_len} x {test_b} in "
         f"the test rollout)")
@@ -965,38 +1033,44 @@ def run_generate_and_gravity_main(nt_main, kernels, tmp):
     return gen_launches, launches
 
 
-def check_train_step(data_dir, dev):
+def train_batch0(nt_main, model, where, data_dir):
+    """The seed-42 weights on ``where`` and train batch 0 of the driver's
+    first epoch (its seed-42 permutation and windows). Returns (experiment,
+    a function that computes batch 0's loss, a function that runs one
+    training step on batch b: one input, so every batch has batch 0's
+    windows)."""
+    from nonode_tpu_torch.data.nbody import NBodyDataset
+
+    exp = seed_experiment(nt_main, model, where)
+    ds = NBodyDataset(data_dir, partition="train", device=where)
+    perm, windows = exp.draw_epoch(ds, np.random.RandomState(SEED), BATCH)
+    idx0 = torch.from_numpy(perm[0]).to(where)
+    return (exp, lambda: exp._loss(exp.batch(ds, windows, 0, idx0))[0],
+            lambda b: exp.train_epoch(ds, windows, perm[b:b + 1]))
+
+
+def check_train_step(nt_main, data_dir, dev, model="egno"):
     """Loss and the gradient of every parameter on train batch 0 (the
     driver's seed-42 permutation) from the seed-42 weights, card against the
-    port's CPU; then the median wall of one training step on the card,
+    port's CPU, with at least ``EXPECT``'s count of parameters given a
+    gradient; then the median wall of one training step on the card,
     sync-closed, over the steps after the first."""
-    from nonode_tpu_torch.data.nbody import NBodyDataset
-    from nonode_tpu_torch.models.egno import EGNO
-    from nonode_tpu_torch.train.loop import EGNOExperiment, make_perm
-
     runs = []
     for where in (dev, torch.device("cpu")):
-        exp = EGNOExperiment(EGNO(device=where, generator=torch.Generator()
-                                  .manual_seed(SEED)))
-        ds = NBodyDataset(data_dir, partition="train", device=where)
-        rng = np.random.RandomState(SEED)
-        perm = make_perm(rng, len(ds), BATCH)
-        idx_np = exp.epoch_index_arrays(ds, rng)
-        idx = {k: torch.from_numpy(v).to(where) for k, v in idx_np.items()}
-        batch = exp._batch((ds.loc, ds.vel, ds.charges, ds.edge_weights), idx,
-                           torch.from_numpy(perm[0]).to(where))
+        exp, loss_fn, step = train_batch0(nt_main, model, where, data_dir)
         t0 = time.perf_counter()
-        loss, _ = exp._loss(batch)
+        loss = loss_fn()
         loss.backward()
         loss = loss.detach()
         grads = {k: p.grad.detach().cpu() for k, p in
                  exp.model.named_parameters() if p.grad is not None}
-        runs.append((loss.item(), grads, time.perf_counter() - t0,
-                     (exp, ds, idx_np, perm)))
-    (loss_c, g_c, _, card), (loss_h, g_h, cpu_s, _) = runs
-    if set(g_c) != set(g_h) or len(g_c) < 40:
+        runs.append((loss.item(), grads, time.perf_counter() - t0, step))
+    (loss_c, g_c, _, card_step), (loss_h, g_h, cpu_s, _) = runs
+    least = EXPECT[model]["grads"]
+    if set(g_c) != set(g_h) or len(g_c) < least:
         raise AssertionError(f"parameters with a gradient differ: "
-                             f"{sorted(set(g_c) ^ set(g_h))}")
+                             f"{sorted(set(g_c) ^ set(g_h))}, {len(g_c)} of "
+                             f"at least {least}")
     if abs(loss_c - loss_h) > GRAD_RTOL * max(1.0, abs(loss_h)):
         raise AssertionError(f"loss on the card {loss_c}, on the CPU {loss_h}")
     worst = (0.0, "")
@@ -1007,21 +1081,20 @@ def check_train_step(data_dir, dev):
             raise AssertionError(f"gradient of {name}: card vs CPU {err} > "
                                  f"{GRAD_RTOL} x {scale}")
         worst = max(worst, (err / scale, name))
-    print(f"  train batch 0: loss card {loss_c!r} CPU {loss_h!r}; "
+    print(f"  {model} train batch 0: loss card {loss_c!r} CPU {loss_h!r}; "
           f"{len(g_h)} parameter gradients, worst relative error "
           f"{worst[0]:.3e} ({worst[1]}; tolerance {GRAD_RTOL:g} x max(1, "
           f"max|g|) per tensor); CPU step {cpu_s:.1f} s", flush=True)
 
-    exp, ds, idx_np, perm = card
     walls = []
     for b in range(6):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        exp.train_epoch(ds, idx_np, perm[b:b + 1])
+        card_step(b)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     step_ms = 1e3 * float(np.median(walls[1:]))
-    print(f"  training step wall (batch {BATCH}, sync-closed): median "
+    print(f"  {model} training step wall (batch {BATCH}, sync-closed): median "
           f"{step_ms:.3f} ms over steps 2-6 "
           f"({', '.join(f'{1e3 * w:.3f}' for w in walls)} ms)", flush=True)
     return step_ms
@@ -1055,9 +1128,13 @@ def main():
     phase("build", t0)
 
     t0 = time.perf_counter()
-    rows = {"egnn_pairwise_fwd": check_pairwise_kernel(egnn_fused, dev),
-            "egnn_pairwise_bwd": check_pairwise_bwd_kernel(egnn_fused, dev),
-            **check_nbody_kernels(dev)}
+    pair_rows = {"egnn_pairwise_fwd": check_pairwise_kernel(egnn_fused, dev),
+                 "egnn_pairwise_bwd": check_pairwise_bwd_kernel(egnn_fused,
+                                                                dev)}
+    rows = {name: dict(r["slice"], segno_shape=r["segno"],
+                       ragged_shape=r["ragged"])
+            for name, r in pair_rows.items()}
+    rows.update(check_nbody_kernels(dev))
     check_fused_frames(dev)
     phase("kernels", t0)
 
@@ -1075,8 +1152,24 @@ def main():
     phase("train path", t0)
 
     t0 = time.perf_counter()
-    check_train_step(data_dir, dev)
+    check_train_step(nt_main, data_dir, dev)
     phase("train step", t0)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["segno serving"] = run_main_path(
+            nt_main, KERNELS, data_dir, Path(tmp) / "out", model="segno")
+    phase("segno main path", t0)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["segno train"] = run_train_path(
+            nt_main, KERNELS, data_dir, Path(tmp) / "out", model="segno")
+    phase("segno train path", t0)
+
+    t0 = time.perf_counter()
+    check_train_step(nt_main, data_dir, dev, model="segno")
+    phase("segno train step", t0)
 
     t0 = time.perf_counter()
     paths["stretch"], _ = run_stretch(KERNELS, dev)

@@ -1,10 +1,10 @@
-"""Weights across frameworks: the nonode_tpu EGNO parameter tree (as numpy
-arrays) to this package's EGNO ``state_dict``.
+"""Weights across frameworks: the nonode_tpu EGNO and SEGNO parameter trees
+(as numpy arrays) to this package's ``state_dict``s.
 
-The port's own copy of the layout mapping in
-nonode_tpu/compat/torch_port.py:66-97 (``egno_state_dict_from_params``):
-both frameworks keep Linear weights as ``[out, in]``, so tensors map one to
-one onto the reference names.
+The port's own copy of the layout mappings in
+nonode_tpu/compat/torch_port.py:66-116 (``egno_state_dict_from_params``,
+``segno_params_from_state_dict``): both frameworks keep Linear weights as
+``[out, in]``, so tensors map one to one onto the reference names.
 """
 
 from __future__ import annotations
@@ -13,12 +13,9 @@ import numpy as np
 import torch
 
 
-def egno_state_dict_from_jax_params(params_np, n_layers: int) -> dict:
-    """``params_np``: the JAX EGNO tree ({embedding, layers[i]{edge_net,
-    coord_net, node_v_net?, node_net?}, time_conv[i], time_conv_x[i]}) with
-    numpy leaves. Returns a state_dict for ``EGNO.load_state_dict(strict=True)``."""
-    out = {}
-
+def _putters(out: dict):
+    """put_linear(prefix, {w, b?}) and put_mlp(prefix, {l1, l2}), writing
+    into ``out`` under the reference names (``prefix.0`` / ``prefix.2``)."""
     def put_linear(prefix, p):
         out[f"{prefix}.weight"] = p["w"]
         if "b" in p:
@@ -28,6 +25,20 @@ def egno_state_dict_from_jax_params(params_np, n_layers: int) -> dict:
         put_linear(f"{prefix}.0", p["l1"])
         put_linear(f"{prefix}.2", p["l2"])
 
+    return put_linear, put_mlp
+
+
+def _tensors(out: dict) -> dict:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in out.items()}
+
+
+def egno_state_dict_from_jax_params(params_np, n_layers: int) -> dict:
+    """``params_np``: the JAX EGNO tree ({embedding, layers[i]{edge_net,
+    coord_net, node_v_net?, node_net?}, time_conv[i], time_conv_x[i]}) with
+    numpy leaves. Returns a state_dict for ``EGNO.load_state_dict(strict=True)``."""
+    out = {}
+    put_linear, put_mlp = _putters(out)
     put_linear("embedding", params_np["embedding"])
     if len(params_np["layers"]) != n_layers:
         raise ValueError(f"tree has {len(params_np['layers'])} layers, "
@@ -45,5 +56,22 @@ def egno_state_dict_from_jax_params(params_np, n_layers: int) -> dict:
                 params_np["time_conv"][i]["t_conv"]["w"]
             out[f"time_conv_x_modules.{i}.t_conv.weights1"] = \
                 params_np["time_conv_x"][i]["t_conv"]["w"]
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in out.items()}
+    return _tensors(out)
+
+
+def segno_state_dict_from_jax_params(params_np) -> dict:
+    """``params_np``: the JAX SEGNO tree ({embedding, gcl{edge_mlp, node_mlp,
+    coord_mlp_l1, coord_mlp_l2}, attn?{l1, l2}}) with numpy leaves. Returns
+    a state_dict for ``SEGNO.load_state_dict(strict=True)``: the GCL under
+    ``module``, the attention under ``enc_attn_net.attn_mlp``."""
+    out = {}
+    put_linear, put_mlp = _putters(out)
+    put_linear("embedding", params_np["embedding"])
+    gcl = params_np["gcl"]
+    put_mlp("module.edge_mlp", gcl["edge_mlp"])
+    put_mlp("module.node_mlp", gcl["node_mlp"])
+    put_mlp("module.coord_mlp", {"l1": gcl["coord_mlp_l1"],
+                                 "l2": gcl["coord_mlp_l2"]})
+    if "attn" in params_np:
+        put_mlp("enc_attn_net.attn_mlp", params_np["attn"])
+    return _tensors(out)

@@ -1,6 +1,6 @@
-"""EGNO model config: the reference model_confs.yaml defaults, with optional
-YAML overrides (counterpart of nonode_tpu/config.py:18-31), and the JSON
-presets of ``--config_by_file`` (nonode_tpu/main.py:87-134).
+"""EGNO and SEGNO model configs: the reference model_confs.yaml defaults,
+with optional YAML overrides (counterpart of nonode_tpu/config.py:18-72),
+and the JSON presets of ``--config_by_file`` (nonode_tpu/main.py:87-134).
 
 ``yaml`` is imported only when a config path is given, so the defaults need
 nothing beyond the standard library.
@@ -39,21 +39,39 @@ class EGNOConfig:
     weight_decay: float = 1e-8
 
 
+@dataclasses.dataclass
+class SEGNOConfig:
+    # n_layers and norm_diff mirror model_confs.yaml:SEGNO and nonode_tpu's
+    # config, and nothing reads them: the live path integrates num_timesteps
+    # weight-tied steps (SEGNO/models/model.py:95-102)
+    num_timesteps: int = 10
+    in_node_nf: int = 1
+    in_edge_nf: int = 2
+    hidden_nf: int = 64
+    n_layers: int = 8
+    recurrent: bool = True
+    norm_diff: bool = False
+    tanh: bool = False
+    lr: float = 5e-3
+    weight_decay: float = 1e-12
+
+
+CONFIGS = {"egno": EGNOConfig, "segno": SEGNOConfig}
+
+
 def load_model_config(model: str, config_path: str | Path | None = None):
-    """The EGNO config; ``config_path`` (a model_confs.yaml-schema file)
-    overrides the defaults, None means the defaults."""
-    if model != "egno":
-        raise NotImplementedError(
-            f"model {model!r}: only EGNO is ported; SEGNO comes with "
-            "ROADMAP.md Queue 1 'SEGNO slice'")
-    cfg = EGNOConfig()
+    """The model's config; ``config_path`` (a model_confs.yaml-schema file,
+    read under the section ``model.upper()``) overrides the defaults, None
+    means the defaults."""
+    cls = CONFIGS[model]
+    cfg = cls()
     if config_path is None:
         return cfg
     import yaml
 
     with open(config_path) as f:
-        raw = yaml.safe_load(f)["EGNO"]
-    fields = {f.name for f in dataclasses.fields(EGNOConfig)}
+        raw = yaml.safe_load(f)[model.upper()]
+    fields = {f.name for f in dataclasses.fields(cls)}
     updates = {}
     if "num_timesteps" in raw:
         updates["num_timesteps"] = raw["num_timesteps"]
@@ -85,9 +103,12 @@ def apply_preset(args, path: str | Path | None = None) -> dict:
     return {dst: preset[src] for src, dst in PRESET_CFG_KEYS if src in preset}
 
 
-def overlay(cfg: EGNOConfig, overrides: dict) -> EGNOConfig:
+def overlay(cfg, overrides: dict):
     """The preset's hyperparameters over the model config (lr and
-    weight_decay as floats)."""
+    weight_decay as floats), only those that are fields of the config, as
+    nonode_tpu/main.py:126-134: an EGNO preset's time_emb_dim or num_modes
+    leaves a SEGNO config as it is."""
+    fields = {f.name for f in dataclasses.fields(cfg)}
     return dataclasses.replace(cfg, **{
         k: (float(v) if k in ("lr", "weight_decay") else v)
-        for k, v in overrides.items()})
+        for k, v in overrides.items() if k in fields})

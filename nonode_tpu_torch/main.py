@@ -1,16 +1,20 @@
-"""Experiment entry point for EGNO: training and evaluation (counterpart of
-nonode_tpu/main.py:51-378).
+"""Experiment entry point for EGNO and SEGNO: training and evaluation
+(counterpart of nonode_tpu/main.py:51-378).
 
-``python -m nonode_tpu_torch.main --model egno [--only_test true] [--device cpu]``
+``python -m nonode_tpu_torch.main --model {egno,segno} [--only_test true]
+[--device cpu]``
 
-Seeds everything and builds EGNO on the device. Unless ``--only_test``, it
-trains on the train split with Adam-L2, validates every ``--test_interval``
-epochs (from epoch 1 on, as the reference), saves the best checkpoint and
-stops early after 15 validations without improvement. Then it loads the
-checkpoint at its save path when it exists (else keeps the weights
-initialised from ``--seed``), runs the windowed test rollout, and writes a
-results JSON and the ``{targets, preds, energy_conservation, test_loss}``
-artifact (``_results.npz``) under ``--outf``. The argument names and defaults
+Seeds everything and builds the model on the device. Unless
+``--only_test``, it trains on the train split with Adam-L2, validates every
+``--test_interval`` epochs (from epoch 1 on, as the reference), saves the
+best checkpoint and stops early after 15 validations without improvement.
+Then it loads the checkpoint at its save path when it exists (else keeps
+the weights initialised from ``--seed``), runs the windowed test rollout,
+and writes a results JSON and the ``{targets, preds, energy_conservation,
+test_loss}`` artifact (``_results.npz``) under ``--outf``. For SEGNO,
+``--traj_len <= 0`` runs the plain test epoch instead and writes no
+artifact; several inputs fuse by attention, and with ``--varDT`` their
+segment lengths are drawn per batch. The argument names and defaults
 are nonode_tpu.main's, plus ``--device``; ``--config`` defaults to the
 built-in model_confs.yaml values; ``--config_by_file`` merges a JSON preset
 over the arguments and the model config.
@@ -34,9 +38,10 @@ from .analysis.registry import artifact_stem
 from .config import apply_preset, load_model_config, overlay
 from .data.nbody import NBodyDataset
 from .models.egno import EGNO
+from .models.segno import SEGNO
 from .runtime import resolve_device, seed_everything
 from .train.checkpoint import EarlyStopping, load_params
-from .train.loop import EGNOExperiment, make_perm
+from .train.loop import EGNOExperiment, SEGNOExperiment
 from .utils.logging import RunLogger
 
 
@@ -96,7 +101,6 @@ def get_args(argv=None):
 
 def _refuse_unported(args):
     todo = [
-        (args.model == "segno", "--model segno", "SEGNO slice"),
         (args.precision == "bf16", "--precision bf16", "bf16 mode"),
         (args.dp * args.space > 1, "--dp/--space > 1", "Multi-GPU"),
     ]
@@ -104,7 +108,7 @@ def _refuse_unported(args):
         if hit:
             raise NotImplementedError(
                 f"{what} is not ported yet: ROADMAP.md Queue 1 '{item}'")
-    if args.traj_len <= 0:
+    if args.model == "egno" and args.traj_len <= 0:
         # as nonode_tpu/main.py:336-340: the EGNO test window is empty there
         raise ValueError(
             "EGNO requires --traj_len >= 1: at traj_len=0 the test dataset's "
@@ -112,22 +116,47 @@ def _refuse_unported(args):
             "main_simulation_simple_no.py:274-287)")
 
 
-def main(args):
-    _refuse_unported(args)
-    device = resolve_device(args.device)
+def build_experiment(args, device, generator):
+    """The model that ``args`` name at its config's width (model_confs.yaml,
+    ``--config``, the preset), its weights drawn from ``generator``, in its
+    experiment. Fills ``args.num_timesteps`` in from the config; EGNO takes
+    varDT only with several inputs (main.py:121)."""
     cfg = load_model_config(args.model, args.config)
     over = getattr(args, "_cfg_overrides", None)
     if over:
         cfg = overlay(cfg, over)
-    print(args)
-    seed = args.seed
-    generator = seed_everything(seed)
-    rng = np.random.RandomState(seed)
-
     if args.num_timesteps is None:
         args.num_timesteps = cfg.num_timesteps
     if args.scale_lr:
         cfg = dataclasses.replace(cfg, lr=cfg.lr * args.scale_lr)
+    kw = dict(device=device, generator=generator)
+    if args.model == "segno":
+        model = SEGNO(in_node_nf=cfg.in_node_nf, in_edge_nf=cfg.in_edge_nf,
+                      hidden_nf=cfg.hidden_nf, recurrent=cfg.recurrent,
+                      tanh=cfg.tanh,
+                      multiple_agg="attn" if args.num_inputs > 1 else None,
+                      **kw)
+        return SEGNOExperiment(model, num_timesteps=args.num_timesteps,
+                               varDT=args.varDT, lr=cfg.lr,
+                               weight_decay=cfg.weight_decay)
+    model = EGNO(n_layers=cfg.n_layers, in_node_nf=cfg.in_node_nf,
+                 in_edge_nf=cfg.in_edge_nf, hidden_nf=cfg.hidden_nf,
+                 num_modes=cfg.num_modes, num_timesteps=args.num_timesteps,
+                 time_emb_dim=cfg.time_emb_dim, num_inputs=args.num_inputs,
+                 varDT=bool(args.varDT and args.num_inputs > 1),
+                 with_v=cfg.with_v, flat=cfg.flat, norm=cfg.norm, **kw)
+    return EGNOExperiment(model, lr=cfg.lr, weight_decay=cfg.weight_decay)
+
+
+def main(args):
+    _refuse_unported(args)
+    device = resolve_device(args.device)
+    print(args)
+    seed = args.seed
+    generator = seed_everything(seed)
+    rng = np.random.RandomState(seed)
+    exp = build_experiment(args, device, generator)
+    model = exp.model
 
     model_save_path = (args.outf / args.exp_name /
                        (artifact_stem(args.model, args.dataset, seed,
@@ -143,24 +172,20 @@ def main(args):
     best_val_loss = 1e8
     best_epoch = 0
 
-    # EGNO forces varDT off for single input (main.py:121)
-    args.varDT = bool(args.varDT and args.num_inputs > 1)
     ds_kw = dict(data_dir=args.data_dir, dataset=args.dataset,
                  n_balls=args.n_balls, num_timesteps=args.num_timesteps,
-                 num_inputs=args.num_inputs, varDT=args.varDT, dT=args.dT,
-                 device=device)
+                 num_inputs=args.num_inputs, device=device)
+    if args.model == "egno":
+        # EGNO forces varDT off for one input (main.py:121), after the
+        # checkpoint is named, as nonode_tpu/main.py:149-184; SEGNO's
+        # datasets take neither varDT nor dT
+        args.varDT = bool(args.varDT and args.num_inputs > 1)
+        ds_kw.update(varDT=args.varDT, dT=args.dT)
     if not args.only_test:
         ds_train = NBodyDataset(partition="train",
                                 max_samples=args.max_samples, **ds_kw)
         ds_val = NBodyDataset(partition="val", **ds_kw)
     ds_test = NBodyDataset(partition="test", traj_len=args.traj_len, **ds_kw)
-    model = EGNO(n_layers=cfg.n_layers, in_node_nf=cfg.in_node_nf,
-                 in_edge_nf=cfg.in_edge_nf, hidden_nf=cfg.hidden_nf,
-                 num_modes=cfg.num_modes, num_timesteps=args.num_timesteps,
-                 time_emb_dim=cfg.time_emb_dim, num_inputs=args.num_inputs,
-                 varDT=args.varDT, with_v=cfg.with_v, flat=cfg.flat,
-                 norm=cfg.norm, device=device, generator=generator)
-    exp = EGNOExperiment(model, lr=cfg.lr, weight_decay=cfg.weight_decay)
     print(f"Num particles: {args.n_balls}, VarDT: {args.varDT}, "
           f"Num inputs: {args.num_inputs}, "
           f"Num timesteps: {args.num_timesteps}, dT: {args.dT}, "
@@ -180,12 +205,11 @@ def main(args):
         exp.optimizer
 
     def run_epoch(ds, train):
-        # the JAX driver's RNG order: the permutation, then the index arrays
-        perm = make_perm(rng, len(ds), args.batch_size, shuffle=train)
-        idx_np = exp.epoch_index_arrays(ds, rng)
+        perm, windows = exp.draw_epoch(ds, rng, args.batch_size,
+                                       shuffle=train)
         step = exp.train_epoch if train else exp.eval_epoch
-        _, last = step(ds, idx_np, perm)
-        # the reference reports the last-timestep loss as the epoch loss
+        _, last = step(ds, windows, perm)
+        # the reference reports the last frame's loss as the epoch loss
         return last.mean()
 
     # Train losses stay on the device between validations and reach the
@@ -241,23 +265,32 @@ def main(args):
               f"(initialised from --seed {seed}).")
 
     t0 = time.time()
-    test_loss, avg_num_steps, artifact = exp.test_rollout(
-        ds_test, args.batch_size, rng)
+    if args.traj_len <= 0:
+        # SEGNO only: the reference runs a plain (non-rollout) test epoch and
+        # saves no artifact (main.py:176,188; nonode_tpu/main.py:326-344)
+        test_loss = float(run_epoch(ds_test, train=False))
+        avg_num_steps, artifact = 0.0, {}
+    else:
+        test_loss, avg_num_steps, artifact = exp.test_rollout(
+            ds_test, args.batch_size, rng)
     print(f"==> test rollout loss: {test_loss:.5f} "
           f"avg_num_steps: {avg_num_steps:.2f} "
-          f"finite_fraction: {artifact['finite_fraction']:.3f} "
-          f"loss_finite: {artifact['test_loss_finite']:.5f} "
+          f"finite_fraction: {artifact.get('finite_fraction', 1.0):.3f} "
+          f"loss_finite: "
+          f"{artifact.get('test_loss_finite', float('nan')):.5f} "
           f"({time.time() - t0:.1f}s)")
     results["test loss"].append(test_loss)
     logger.log({"test_loss": test_loss, "avg_num_steps": avg_num_steps,
-                "finite_fraction": artifact["finite_fraction"]})
+                "finite_fraction": artifact.get("finite_fraction", 1.0)})
 
     with open(model_save_path.with_suffix(".json"), "w") as f:
         f.write(json.dumps(results, indent=4))
-    traj_file = model_save_path.parent / f"{model_save_path.stem}_results.npz"
-    np.savez(traj_file, **artifact)
-    print(f"trajectory artifact saved to {traj_file}")
-    logger.log_artifact(traj_file)
+    if args.traj_len > 0:
+        traj_file = (model_save_path.parent
+                     / f"{model_save_path.stem}_results.npz")
+        np.savez(traj_file, **artifact)
+        print(f"trajectory artifact saved to {traj_file}")
+        logger.log_artifact(traj_file)
     logger.finish()
     return best_val_loss, test_loss, best_epoch
 

@@ -31,6 +31,14 @@ def uniform(shape, low, high, generator=None, device=None):
     return (low + (high - low) * u).to(device)
 
 
+def xavier_uniform(shape, gain=1.0, generator=None, device=None):
+    """torch.nn.init.xavier_uniform_ for an [out, in] weight, drawn as
+    ``uniform`` draws (nonode_tpu/nn.py:xavier_uniform_init)."""
+    fan_out, fan_in = shape
+    bound = gain * math.sqrt(6.0 / (fan_in + fan_out))
+    return uniform(shape, -bound, bound, generator, device)
+
+
 class Linear(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, *, device=None,
                  generator=None):
@@ -45,7 +53,7 @@ class Linear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-class _Act(nn.Module):
+class Act(nn.Module):
     """A parameter-free activation slot, so Linear layers sit at
     ``mlp.0`` / ``mlp.2`` as in the reference nn.Sequential."""
 
@@ -68,10 +76,10 @@ class MLP(nn.Module):
         self.act = torch.tanh if flat else act
         self.last_act = last_act
         layers = [Linear(in_dim, hidden, device=device, generator=generator),
-                  _Act(self.act),
+                  Act(self.act),
                   Linear(hidden, out_dim, device=device, generator=generator)]
         if last_act:
-            layers.append(_Act(self.act))
+            layers.append(Act(self.act))
         self.mlp = nn.Sequential(*layers)
 
     def forward(self, x):

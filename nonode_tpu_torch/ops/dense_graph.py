@@ -1,5 +1,5 @@
-"""Dense pairwise graph ops and the EGNN layer (counterpart of
-nonode_tpu/ops/dense_graph.py:32-228).
+"""Dense pairwise graph ops, the EGNN layer and SEGNO's GCL (counterpart of
+nonode_tpu/ops/dense_graph.py:32-365).
 
 Fully connected graphs are dense ``[..., N, N, .]`` tensors with an
 off-diagonal mask; edge (i, j) carries the message node i receives from
@@ -13,7 +13,7 @@ from typing import Callable
 import torch
 from torch import nn
 
-from ..nn import MLP, Linear, silu
+from ..nn import MLP, Act, Linear, silu, xavier_uniform
 from .kernels import egnn_fused
 
 
@@ -77,6 +77,40 @@ def first_edge_linear(lin: Linear, segments):
     return out + lin.bias
 
 
+def fused_chain(clip_edges, x, h, edge_fea, mask, l1, l2, c1, c2,
+                radial_col, hi_col):
+    """(tot_f, tot_m) of a layer's pairwise chain through the fused kernels
+    (ops.kernels.egnn_fused). ``l1``, ``l2`` are the edge MLP's Linears and
+    ``c1``, ``c2`` the coordinate head's; the first edge Linear's columns
+    hold the radial at ``radial_col``, h_i and h_j from ``hi_col`` (H each)
+    and the edge features last. Leading dims flatten to one graph axis, and
+    the h_i / h_j column slices are projected per node here (as
+    first_edge_linear does). The nine weights are slices, transposes and row
+    views of the Linear parameters, so the backward's weight gradients reach
+    them through autograd."""
+    hdim = l1.weight.shape[0]
+    e = edge_fea.shape[-1]
+    lead = x.shape[:-2]
+    n = x.shape[-2]
+    g = 1
+    for d in lead:
+        g *= d
+    w1 = l1.weight
+    hi = h @ w1[:, hi_col:hi_col + hdim].T
+    hj = h @ w1[:, hi_col + hdim:hi_col + 2 * hdim].T
+    weights = (w1[:, radial_col:radial_col + 1].T, w1[:, w1.shape[1] - e:].T,
+               l1.bias[None, :], l2.weight.T, l2.bias[None, :],
+               c1.weight.T, c1.bias[None, :],
+               c2.weight.T, c2.bias[None, :])            # wc2 [H,1], bc2 [1,1]
+    ef = edge_fea.expand(*lead, n, n, e)
+    tot_f, tot_m = egnn_fused.pairwise_message(
+        clip_edges,
+        x.reshape(g, n, 3).contiguous(), hi.reshape(g, n, hdim).contiguous(),
+        hj.reshape(g, n, hdim).contiguous(),
+        ef.reshape(g, n, n, e).contiguous(), mask.contiguous(), weights)
+    return tot_f.reshape(*lead, n, 3), tot_m.reshape(*lead, n, hdim)
+
+
 class _ScalarNet(nn.Module):
     """Holds the edge MLP under the reference name
     ``edge_message_net.scalar_net`` (InvariantScalarNet)."""
@@ -133,37 +167,6 @@ class EGNNLayer(nn.Module):
                 and egnn_fused.supported(x.shape[-2], self.hidden_nf, x.dtype,
                                          self.act, self.flat, self.norm))
 
-    def _fused_pairwise(self, x, h, edge_fea, mask):
-        """The pairwise chain through the fused kernels: leading dims flatten
-        to one graph axis, and the h_i / h_j column slices of the first edge
-        Linear are projected per node here (as first_edge_linear does). The
-        nine weights are slices, transposes and row views of the Linear
-        parameters, so the backward's weight gradients reach them through
-        autograd."""
-        hdim, e = self.hidden_nf, self.in_edge_nf
-        lead = x.shape[:-2]
-        n = x.shape[-2]
-        g = 1
-        for d in lead:
-            g *= d
-        l1, l2 = self.edge_net.mlp[0], self.edge_net.mlp[2]
-        c1, c2 = self.coord_net.mlp[0], self.coord_net.mlp[2]
-        w1 = l1.weight                                   # [H, 1+2H+E]
-        wi, wj = w1[:, 1:1 + hdim], w1[:, 1 + hdim:1 + 2 * hdim]
-        hi = h @ wi.T
-        hj = h @ wj.T
-        weights = (w1[:, :1].T, w1[:, 1 + 2 * hdim:].T, l1.bias[None, :],
-                   l2.weight.T, l2.bias[None, :],
-                   c1.weight.T, c1.bias[None, :],
-                   c2.weight.T, c2.bias[None, :])        # wc2 [H,1], bc2 [1,1]
-        ef = edge_fea.expand(*lead, n, n, e)
-        tot_f, tot_m = egnn_fused.pairwise_message(
-            False,
-            x.reshape(g, n, 3).contiguous(), hi.reshape(g, n, hdim).contiguous(),
-            hj.reshape(g, n, hdim).contiguous(),
-            ef.reshape(g, n, n, e).contiguous(), mask.contiguous(), weights)
-        return tot_f.reshape(*lead, n, 3), tot_m.reshape(*lead, n, hdim)
-
     def forward(self, x, h, edge_fea, v=None, edge_mask=None):
         """x: [..., N, 3]; h: [..., N, H]; edge_fea: [..., N, N, E].
 
@@ -175,7 +178,11 @@ class EGNNLayer(nn.Module):
             mask = mask * edge_mask
 
         if self._use_fused(x, edge_mask):
-            tot_f, tot_message = self._fused_pairwise(x, h, edge_fea, mask)
+            # the edge MLP's input order: [||r_ij||^2, h_i, h_j, edge_fea]
+            tot_f, tot_message = fused_chain(
+                False, x, h, edge_fea, mask, self.edge_net.mlp[0],
+                self.edge_net.mlp[2], self.coord_net.mlp[0],
+                self.coord_net.mlp[2], radial_col=0, hi_col=1)
         else:
             rij = pairwise_diff(x)
             r2 = (rij * rij).sum(dim=-1, keepdim=True)
@@ -197,3 +204,94 @@ class EGNNLayer(nn.Module):
         if self.h_update:
             h = self.node_net(torch.cat([h, tot_message], dim=-1))
         return x, v, h
+
+
+class SEGNOGCL(nn.Module):
+    """Dense second-order equivariant GCL, one integrator step of SEGNO
+    (counterpart of nonode_tpu/ops/dense_graph.py:SEGNOGCL, SEGNO_GCL in
+    SEGNO/models/models/gcl.py:26-119).
+
+    Edge MLP on [h_i, h_j, ||r_ij||^2, edge_attr], both layers activated;
+    the coordinate head gives a per-edge scalar times r_ij, clipped to +-100
+    per edge before the masked mean (no clip after the mean, unlike
+    EGNNLayer), times ``coords_weight``; the second-order update
+    ``v += agg / T; x += v / T``; the node MLP on [h, sum_j edge_feat],
+    residual when ``recurrent``. Module names follow the reference
+    state_dict (``edge_mlp``, ``node_mlp``, ``coord_mlp``).
+
+    ``fused`` routes the pairwise chain through ops.kernels.egnn_fused with
+    ``clip_edges=True`` when the config passes its gate (the CUDA kernels on
+    the card, their plain versions on the CPU); otherwise, as with
+    ``tanh=True``, the dense path runs.
+    """
+
+    # not a parameter: the reference's nn.Parameter(torch.ones(1)) * 3
+    # (gcl.py:59) is an unregistered product, never in the state_dict
+    COORDS_RANGE = 3.0
+
+    def __init__(self, hidden_nf: int, in_edge_nf: int = 0,
+                 act: Callable = silu, recurrent: bool = True,
+                 coords_weight: float = 1.0, tanh: bool = False,
+                 fused: bool = True, *, device=None, generator=None):
+        super().__init__()
+        self.hidden_nf = hidden_nf
+        self.in_edge_nf = in_edge_nf
+        self.act = act
+        self.recurrent = recurrent
+        self.coords_weight = coords_weight
+        self.tanh = tanh
+        self.fused = fused
+        kw = dict(device=device, generator=generator)
+        h = hidden_nf
+        self.edge_mlp = nn.Sequential(
+            Linear(2 * h + 1 + in_edge_nf, h, **kw), Act(act),
+            Linear(h, h, **kw), Act(act))
+        self.node_mlp = nn.Sequential(Linear(2 * h, h, **kw), Act(act),
+                                      Linear(h, h, **kw))
+        head = Linear(h, 1, **kw)
+        # the reference's xavier_uniform_(gain=0.001) on the last coordinate
+        # layer (gcl.py:50-51); its bias keeps the Linear init
+        with torch.no_grad():
+            head.weight.copy_(xavier_uniform((1, h), 0.001, **kw))
+        self.coord_mlp = nn.Sequential(Linear(h, h, **kw), Act(act), head)
+
+    def _coord_head(self, edge_feat):
+        y = self.coord_mlp(edge_feat)
+        if self.tanh:
+            y = torch.tanh(y) * self.COORDS_RANGE
+        return y
+
+    def _use_fused(self, x, edge_attr) -> bool:
+        return (self.fused and self.in_edge_nf >= 1 and edge_attr is not None
+                and egnn_fused.supported(x.shape[-2], self.hidden_nf, x.dtype,
+                                         self.act, False, False,
+                                         tanh=self.tanh))
+
+    def forward(self, h, x, v, edge_attr, inv_steps: float):
+        """One integrator step on the complete graph; inv_steps = 1/T.
+        h: [..., N, H]; x, v: [..., N, 3]; edge_attr: [..., N, N, E] or None.
+        Returns (h, x, v)."""
+        mask = offdiag_mask(x.shape[-2], x.dtype, x.device)
+        if self._use_fused(x, edge_attr):
+            tot_trans, msg = fused_chain(
+                True, x, h, edge_attr, mask, self.edge_mlp[0],
+                self.edge_mlp[2], self.coord_mlp[0], self.coord_mlp[2],
+                radial_col=2 * self.hidden_nf, hi_col=0)
+            agg = tot_trans * self.coords_weight
+        else:
+            rij = pairwise_diff(x)
+            radial = (rij * rij).sum(dim=-1, keepdim=True)
+            segs = [(h, "i"), (h, "j"), (radial, "pair")]
+            if edge_attr is not None and self.in_edge_nf:
+                segs.append((edge_attr, "pair"))
+            pre = first_edge_linear(self.edge_mlp[0], segs)
+            edge_feat = self.act(self.edge_mlp[2](self.act(pre)))
+            trans = (rij * self._coord_head(edge_feat)).clamp(-100.0, 100.0)
+            agg = masked_mean_j(trans, mask) * self.coords_weight
+            msg = masked_sum_j(edge_feat, mask)
+
+        v = v + agg * inv_steps
+        x = x + v * inv_steps
+        out = self.node_mlp(torch.cat([h, msg], dim=-1))
+        h = h + out if self.recurrent else out
+        return h, x, v

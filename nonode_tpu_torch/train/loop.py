@@ -1,12 +1,13 @@
-"""EGNO training, validation and evaluation: batch gather, forward, loss,
-Adam-L2 epochs, windowed rollout and the test rollout artifact (counterpart
-of the EGNO half of nonode_tpu/train/loop.py).
+"""EGNO and SEGNO training, validation and evaluation: batch gather,
+forward, loss, Adam-L2 epochs, windowed rollout and the test rollout
+artifact (counterpart of nonode_tpu/train/loop.py).
 
 The split lives on the device; a batch is an index gather. The JAX
 package's whole-epoch ``lax.scan`` over batches is a Python loop here whose
 per-batch losses stay on the device: an epoch makes no host sync. The
 rollout's scan over windows is a Python loop too; everything in a window
-stays on the device.
+stays on the device. Input frames and segment lengths are host integers
+drawn from the driver's numpy ``RandomState``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from ..data.nbody import NBodyDataset
 from ..models.egno import EGNO
+from ..models.segno import SEGNO
 from .metrics import conserved_energy, pearson_correlation_batch
 
 
@@ -71,13 +73,17 @@ def _finite_metrics(artifact, bound_mult=10.0):
     return out
 
 
-class EGNOExperiment:
-    """EGNO training, validation and evaluation against a device-resident
-    dataset. The model's device is the experiment's device; the experiment
-    owns the Adam-L2 optimizer of the model's parameters."""
+class _Experiment:
+    """A model's experiment against a device-resident dataset. The model's
+    device is the experiment's device; the experiment owns the Adam-L2
+    optimizer of the model's parameters.
 
-    def __init__(self, model: EGNO, lr: float = 1e-4,
-                 weight_decay: float = 1e-8):
+    Every model answers the same calls: ``draw_epoch`` (the permutation and
+    the model's input ``windows``), ``batch``, ``train_epoch`` and
+    ``eval_epoch``, ``rollout`` and ``test_rollout``. How a model draws its
+    windows and steps its forward stays behind them."""
+
+    def __init__(self, model, lr: float, weight_decay: float):
         self.model = model
         self.device = next(model.parameters()).device
         self.lr = lr
@@ -92,6 +98,52 @@ class EGNOExperiment:
         run does not need."""
         return torch.optim.Adam(self.model.parameters(), lr=self.lr,
                                 weight_decay=self.weight_decay)
+
+    def _adam_step(self, loss):
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+
+    def draw_epoch(self, ds: NBodyDataset, rng: np.random.RandomState,
+                   batch_size: int, shuffle: bool = True):
+        """(perm [NB, B], windows) of one epoch, drawn from ``rng`` in the
+        JAX driver's order: the permutation, then the model's windows."""
+        perm = make_perm(rng, len(ds), batch_size, shuffle)
+        return perm, self.windows(ds, rng, len(perm))
+
+    def train_epoch(self, ds: NBodyDataset, windows, perm):
+        """One Adam step per row of ``perm`` [NB, B] on ``windows``. Returns
+        the per-batch (loss, reported loss: the last predicted frame's) as
+        device tensors; nothing is synced to the host."""
+        losses, last = [], []
+        for b, idx in enumerate(self._perm(perm)):
+            loss, per_frame = self._loss(self.batch(ds, windows, b, idx))
+            self._adam_step(loss)
+            losses.append(loss.detach())
+            last.append(per_frame[-1].detach())
+        return torch.stack(losses), torch.stack(last)
+
+    @torch.no_grad()
+    def eval_epoch(self, ds: NBodyDataset, windows, perm):
+        """``train_epoch``'s per-batch losses without updates."""
+        losses, last = [], []
+        for b, idx in enumerate(self._perm(perm)):
+            loss, per_frame = self._loss(self.batch(ds, windows, b, idx))
+            losses.append(loss)
+            last.append(per_frame[-1])
+        return torch.stack(losses), torch.stack(last)
+
+    def _perm(self, perm):
+        return torch.from_numpy(np.asarray(perm, np.int64)).to(self.device)
+
+
+class EGNOExperiment(_Experiment):
+    """EGNO training, validation and evaluation. Its windows are per sample:
+    the input frames and output frames of every sample of the split."""
+
+    def __init__(self, model: EGNO, lr: float = 1e-4,
+                 weight_decay: float = 1e-8):
+        super().__init__(model, lr, weight_decay)
 
     def epoch_index_arrays(self, ds: NBodyDataset, rng: np.random.RandomState):
         """Host-side per-epoch index arrays: frames_in [S, L], t_in [S, L],
@@ -112,6 +164,19 @@ class EGNOExperiment:
         t_out = (out_frames - frames_in[:, -1:]).astype(np.float32)
         return {"frames_in": frames_in.astype(np.int64), "t_in": t_in,
                 "out_frames": out_frames.astype(np.int64), "t_out": t_out}
+
+    def windows(self, ds: NBodyDataset, rng: np.random.RandomState,
+                num_batches: int):
+        """``epoch_index_arrays`` on the device (per sample, so
+        ``num_batches`` does not enter)."""
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in self.epoch_index_arrays(ds, rng).items()}
+
+    def batch(self, ds: NBodyDataset, windows, b: int, idx):
+        """The batch of samples ``idx`` [B] (device) on ``windows``."""
+        return self._batch((ds.loc, ds.vel, ds.charges, ds.edge_weights),
+                           {k: torch.as_tensor(v, device=self.device)
+                            for k, v in windows.items()}, idx)
 
     def _batch(self, ds_arrays, idx_arrays, idx):
         loc_all, vel_all, charges_all, w_all = ds_arrays
@@ -156,41 +221,6 @@ class EGNOExperiment:
         target = loc_out[:, :t_model]
         losses = ((pred - target) ** 2).mean(dim=(0, 2, 3))   # [T]
         return losses.mean(), losses
-
-    def _device_arrays(self, ds: NBodyDataset, idx_np: dict, perm):
-        return ((ds.loc, ds.vel, ds.charges, ds.edge_weights),
-                {k: torch.from_numpy(v).to(self.device)
-                 for k, v in idx_np.items()},
-                torch.from_numpy(np.asarray(perm, np.int64)).to(self.device))
-
-    def train_epoch(self, ds: NBodyDataset, idx_np: dict, perm):
-        """One Adam step per row of ``perm`` [num_batches, B]. Returns the
-        per-batch (mean_loss, last_step_loss) as device tensors; nothing is
-        synced to the host."""
-        ds_arrays, idx_arrays, perm = self._device_arrays(ds, idx_np, perm)
-        losses, last = [], []
-        for idx in perm:
-            batch = self._batch(ds_arrays, idx_arrays, idx)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss, per_step = self._loss(batch)
-            loss.backward()
-            self.optimizer.step()
-            losses.append(loss.detach())
-            last.append(per_step[-1].detach())
-        return torch.stack(losses), torch.stack(last)
-
-    @torch.no_grad()
-    def eval_epoch(self, ds: NBodyDataset, idx_np: dict, perm):
-        """The per-batch (mean_loss, last_step_loss) of ``perm`` without
-        updates, as device tensors."""
-        ds_arrays, idx_arrays, perm = self._device_arrays(ds, idx_np, perm)
-        losses, last = [], []
-        for idx in perm:
-            loss, per_step = self._loss(self._batch(ds_arrays, idx_arrays,
-                                                    idx))
-            losses.append(loss)
-            last.append(per_step[-1])
-        return torch.stack(losses), torch.stack(last)
 
     @torch.no_grad()
     def rollout(self, batch, traj_len: int, dataset_kind: str):
@@ -259,6 +289,188 @@ class EGNOExperiment:
             targets_l.append(truth.transpose(0, 1).cpu().numpy())
             preds_l.append(locs_pred[:sup].transpose(0, 1).cpu().numpy())
             energies_l.append(energies[:sup].transpose(0, 1).cpu().numpy())
+
+        test_loss = tot_loss / count
+        artifact = {
+            "targets": np.concatenate(targets_l),
+            "preds": np.concatenate(preds_l),
+            "energy_conservation": np.concatenate(energies_l),
+            "test_loss": test_loss,
+        }
+        artifact.update(_finite_metrics(artifact))
+        return test_loss, tot_steps / count, artifact
+
+
+class SEGNOExperiment(_Experiment):
+    """SEGNO training, validation and evaluation (SEGNO/train_nbody.py
+    semantics; counterpart of nonode_tpu/train/loop.py:SEGNOExperiment).
+
+    Its windows are per batch: the input frames [NB, L], host integers,
+    ascending, the last T frames before the target. With ``varDT`` and
+    several inputs the segment lengths are drawn per batch, as the
+    reference does (train_nbody.py:97-116); otherwise each is T // L. The
+    JAX package's dynamic epochs mask ``max_interior`` steps past a traced
+    segment length; here the lengths are host integers, so every epoch runs
+    exactly each batch's segments: the same values."""
+
+    def __init__(self, model: SEGNO, num_timesteps: int = 10,
+                 varDT: bool = False, lr: float = 5e-3,
+                 weight_decay: float = 1e-12):
+        super().__init__(model, lr, weight_decay)
+        self.num_timesteps = num_timesteps
+        self.varDT = varDT
+
+    # ---------- input windows (train_nbody.py:97-114) ----------
+
+    def sample_steps(self, ds: NBodyDataset, rng: np.random.RandomState,
+                     num_batches: int) -> np.ndarray:
+        """Input segment lengths [NB, L-1]: with ``varDT`` drawn in
+        [1, max(T // L, 2)) per batch, else T // L and nothing drawn."""
+        L, T = ds.num_inputs, self.num_timesteps
+        if self.varDT and L > 1:
+            return rng.randint(1, max(T // L, 2),
+                               size=(num_batches, L - 1)).astype(np.int64)
+        return np.full((num_batches, L - 1), T // L, np.int64)
+
+    def max_interior(self, ds: NBodyDataset) -> int:
+        """Upper bound on a varDT interior segment (drawn in [1, T//L))."""
+        return max(self.num_timesteps // ds.num_inputs, 2)
+
+    def frames_from_steps(self, ds: NBodyDataset, steps: np.ndarray):
+        """Absolute input frames per batch [NB, L], ascending, ending at the
+        dataset start; pushed to frame 0 when the window would start before
+        the trajectory."""
+        nb = steps.shape[0]
+        cum = np.cumsum(np.concatenate([np.zeros((nb, 1), np.int64), steps],
+                                       axis=1), axis=1)
+        idxs = np.flip(ds.start - cum, axis=1)
+        mins = idxs.min(axis=1, keepdims=True)
+        idxs = np.where(mins < 0, idxs - mins, idxs)
+        return np.ascontiguousarray(idxs).astype(np.int64)
+
+    def windows(self, ds: NBodyDataset, rng: np.random.RandomState,
+                num_batches: int) -> np.ndarray:
+        """The input frames of each batch [NB, L]."""
+        return self.frames_from_steps(ds, self.sample_steps(ds, rng,
+                                                            num_batches))
+
+    @staticmethod
+    def _anchor(ds: NBodyDataset, frames) -> int:
+        """The frame the model's input offsets and the rollout's targets
+        count from: the dataset start, or the first input frame when the
+        window was pushed forward (nonode_tpu/train/loop.py:641-650)."""
+        return int(frames[0] if frames[-1] - frames[0] > ds.start
+                   else frames[-1])
+
+    # ---------- batches, forward, loss ----------
+
+    def _features(self, loc, vel, charges, w):
+        """h = |v|; edge_attr = [q_i q_j, ||x_i - x_j||^2] from the LAST
+        input frame's positions, held over the whole integration
+        (train_nbody.py:115-123)."""
+        speed = torch.sqrt((vel ** 2).sum(-1, keepdim=True))
+        loc_last = loc[-1] if loc.dim() == 4 else loc
+        diff = loc_last[..., :, None, :] - loc_last[..., None, :, :]
+        dist = (diff ** 2).sum(-1, keepdim=True)
+        return speed, torch.cat([w.expand(dist.shape), dist], dim=-1)
+
+    def batch(self, ds: NBodyDataset, windows, b: int, idx):
+        """Batch ``b`` of ``windows`` on samples ``idx`` [B] (device):
+        (loc_in, vel_in, charges, w, loc_end, in_steps), the input frames
+        [B, N, 3] (one input) or [L, B, N, 3], the target T frames after
+        the last input frame, and the input offsets from the anchor (None
+        for one input)."""
+        frames = windows[b]
+        loc, vel = ds.loc, ds.vel
+        if len(frames) > 1:
+            loc_in = torch.stack([loc[idx, int(f)] for f in frames])
+            vel_in = torch.stack([vel[idx, int(f)] for f in frames])
+            anchor = self._anchor(ds, frames)
+            in_steps = tuple(int(f) - anchor for f in frames)
+        else:
+            loc_in, vel_in = loc[idx, int(frames[0])], vel[idx, int(frames[0])]
+            in_steps = None
+        end = int(frames[-1]) + self.num_timesteps
+        return (loc_in, vel_in, ds.charges[idx], ds.edge_weights[idx],
+                loc[idx, end], in_steps)
+
+    def _loss(self, batch):
+        """(mean squared error of the position T steps ahead, the per-frame
+        losses [1]: SEGNO predicts one frame)."""
+        loc_in, vel_in, charges, w, loc_end, in_steps = batch
+        his, edge_attr = self._features(loc_in, vel_in, charges, w)
+        x, _, _ = self.model(his, loc_in, vel_in, edge_attr,
+                             T=self.num_timesteps, in_steps=in_steps)
+        loss = ((x - loc_end) ** 2).mean()
+        return loss, loss[None]
+
+    # ---------- rollout ----------
+
+    @torch.no_grad()
+    def rollout(self, batch, traj_len: int, dataset_kind: str):
+        """Autoregressive rollout (train_nbody.py:200-236): each window's
+        prediction is fed back; with several inputs the last L states slide,
+        and the batch's ``in_steps`` shift by T a window until they reach
+        their fixed point (-(L-1)T, ..., -T, 0). Returns (locs_pred
+        [traj_len, B, N, 3], energies [traj_len, B, 1])."""
+        loc, vel, charges, w, _, in_steps = batch
+        t = self.num_timesteps
+        xs, es = [], []
+        for _ in range(traj_len):
+            his, edge_attr = self._features(loc, vel, charges, w)
+            x, _, v = self.model(his, loc, vel, edge_attr, T=t,
+                                 in_steps=in_steps)
+            es.append(conserved_energy(dataset_kind, x, v, charges))
+            xs.append(x)
+            if in_steps:
+                loc = torch.cat([loc[1:], x[None]])
+                vel = torch.cat([vel[1:], v[None]])
+                in_steps = tuple(s - t for s in (*in_steps[1:], t))
+            else:
+                loc, vel = x, v
+        return torch.stack(xs), torch.stack(es)[..., None]
+
+    @torch.no_grad()
+    def test_rollout(self, ds: NBodyDataset, batch_size: int,
+                     rng: np.random.RandomState):
+        """Full test evaluation over ``ds.traj_len`` windows. Returns
+        (test_loss, avg_num_steps, artifact), artifact = {targets, preds,
+        energy_conservation, test_loss} plus the finite-sample companions,
+        as numpy arrays ([S, windows, N, 3])."""
+        t = self.num_timesteps
+        # one window count for every batch, sized for the worst-case start
+        # any batch's sampled window could have (the reference truncates per
+        # batch, train_nbody.py:137-138)
+        L = ds.num_inputs
+        max_start = ds.start if L <= 1 else max(
+            ds.start, (L - 1) * (self.max_interior(ds) - 1))
+        tl = max(min(ds.traj_len, (ds.n_frames - 1 - max_start) // t), 1)
+
+        n = len(ds)
+        tot_loss = tot_steps = count = 0.0
+        targets_l, preds_l, energies_l = [], [], []
+        for s0 in range(0, n - batch_size + 1, batch_size):   # drop_last
+            # a window drawn per batch, as the reference's batch loop does
+            frames = self.windows(ds, rng, 1)
+            # targets anchor where the model's input offsets do
+            # (train_nbody.py:104-107,136-137)
+            pred_indices = self._anchor(ds, frames[0]) + np.cumsum([t] * tl)
+            idx = torch.arange(s0, s0 + batch_size, device=ds.device)
+            locs_pred, energies = self.rollout(
+                self.batch(ds, frames, 0, idx), tl, ds.dataset)
+            truth = torch.stack([ds.loc[idx, int(f)] for f in pred_indices])
+
+            b = len(idx)
+            _, avg_steps, _ = pearson_correlation_batch(
+                locs_pred.reshape(tl, -1, 3), truth.reshape(tl, -1, 3),
+                ds.n_balls)
+            loss = ((locs_pred - truth) ** 2).mean(dim=(1, 2, 3)).mean()
+            tot_loss += float(loss) * b
+            tot_steps += float(avg_steps) * b
+            count += b
+            targets_l.append(truth.transpose(0, 1).cpu().numpy())
+            preds_l.append(locs_pred.transpose(0, 1).cpu().numpy())
+            energies_l.append(energies.transpose(0, 1).cpu().numpy())
 
         test_loss = tot_loss / count
         artifact = {

@@ -1,6 +1,8 @@
 """The parts of chip_smoke.py that run without a GPU: its refusal without
-CUDA, the bounds it reports, and its refusal without the committed splits."""
+CUDA, the bounds it reports, the launch counts it expects of each path, the
+artifact shapes it checks, and its refusal without the committed splits."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -150,3 +152,37 @@ def test_route_row_holds_a_kernel_to_its_split_tf32_bound():
     assert text == ("bound 0.0050 ms in split TF32 (set by the tensor cores; "
                     "the route's bound, 0.100 of it), 0.0135 ms in fp32 on "
                     "the CUDA cores (by operations)")
+
+
+def test_path_launches_reckons_every_driver_path():
+    """#1 once an EGNO layer or a SEGNO integrator step of a forward, #2 as
+    often a training step; the paths' counts at the committed splits' sizes
+    (7 test and valid batches of 256, 11 train batches, traj_len 20)."""
+    segno_t, egno_layers = chip_smoke.T_MODEL, chip_smoke.LAYERS
+    assert chip_smoke.path_launches(segno_t, 7, 20) == {
+        "egnn_pairwise_fwd": 1400, "egnn_pairwise_bwd": 0}
+    assert chip_smoke.path_launches(segno_t, 7, 20, 2, 11, 1, 7) == {
+        "egnn_pairwise_fwd": 220 + 70 + 1400, "egnn_pairwise_bwd": 220}
+    assert chip_smoke.path_launches(egno_layers, 7, 20) == {
+        "egnn_pairwise_fwd": 560, "egnn_pairwise_bwd": 0}
+    assert chip_smoke.path_launches(egno_layers, 7, 20, 2, 11, 1, 7) == {
+        "egnn_pairwise_fwd": 676, "egnn_pairwise_bwd": 88}
+    # the gravity main: one epoch of 2 batches, no validation, traj_len 2
+    assert chip_smoke.path_launches(egno_layers, 1, 2, 1, 2) == {
+        "egnn_pairwise_fwd": 16, "egnn_pairwise_bwd": 8}
+
+
+@pytest.mark.parametrize("model,frames", [("egno", (8, 20)),
+                                          ("segno", (2, 2))])
+def test_check_artifact_holds_each_models_shapes(tmp_path, model, frames):
+    """EGNO's artifact has T=10 frames a window, its predictions cut at 40%
+    of the horizon; SEGNO's one frame a window, not cut."""
+    cut, full = frames
+    path = tmp_path / "a.npz"
+    np.savez(path, targets=np.zeros((4, full, 5, 3)),
+             preds=np.zeros((4, cut, 5, 3)),
+             energy_conservation=np.zeros((4, cut, 1)))
+    chip_smoke.check_artifact(path, 4, traj_len=2, model=model)
+    other = "segno" if model == "egno" else "egno"
+    with pytest.raises(AssertionError, match="has shape"):
+        chip_smoke.check_artifact(path, 4, traj_len=2, model=other)

@@ -1,6 +1,6 @@
 """Tests of the port's CUDA kernels (the pairwise chain's forward and
-backward, the N-body forces and leapfrog blocks) and of the spectral conv's
-cuFFT path, on the card only.
+backward, the N-body forces and leapfrog blocks), of SEGNO's weight-tied
+steps on them, and of the spectral conv's cuFFT path, on the card only.
 
 Every test here is marked ``cuda`` and skips without a GPU (a CUDA kernel
 has no CPU mode). The file imports neither JAX nor nonode_tpu, so that it
@@ -18,10 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+from nonode_tpu_torch.models.segno import SEGNO
 from nonode_tpu_torch.ops.dense_graph import EGNNLayer
 from nonode_tpu_torch.ops.kernels import egnn_fused, nbody_sim, pairwise
 from nonode_tpu_torch.ops.spectral import SpectralConv
 from nonode_tpu_torch.sim.simulators import ChargedSim, GravitySim
+from nonode_tpu_torch.train.loop import SEGNOExperiment
 
 RTOL = 1e-4
 
@@ -68,6 +70,8 @@ def _assert_close(got, want):
 @pytest.mark.parametrize("g,n,h,e,clip,isolated", [
     (2560, 5, 64, 2, False, None),     # the serving path's shape
     (2560, 5, 64, 2, True, None),      # SEGNO's per-edge clip
+    (256, 5, 64, 2, True, None),       # SEGNO's path: G = its batch
+    (3, 5, 64, 2, True, None),         # 75 edge rows: one ragged tile
     (256, 31, 64, 2, False, 3),        # mocap: 2-D edge mask, a lone node
     (7, 5, 64, 2, False, None),        # a ragged tail: G*N not a block multiple
     (9, 64, 64, 3, True, 10),          # N at the gate's limit, E=3
@@ -137,6 +141,8 @@ def _flat(out):
 @pytest.mark.parametrize("g,n,e,clip,isolated", [
     (2560, 5, 2, False, None),         # the training path's shape
     (2560, 5, 2, True, None),          # SEGNO's per-edge clip, engaged
+    (256, 5, 2, True, None),           # SEGNO's training path: G = batch
+    (3, 5, 2, True, None),             # 75 edge rows: one ragged tile
     (256, 31, 2, False, 3),            # mocap: 2-D edge mask, a lone node
     (7, 5, 2, False, None),            # a ragged last block
     (9, 64, 3, True, 10),              # N at the gate's limit, E=3
@@ -255,6 +261,65 @@ def test_egnn_layer_of_another_width_raises_on_the_card(dev):
     assert layer._use_fused(z(4, 5, 3), None)
     with torch.no_grad(), pytest.raises(ValueError, match="unsupported shape"):
         layer(z(4, 5, 3), z(4, 5, 48), z(5, 5, 2))
+
+
+def _segno_pair(dev, b=32, seed=0):
+    """The model_confs.yaml:SEGNO model from one seed on the card and on the
+    CPU, and a charged batch (loc, vel, charges, w, loc_end, in_steps) of
+    one input on each."""
+    rng = np.random.RandomState(seed)
+    f = lambda *s: rng.randn(*s).astype(np.float32)       # noqa: E731
+    q = rng.choice([-1.0, 1.0], (b, 5, 1)).astype(np.float32)
+    batch = (f(b, 5, 3), 0.3 * f(b, 5, 3), q,
+             np.einsum("bik,bjk->bij", q, q)[..., None], f(b, 5, 3))
+    pairs = []
+    for where in (dev, torch.device("cpu")):
+        model = SEGNO(device=where,
+                      generator=torch.Generator().manual_seed(seed))
+        pairs.append((SEGNOExperiment(model),
+                      tuple(torch.from_numpy(a).to(where) for a in batch)
+                      + (None,)))
+    return pairs
+
+
+@pytest.mark.cuda
+def test_segno_step_gradients_match_the_cpu(dev):
+    """A SEGNO training step's loss and the gradient of every parameter,
+    each summed over the 10 weight-tied steps through #2, card against the
+    CPU: within 1e-3 x max(1, max|g|), the chip_smoke gate (fp32 in another
+    order through 10 steps)."""
+    grads = []
+    for exp, batch in _segno_pair(dev):
+        before = egnn_fused.pairwise_message_bwd.launches
+        loss, _ = exp._loss(batch)
+        loss.backward()
+        on_card = batch[0].is_cuda
+        assert egnn_fused.pairwise_message_bwd.launches == before + \
+            10 * on_card
+        grads.append([loss.detach().cpu()] + [
+            p.grad.cpu() for p in exp.model.parameters()])
+    assert len(grads[0]) == 15
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all()
+        err = float((a - b).abs().max())
+        assert err <= 1e-3 * max(1.0, float(b.abs().max())), err
+
+
+@pytest.mark.cuda
+def test_segno_rollout_matches_the_cpu(dev):
+    """Two fed-back windows of the SEGNO rollout (20 launches of #1), card
+    against the CPU, within 1e-3 x max(1, max|x|)."""
+    outs = []
+    for exp, batch in _segno_pair(dev, seed=1):
+        before = egnn_fused.pairwise_message.launches
+        x, e = exp.rollout(batch, 2, "charged")
+        assert egnn_fused.pairwise_message.launches == before + \
+            20 * x.is_cuda
+        assert x.shape == (2, 32, 5, 3) and e.shape == (2, 32, 1)
+        outs.append(x.cpu())
+    assert torch.isfinite(outs[0]).all()
+    err = float((outs[0] - outs[1]).abs().max())
+    assert err <= 1e-3 * max(1.0, float(outs[1].abs().max())), err
 
 
 def _charged_state(n, dev, seed=0):

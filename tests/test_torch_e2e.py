@@ -1,7 +1,7 @@
-"""The port's driver end to end against the JAX package: the EGNO test
-rollout, training with validation, early stopping and the reload of the
-best checkpoint, the ``--config_by_file`` presets, the port's device rule
-and what main.py refuses.
+"""The port's driver end to end against the JAX package: the EGNO and SEGNO
+test rollouts, training with validation, early stopping and the reload of
+the best checkpoint, SEGNO's plain test epoch, the ``--config_by_file``
+presets, the port's device rule and what main.py refuses.
 
 A tiny charged dataset in the reference ``.npy`` layout (S=8, F=55, N=5,
 loc/vel [S, F, 3, N]) is evaluated by nonode_tpu's EGNOExperiment.test_rollout
@@ -26,14 +26,19 @@ from nonode_tpu.config import load_model_config as jax_load_config
 from nonode_tpu import main as jmain
 from nonode_tpu.data.nbody import NBodyDataset as JaxNBodyDataset
 from nonode_tpu.models.egno import EGNO as JaxEGNO
+from nonode_tpu.models.segno import SEGNO as JaxSEGNO
 from nonode_tpu.train.loop import EGNOExperiment as JaxExperiment
+from nonode_tpu.train.loop import SEGNOExperiment as JaxSEGNOExperiment
 from nonode_tpu_torch import main as tmain
 from nonode_tpu_torch import runtime
 from nonode_tpu_torch.analysis.registry import artifact_stem
-from nonode_tpu_torch.compat.params import egno_state_dict_from_jax_params
-from nonode_tpu_torch.config import EGNOConfig, load_model_config, overlay
+from nonode_tpu_torch.compat.params import (egno_state_dict_from_jax_params,
+                                            segno_state_dict_from_jax_params)
+from nonode_tpu_torch.config import (EGNOConfig, SEGNOConfig,
+                                     load_model_config, overlay)
 from nonode_tpu_torch.data.nbody import NBodyDataset
 from nonode_tpu_torch.models.egno import EGNO
+from nonode_tpu_torch.models.segno import SEGNO
 from nonode_tpu_torch.train.checkpoint import save_params
 from nonode_tpu_torch.train.loop import EGNOExperiment
 from torch_port_util import write_charged_split, write_gravity_split
@@ -154,7 +159,7 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(tmp_path, no_cuda):
 
 
 @pytest.mark.parametrize("extra,error", [
-    (["--model", "segno"], NotImplementedError),
+    (["--model", "segno", "--precision", "bf16"], NotImplementedError),
     (["--precision", "bf16"], NotImplementedError),
     (["--dp", "2"], NotImplementedError),
     (["--traj_len", "0"], ValueError),
@@ -169,47 +174,72 @@ def test_main_refuses_what_is_not_ported(extra, error):
         tmain.main(tmain.get_args(argv + extra))
 
 
-def _tiny_preset(path, data):
+def _tiny_preset(path, data, model="egno"):
     """A JSON preset in the schema of configs/config_simulation_simple_no.json
-    at a tiny width."""
+    at a tiny width (for SEGNO too: its EGNO-only keys time_emb_dim and
+    num_modes are left out of the SEGNO config)."""
     path.write_text(json.dumps({
         "exp_name": "tiny", "batch_size": 4, "epochs": 2, "seed": 42,
-        "lr": 1e-3, "nf": 16, "model": "egno", "n_layers": 2,
+        "lr": 1e-3, "nf": 16, "model": model, "n_layers": 2,
         "max_training_samples": 8, "data_dir": str(data),
         "weight_decay": 1e-8, "time_emb_dim": 8, "num_modes": 2}))
     return path
 
 
-def _training_main_matches_jax(tmp_path, dataset, write_split):
+def _tiny_models(model, extra=()):
+    """The preset's model in both packages, the port's holding the JAX
+    package's seed-42 weights (JAX's driver initialises from that key)."""
+    if model == "egno":
+        jm = JaxEGNO(n_layers=2, hidden_nf=16, time_emb_dim=8)
+        tm = EGNO(n_layers=2, hidden_nf=16, time_emb_dim=8, device="cpu")
+        convert = lambda p: egno_state_dict_from_jax_params(p, 2)  # noqa: E731
+    else:
+        multi = "--num_inputs" in extra
+        jm = JaxSEGNO(hidden_nf=16, n_layers=2,
+                      multiple_agg="attn" if multi else None)
+        tm = SEGNO(hidden_nf=16, multiple_agg="attn" if multi else None,
+                   device="cpu")
+        convert = segno_state_dict_from_jax_params
+    tm.load_state_dict(convert(jax.tree.map(
+        np.asarray, jm.init(jax.random.PRNGKey(42)))), strict=True)
+    return tm
+
+
+def _run_both_drivers(tmp_path, model, dataset, extra=()):
+    """Both drivers on the same tiny preset and splits; the port starts from
+    the JAX driver's weights, saved where --load_checkpoint looks. Returns
+    the stem and each driver's (results JSON, main's return)."""
     data = tmp_path / "data"
     data.mkdir()
+    write_split = write_charged_split if dataset == "charged" else \
+        write_gravity_split
     for seed, part in enumerate(("train", "valid", "test")):
         write_split(data, part, seed=seed, s=S, f=F, n=N)
-    preset = _tiny_preset(tmp_path / "tiny.json", data)
-    common = ["--model", "egno", "--only_test", "false", "--test_interval",
+    preset = _tiny_preset(tmp_path / "tiny.json", data, model)
+    common = ["--model", model, "--only_test", "false", "--test_interval",
               "1", "--traj_len", "2", "--config_by_file", str(preset),
-              "--dataset", dataset]
+              "--dataset", dataset, *extra]
 
     jargs = jmain.get_args(common + ["--outf", str(tmp_path / "jax")])
-    jbest, jtest, jepoch = jmain.main(jargs)
-    stem = jax_artifact_stem("egno", dataset, 42, N)
+    jout = jmain.main(jargs)
+    stem = jax_artifact_stem(model, dataset, 42, N, jargs.num_inputs, 1,
+                             jargs.varDT)
     jres = json.loads((tmp_path / "jax" / "tiny" / f"{stem}.json")
                       .read_text())
-
-    # the port starts from the same weights: the JAX seed-42 init, saved
-    # where --load_checkpoint looks
-    jm = JaxEGNO(n_layers=2, hidden_nf=16, time_emb_dim=8)
-    model = EGNO(n_layers=2, hidden_nf=16, time_emb_dim=8, device="cpu")
-    model.load_state_dict(egno_state_dict_from_jax_params(
-        jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(42))), 2),
-        strict=True)
     outf = tmp_path / "port"
-    save_params(outf / "tiny" / f"{stem}.ckpt", model)
+    save_params(outf / "tiny" / f"{stem}.ckpt", _tiny_models(model, extra))
     targs = tmain.get_args(common + ["--outf", str(outf), "--device", "cpu",
                                      "--load_checkpoint", "true"])
-    best, test_loss, epoch = tmain.main(targs)
-
+    out = tmain.main(targs)
     res = json.loads((outf / "tiny" / f"{stem}.json").read_text())
+    return stem, (jres, jout), (res, out)
+
+
+def _training_main_matches_jax(tmp_path, dataset, model="egno", extra=()):
+    stem, (jres, (jbest, jtest, jepoch)), (res, (best, test_loss, epoch)) = \
+        _run_both_drivers(tmp_path, model, dataset, extra)
+    outf = tmp_path / "port"
+
     assert set(res) == set(jres) == {"train loss", "val loss", "eval epoch",
                                      "test loss"}
     assert res["eval epoch"] == jres["eval epoch"] == [1]
@@ -221,10 +251,11 @@ def _training_main_matches_jax(tmp_path, dataset, write_split):
     assert test_loss == pytest.approx(jtest, rel=1e-4)
 
     # the checkpoint holds the trained weights, and the rollout used them
-    trained = EGNO(n_layers=2, hidden_nf=16, time_emb_dim=8, device="cpu")
-    trained.load_state_dict(torch.load(outf / "tiny" / f"{stem}.ckpt",
-                                       weights_only=True))
-    assert not torch.equal(trained.embedding.weight, model.embedding.weight)
+    start = _tiny_models(model, extra)
+    trained = torch.load(outf / "tiny" / f"{stem}.ckpt", weights_only=True)
+    assert set(trained) == set(start.state_dict())
+    assert not torch.equal(trained["embedding.weight"],
+                           start.embedding.weight)
     art = np.load(outf / "tiny" / f"{stem}_results.npz")
     jart = np.load(tmp_path / "jax" / "tiny" / f"{stem}_results.npz")
     assert set(art.files) == set(jart.files)
@@ -237,13 +268,119 @@ def test_training_main_matches_jax_driver(tmp_path):
     """``--only_test false`` with a JSON preset: both drivers train two
     epochs from the JAX package's seed-42 weights, validate at epoch 1, save
     and reload the best checkpoint, and roll out the test split."""
-    _training_main_matches_jax(tmp_path, "charged", write_charged_split)
+    _training_main_matches_jax(tmp_path, "charged")
 
 
 def test_gravity_training_main_matches_jax_driver(tmp_path):
     """The same on gravity splits: windows from frame 0, masses as the pair
     weights, the gravity energy in the artifact."""
-    _training_main_matches_jax(tmp_path, "gravity", write_gravity_split)
+    _training_main_matches_jax(tmp_path, "gravity")
+
+
+@pytest.mark.parametrize("dataset", ["charged", "gravity"])
+def test_segno_training_main_matches_jax_driver(tmp_path, dataset):
+    """``--model segno --only_test false`` with a JSON preset that also
+    carries EGNO-only keys: both drivers train two epochs from the JAX
+    package's seed-42 weights, validate, reload the best checkpoint and roll
+    out the test split; every loss within rtol 1e-4."""
+    _training_main_matches_jax(tmp_path, dataset, "segno")
+
+
+@pytest.mark.parametrize("varDT", [False, True])
+def test_segno_multi_input_training_main_matches_jax_driver(tmp_path, varDT):
+    """Three inputs fused by attention; with --varDT the epochs draw their
+    segment lengths per batch (the dynamic epochs) and the test rollout per
+    batch."""
+    _training_main_matches_jax(
+        tmp_path, "charged", "segno",
+        ["--num_inputs", "3", "--varDT", str(varDT).lower()])
+
+
+def test_segno_traj_len_0_runs_the_plain_test_epoch(tmp_path):
+    """At --traj_len 0 both drivers evaluate the test split with the plain
+    epoch after training, report its loss and write no artifact."""
+    stem, (jres, (_, jtest, _)), (res, (_, test_loss, _)) = \
+        _run_both_drivers(tmp_path, "segno", "charged", ["--traj_len", "0"])
+    assert res["test loss"] == pytest.approx(jres["test loss"], rel=1e-4)
+    assert test_loss == pytest.approx(jtest, rel=1e-4)
+    assert res["train loss"] == pytest.approx(jres["train loss"], rel=1e-4)
+    for side in ("jax", "port"):
+        assert not (tmp_path / side / "tiny" / f"{stem}_results.npz").exists()
+
+
+def test_segno_only_test_main_matches_jax_test_rollout(tmp_path):
+    """``--model segno --only_test true`` at the model_confs.yaml:SEGNO
+    width on a checkpoint converted from JAX weights, against
+    SEGNOExperiment.test_rollout. Tolerance 1e-4: two fed-back windows of
+    10 weight-tied steps."""
+    data = tmp_path / "data"
+    data.mkdir()
+    _write_charged_split(data)
+    cfg = SEGNOConfig()
+    jm = JaxSEGNO(hidden_nf=cfg.hidden_nf, n_layers=cfg.n_layers)
+    params = jm.init(jax.random.PRNGKey(0))
+    jds = JaxNBodyDataset(data, partition="test", traj_len=2)
+    jloss, jsteps, jart = JaxSEGNOExperiment(jm).test_rollout(
+        params, jds, 4, np.random.RandomState(42), 2, False)
+
+    outf = tmp_path / "out"
+    stem = artifact_stem("segno", "charged", 42, N)
+    model = SEGNO(hidden_nf=cfg.hidden_nf, device="cpu")
+    model.load_state_dict(segno_state_dict_from_jax_params(
+        jax.tree.map(np.asarray, params)), strict=True)
+    save_params(outf / "exp" / f"{stem}.ckpt", model)
+    args = tmain.get_args([
+        "--model", "segno", "--only_test", "true", "--device", "cpu",
+        "--load_checkpoint", "true", "--data_dir", str(data),
+        "--outf", str(outf), "--exp_name", "exp", "--batch_size", "4",
+        "--traj_len", "2"])
+    _, test_loss, _ = tmain.main(args)
+
+    art = np.load(outf / "exp" / f"{stem}_results.npz")
+    assert art["targets"].shape == art["preds"].shape == (8, 2, N, 3)
+    assert art["energy_conservation"].shape == (8, 2, 1)
+    assert np.isfinite(art["preds"]).all()
+    assert test_loss == pytest.approx(jloss, rel=1e-4)
+    for key in ("targets", "preds", "energy_conservation"):
+        np.testing.assert_allclose(art[key], jart[key], **TOL)
+    log = (outf / "exp" / f"{stem}_metrics.jsonl").read_text().splitlines()
+    assert json.loads(log[-1])["avg_num_steps"] == pytest.approx(jsteps)
+
+
+def test_segno_config_and_preset_filter_match_jax(tmp_path):
+    """load_model_config("segno") reads the SEGNO section as nonode_tpu's
+    does; a preset's EGNO-only keys (time_emb_dim, num_modes) are dropped
+    from a SEGNO config, as nonode_tpu/main.py:126-134 drops them, and kept
+    for EGNO."""
+    ours = load_model_config("segno", "model_confs.yaml")
+    assert vars(ours) == vars(jax_load_config("segno", "model_confs.yaml"))
+    assert load_model_config("segno") == ours == SEGNOConfig()
+    preset = _tiny_preset(tmp_path / "p.json", tmp_path, "segno")
+    args = tmain.get_args(["--model", "segno", "--config_by_file",
+                           str(preset)])
+    assert {"time_emb_dim", "num_modes"} <= set(args._cfg_overrides)
+    cfg = overlay(ours, args._cfg_overrides)
+    fields = {f.name for f in dataclasses.fields(SEGNOConfig)}
+    jcfg = dataclasses.replace(jax_load_config("segno", "model_confs.yaml"),
+                               **{k: v for k, v in args._cfg_overrides.items()
+                                  if k in fields})
+    assert vars(cfg) == vars(jcfg)
+    assert (cfg.hidden_nf, cfg.n_layers, cfg.lr) == (16, 2, 1e-3)
+    egno = overlay(load_model_config("egno"), args._cfg_overrides)
+    assert (egno.time_emb_dim, egno.hidden_nf) == (8, 16)
+
+
+def test_segno_entry_points_raise_without_cuda(tmp_path, no_cuda):
+    data = tmp_path / "data"
+    data.mkdir()
+    _write_charged_split(data)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SEGNO(hidden_nf=16)
+    args = tmain.get_args(["--model", "segno", "--only_test", "true",
+                           "--data_dir", str(data), "--outf", str(tmp_path)])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tmain.main(args)
 
 
 @pytest.mark.parametrize("partition", ["train", "val", "test"])

@@ -30,7 +30,7 @@ from nonode_tpu_torch.ops.kernels import egnn_fused
 from nonode_tpu_torch.train.checkpoint import EarlyStopping, load_params
 from nonode_tpu_torch.train.loop import EGNOExperiment, make_perm
 from torch_port_util import (assert_close, egnn_layer_sd, t,
-                             write_charged_split)
+                             write_charged_split, write_gravity_split)
 
 
 
@@ -215,22 +215,25 @@ def test_spectral_weight_gradient_matches_jax(t_steps, modes):
         assert float(nyquist.abs().max()) == 0.0
 
 
-def _models(n_layers=2, hidden=16, emb=8, seed=0, lr=1e-3):
-    jm = JaxEGNO(n_layers=n_layers, hidden_nf=hidden, time_emb_dim=emb)
+def _models(n_layers=2, hidden=16, emb=8, seed=0, lr=1e-3, **kw):
+    jm = JaxEGNO(n_layers=n_layers, hidden_nf=hidden, time_emb_dim=emb, **kw)
     jexp = JaxExperiment(jm, lr=lr, weight_decay=1e-8)
     params, opt_state = jexp.init(jax.random.PRNGKey(seed))
     model = EGNO(n_layers=n_layers, hidden_nf=hidden, time_emb_dim=emb,
-                 device="cpu")
+                 device="cpu", **kw)
     model.load_state_dict(egno_state_dict_from_jax_params(
         jax.tree.map(np.asarray, params), n_layers), strict=True)
     return jexp, params, opt_state, EGNOExperiment(model, lr=lr,
                                                    weight_decay=1e-8)
 
 
-def _split(tmp_path, partition="train", s=12):
-    write_charged_split(tmp_path, partition, seed=2, s=s, f=55)
-    return (JaxNBodyDataset(tmp_path, partition=partition),
-            NBodyDataset(tmp_path, partition=partition, device="cpu"))
+def _split(tmp_path, partition="train", s=12, dataset="charged", **kw):
+    write = write_charged_split if dataset == "charged" else \
+        write_gravity_split
+    write(tmp_path, partition, seed=2, s=s, f=55)
+    kw.update(partition=partition, dataset=dataset)
+    return (JaxNBodyDataset(tmp_path, **kw),
+            NBodyDataset(tmp_path, device="cpu", **kw))
 
 
 def _sd(tree, n_layers):
@@ -319,6 +322,41 @@ def test_train_and_eval_epochs_match_jax(tmp_path):
         moved += int((np.abs(got - p0[k].numpy()) > 0.5 * lr).sum())
     assert moved > 100, "the parameters hardly moved"
 
+    ve, vlast = jexp.eval_epoch(jparams, arrays, jidx, perm_j)
+    te, tlast = texp.eval_epoch(tds, idx_t, perm_t)
+    assert_close(te, ve, rtol=1e-4, atol=0)
+    assert_close(tlast, vlast, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("dataset,varDT", [
+    ("charged", False), ("charged", True), ("gravity", True)])
+def test_multi_input_train_and_eval_epochs_match_jax(tmp_path, dataset,
+                                                     varDT):
+    """num_inputs=3: per-sample input offsets drawn from the same numpy
+    stream, the time embeddings of the inputs, and the batch-global time
+    correction of _batch, which is non-zero only for gravity varDT windows
+    (pushed forward per sample). Three Adam-L2 steps and an eval epoch;
+    losses rtol 1e-5 (train) and 1e-4 (eval), as the single-input test."""
+    jds, tds = _split(tmp_path, dataset=dataset, num_inputs=3, varDT=varDT)
+    jexp, params, opt_state, texp = _models(num_inputs=3, varDT=varDT)
+    rng_j, rng_t = np.random.RandomState(6), np.random.RandomState(6)
+    perm_j = jax_make_perm(rng_j, len(jds), 4)
+    idx_j = jexp.epoch_index_arrays(jds, rng_j)
+    perm_t = make_perm(rng_t, len(tds), 4)
+    idx_t = texp.epoch_index_arrays(tds, rng_t)
+    for k in idx_j:
+        np.testing.assert_array_equal(idx_t[k], idx_j[k])
+    last = idx_t["frames_in"][:, -1]
+    corr = [last[b] - last[b].max() for b in perm_t]
+    assert any(c.any() for c in corr) == (dataset == "gravity")
+
+    arrays = (jds.loc, jds.vel, jds.charges, jds.edge_weights)
+    jidx = {k: jnp.asarray(v) for k, v in idx_j.items()}
+    jparams, _, jl, jlast = jexp.train_epoch(params, opt_state, arrays, jidx,
+                                             perm_j)
+    tl, tlast = texp.train_epoch(tds, idx_t, perm_t)
+    assert_close(tl, jl, rtol=1e-5, atol=0)
+    assert_close(tlast, jlast, rtol=1e-5, atol=0)
     ve, vlast = jexp.eval_epoch(jparams, arrays, jidx, perm_j)
     te, tlast = texp.eval_epoch(tds, idx_t, perm_t)
     assert_close(te, ve, rtol=1e-4, atol=0)
