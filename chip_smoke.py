@@ -20,6 +20,10 @@ Phases, each timed on its own line:
    (a 99-step block, the drift, the record, the force kernel, the kick).
    #1 and #2 also run at SEGNO's shape (G=256, the per-edge clip engaged),
    timed, and at a G whose edge rows leave the last tile ragged (G=3);
+   and with a seed axis, K=5 weight sets over G=5x2560 (EGNO) and G=5x256
+   with the clip (SEGNO) in one launch: bitwise equal to 5 single-seed
+   launches and over two runs, within 1e-4 x max(1, max|plain|) of the
+   plain seed-axis version, timed beside the 5 single-seed launches;
 4. main path: ``nonode_tpu_torch.main --model egno --only_test true`` on the
    committed charged-5 test split at the canonical EGNO width (4 layers,
    hidden 64, T=10, batch 256, traj_len 20), weights from --seed 42. Checks
@@ -38,7 +42,21 @@ Phases, each timed on its own line:
    weight-tied steps, the per-edge clip): #1 launched once a step, 10 times
    a forward, #2 10 times a training step (``path_launches``); the rollout's
    artifact has one frame a window;
-10. stretch: the 1000-body charged run (as bench.py:bench_large_n),
+10.-11. egno fleet path, segno fleet path: ``python -m
+   nonode_tpu_torch.fleet_main --seeds 1,2,3,4,5 --epochs 2
+   --test_interval 1`` at the same widths on the committed splits: #1/#2
+   launched as in one sequential run's training and validation (a fleet
+   step launches each once a layer or integrator step for all five seeds),
+   five test rollouts, five checkpoints and artifacts; each seed's epoch-1
+   validation loss within 1e-3 relative of the sequential run of that seed
+   on the card; a fleet step's wall and idle share beside five sequential
+   steps';
+12.-13. egno bf16 train path, segno bf16 train path: ``main --precision
+   bf16 --only_test false --epochs 2``: no kernel in bf16 training and
+   validation (the gate passes fp32 only), the fp32 test rollout on #1;
+   losses finite and within rtol 0.2 of the fp32 train path of the same
+   call; a bf16 step's wall beside fp32's;
+14. stretch: the 1000-body charged run (as bench.py:bench_large_n),
    ``LargeNChargedSim(n_balls=1000)``, T=20000, sample_freq 100, from
    --seed 42: 199 finite frames, 1 launch of the force kernel (the kick
    before the loop) and 199 of the charged block kernel (a frame each), the
@@ -46,10 +64,10 @@ Phases, each timed on its own line:
    first frame's kinetic energy (tests/test_large_sim.py:80-103); then the
    port's large-N and dense charged simulators from one state (N=20,
    T=300) on the card;
-11. gravity: ``LargeNGravitySim(n_balls=1000)``, T=2000, sample_freq 100:
+15. gravity: ``LargeNGravitySim(n_balls=1000)``, T=2000, sample_freq 100:
    20 launches of the gravity block kernel and 1 of the gravity kernel,
    total momentum conserved; then large-N against dense (N=40, T=300);
-12. generate: ``python -m nonode_tpu_torch.sim.generate --simulation gravity``
+16. generate: ``python -m nonode_tpu_torch.sim.generate --simulation gravity``
    (in-process) writes small gravity splits on the card; ``main --dataset
    gravity --only_test false --epochs 1`` trains and rolls out on them.
 
@@ -448,6 +466,131 @@ def check_pairwise_bwd_kernel(egnn_fused, dev):
     return rows
 
 
+# seed-axis cases of #1/#2 (seed fleets): K weight sets over G = K x B
+# graphs at EGNO's and SEGNO's shapes; (label, B, clip_edges, coord_scale)
+SEEDS = 5
+SEED_AXIS_CASES = [
+    ("egno", 2560, False, 1.0),
+    ("segno", 256, True, 400.0),
+]
+
+
+def seed_axis_inputs(k, b, n, h, e, seed, dev, coord_scale):
+    """Inputs of G = k x b graphs and k stacked weight sets (each as
+    pairwise_inputs draws one, from seeds seed .. seed + k - 1)."""
+    x, hi, hj, efea, mask, _ = pairwise_inputs(k * b, n, h, e, seed, dev)
+    sets = [pairwise_inputs(1, n, h, e, seed + 1 + s, dev,
+                            coord_scale=coord_scale)[5] for s in range(k)]
+    weights = tuple(torch.stack(ws) for ws in zip(*sets))
+    return x, hi, hj, efea, mask, weights, sets
+
+
+def check_seed_axis_kernels(egnn_fused, dev):
+    """#1 and #2 with SEEDS weight sets in one launch, at EGNO's and SEGNO's
+    shapes: bitwise equal to one launch per seed, within KERNEL_RTOL x
+    max(1, max|plain|) of the plain seed-axis version, bitwise repeatable;
+    timed beside the SEEDS single-seed launches, with SEEDS times the
+    single-seed split-TF32 bound. Returns {"egnn_pairwise_fwd": {label:
+    row}, "egnn_pairwise_bwd": {...}}."""
+    k, n, h, e = SEEDS, 5, 64, 2
+    rows = {"egnn_pairwise_fwd": {}, "egnn_pairwise_bwd": {}}
+    for label, b, clip, coord_scale in SEED_AXIS_CASES:
+        x, hi, hj, efea, mask, weights, sets = seed_axis_inputs(
+            k, b, n, h, e, 11, dev, coord_scale)
+        part = lambda t, s: t[s * b:(s + 1) * b]          # noqa: E731
+        rng = np.random.RandomState(b)
+        cot = tuple(torch.tensor(rng.randn(*shape), dtype=torch.float32,
+                                 device=dev)
+                    for shape in ((k * b, n, 3), (k * b, n, h)))
+        args = (x, hi, hj, efea, mask, weights)
+        with torch.no_grad():
+            fwd = lambda: egnn_fused.pairwise_message(clip, *args)  # noqa: E731
+            got, again = fwd(), fwd()
+            single = lambda: [egnn_fused.pairwise_message(  # noqa: E731
+                clip, *(part(t, s) for t in (x, hi, hj, efea)), mask,
+                sets[s]) for s in range(k)]
+            ones = single()
+            torch.cuda.synchronize()
+            want = egnn_fused.pairwise_message_seeds_reference(clip, *args)
+        bwd = lambda: egnn_fused.pairwise_message_bwd(clip, *args, *cot)  # noqa: E731
+        bsingle = lambda: [egnn_fused.pairwise_message_bwd(  # noqa: E731
+            clip, *(part(t, s) for t in (x, hi, hj, efea)), mask, sets[s],
+            *(part(c, s) for c in cot)) for s in range(k)]
+        bgot, bagain, bones = bwd_outputs(bwd()), bwd_outputs(bwd()), \
+            [bwd_outputs(o) for o in bsingle()]
+        torch.cuda.synchronize()
+        bwant = bwd_outputs(egnn_fused.pairwise_message_bwd_seeds_reference(
+            clip, *args, *cot))
+        if clip:
+            free = egnn_fused.pairwise_message_seeds_reference(False, *args)
+            if float((free[0] - want[0]).abs().max()) <= 1e-3:
+                raise AssertionError(f"seed axis {label}: the clip never "
+                                     f"engaged")
+        per_seed = {"tot_f": torch.cat([o[0] for o in ones]),
+                    "tot_m": torch.cat([o[1] for o in ones])}
+        for name in bgot:
+            cat = torch.stack if name.startswith("d") and name not in (
+                "dx", "dhi", "dhj", "defea") else torch.cat
+            per_seed[name] = cat([o[name] for o in bones])
+        outs = {**dict(zip(("tot_f", "tot_m"), got)), **bgot}
+        twice = {**dict(zip(("tot_f", "tot_m"), again)), **bagain}
+        plain = {**dict(zip(("tot_f", "tot_m"), want)), **bwant}
+        errs = {"egnn_pairwise_fwd": [], "egnn_pairwise_bwd": []}
+        for name, a in outs.items():
+            which = "egnn_pairwise_fwd" if name.startswith("tot") \
+                else "egnn_pairwise_bwd"
+            if a.shape != plain[name].shape or not torch.isfinite(a).all():
+                raise AssertionError(f"seed axis {label}: {name} has shape "
+                                     f"{tuple(a.shape)} or is not finite")
+            if not torch.equal(a, per_seed[name]):
+                diff = float((a - per_seed[name]).abs().max())
+                raise AssertionError(f"seed axis {label}: {name} differs "
+                                     f"from {k} single-seed launches by "
+                                     f"{diff}")
+            if not torch.equal(a, twice[name]):
+                raise AssertionError(f"seed axis {label}: {name} differs "
+                                     f"between two runs")
+            err = float((a - plain[name]).abs().max())
+            scale = max(1.0, float(plain[name].abs().max()))
+            if err > KERNEL_RTOL * scale:
+                raise AssertionError(f"seed axis {label}: {name} disagrees "
+                                     f"with the plain seed-axis version: "
+                                     f"{err} > {KERNEL_RTOL} x {scale}")
+            errs[which].append(err / scale)
+        timing = {
+            "egnn_pairwise_fwd": (fwd, single, lambda: egnn_fused.
+                                  pairwise_message_seeds_reference(
+                                      clip, *args)),
+            "egnn_pairwise_bwd": (bwd, bsingle, lambda: egnn_fused.
+                                  pairwise_message_bwd_seeds_reference(
+                                      clip, *args, *cot))}
+        for which, (fn, fn_k, fn_plain) in timing.items():
+            backward = which == "egnn_pairwise_bwd"
+            with torch.no_grad():
+                ms, k_ms, plain_ms = (device_ms(f) for f in
+                                      (fn, fn_k, fn_plain))
+            one_tc = pairwise_tc_bound_ms(b, mask, h, e, backward)
+            one_fp32 = (pairwise_bwd_bound_ms if backward
+                        else pairwise_bound_ms)(b, mask, h, e)
+            tc, fp32 = (k * one_tc[0], one_tc[1]), (k * one_fp32[0],
+                                                     one_fp32[1])
+            print(f"  seed axis {label} K={k} G={k}x{b}"
+                  f"{' clip_edges=True' if clip else ''}: "
+                  f"{'backward' if backward else 'forward'} one launch "
+                  f"{ms:.4f} ms, {k} single-seed launches {k_ms:.4f} ms, "
+                  f"plain seed-axis version {plain_ms:.4f} ms; worst "
+                  f"relative error {max(errs[which]):.3e} against the plain "
+                  f"version (tolerance {KERNEL_RTOL:g}); bitwise equal to "
+                  f"the {k} single-seed launches and over two runs; "
+                  f"{bounds_text(fp32, tc, ms)} ({k} x one seed's)",
+                  flush=True)
+            rows[which][label] = dict(
+                seeds=k, graphs_per_seed=b, max_rel_err=max(errs[which]),
+                ms=ms, single_seed_launches_ms=k_ms, plain_ms=plain_ms,
+                library_ms=None, **route_row(ms, fp32, tc))
+    return rows
+
+
 def nbody_bound_ms(name, n, steps=1):
     """Least time for an N-body kernel on an H100 SXM: the larger of its
     operations and its bytes. Operations: the N(N-1) interacting pairs of
@@ -830,12 +973,14 @@ def run_echoed(fn, *args):
     return lines, result
 
 
-def seed_experiment(nt_main, model, where):
-    """The driver's experiment of ``model`` with the seed-42 weights on
-    ``where``, as ``main`` builds it."""
-    args = nt_main.get_args(["--model", model, "--seed", str(SEED)])
+def seed_experiment(nt_main, model, where, seed=SEED, extra=()):
+    """The driver's experiment of ``model`` with the ``seed`` weights on
+    ``where``, as ``main`` builds it (``extra``: more driver flags)."""
+    from nonode_tpu_torch.runtime import seed_everything
+
+    args = nt_main.get_args(["--model", model, "--seed", str(seed), *extra])
     return nt_main.build_experiment(args, torch.device(where),
-                                    torch.Generator().manual_seed(SEED))
+                                    seed_everything(seed))
 
 
 def cpu_first_windows(nt_main, model, data_dir):
@@ -957,7 +1102,7 @@ def run_train_path(nt_main, kernels, data_dir, out_dir, model="egno"):
     print(f"  train losses {results['train loss']} val loss {best_val} "
           f"test_loss {test_loss} train path wall {wall:.3f} s launches "
           f"{json.dumps(launches)}", flush=True)
-    return launches
+    return launches, results
 
 
 def run_generate_and_gravity_main(nt_main, kernels, tmp):
@@ -1033,7 +1178,7 @@ def run_generate_and_gravity_main(nt_main, kernels, tmp):
     return gen_launches, launches
 
 
-def train_batch0(nt_main, model, where, data_dir):
+def train_batch0(nt_main, model, where, data_dir, extra=()):
     """The seed-42 weights on ``where`` and train batch 0 of the driver's
     first epoch (its seed-42 permutation and windows). Returns (experiment,
     a function that computes batch 0's loss, a function that runs one
@@ -1041,7 +1186,7 @@ def train_batch0(nt_main, model, where, data_dir):
     windows)."""
     from nonode_tpu_torch.data.nbody import NBodyDataset
 
-    exp = seed_experiment(nt_main, model, where)
+    exp = seed_experiment(nt_main, model, where, extra=extra)
     ds = NBodyDataset(data_dir, partition="train", device=where)
     perm, windows = exp.draw_epoch(ds, np.random.RandomState(SEED), BATCH)
     idx0 = torch.from_numpy(perm[0]).to(where)
@@ -1100,6 +1245,214 @@ def check_train_step(nt_main, data_dir, dev, model="egno"):
     return step_ms
 
 
+def median_step_ms(step, steps=6):
+    """Median sync-closed wall of ``step(b)`` over b = 1 .. steps - 1 (the
+    first is a warm-up)."""
+    walls = []
+    for b in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(walls[1:]))
+
+
+def traced(fn):
+    """(wall s, device kernel ms, kernel launches, idle share) of ``fn``
+    under torch.profiler, as scripts/profile_torch_training.py counts them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) ==
+              torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    device_us = sum(e.self_device_time_total for e in events)
+    if not events:
+        raise AssertionError("the profiler saw no device time")
+    return (wall, device_us / 1e3, sum(e.count for e in events),
+            1 - device_us / 1e6 / wall)
+
+
+FLEET_SEEDS = (1, 2, 3, 4, 5)
+# a fleet's epoch-1 validation loss against the sequential run of the same
+# seed on the card: the same fp32 arithmetic batched over the seeds (other
+# GEMM shapes, the seed-axis kernels bitwise as single-seed launches)
+# through 22 Adam steps
+FLEET_RTOL = 1e-3
+
+
+def run_fleet_path(nt_main, kernels, data_dir, out_dir, dev,
+                   model="egno"):
+    """``fleet_main --seeds 1,2,3,4,5 --epochs 2 --test_interval 1`` at full
+    width on the committed splits: #1/#2 launch as in ONE sequential run's
+    training and validation (once a layer or integrator step for all five
+    seeds), plus five test rollouts; five per-seed checkpoints and
+    artifacts; each seed's epoch-1 validation loss within FLEET_RTOL of the
+    sequential run of that seed on the card. Then a fleet step's wall and
+    idle share beside five sequential steps' in this call."""
+    from nonode_tpu_torch import fleet_main
+    from nonode_tpu_torch.analysis.registry import artifact_stem
+    from nonode_tpu_torch.data.nbody import NBodyDataset
+    from nonode_tpu_torch.parallel.fleet import SeedFleet
+
+    k, epochs = len(FLEET_SEEDS), 2
+    args = fleet_main.get_args([
+        "--model", model, "--seeds", ",".join(map(str, FLEET_SEEDS)),
+        "--epochs", str(epochs), "--test_interval", "1", "--device", dev.type,
+        "--data_dir", str(data_dir), "--outf", str(out_dir),
+        "--batch_size", str(BATCH), "--traj_len", str(TRAJ_LEN)])
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    lines, records = run_echoed(fleet_main.main, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_b = min(args.max_samples, split_size(data_dir, "train")) // BATCH
+    val_b = split_size(data_dir, "valid") // BATCH
+    test_b = split_size(data_dir, "test") // BATCH
+    pf = EXPECT[model]["per_forward"]
+    want = path_launches(pf, 0, 0, epochs, train_b, 1, val_b)
+    want["egnn_pairwise_fwd"] += k * test_b * TRAJ_LEN * pf
+    launches = read_launches(
+        kernels, want,
+        f"{model} fleet path ({epochs} epochs x {train_b} fleet steps x "
+        f"{pf}, for all {k} seeds; {val_b} validation batches x {pf}; "
+        f"{k} test rollouts of {pf} x {TRAJ_LEN} x {test_b})")
+    train_wall = [float(line.split(": ")[1].split("s ")[0]) for line in lines
+                  if line.startswith("fleet training wall-clock")][0]
+    run = out_dir / args.exp_name
+    for rec in records:
+        stem = artifact_stem(model, "charged", rec["seed"], 5)
+        # (the test loss of random-weight EGNO rollouts may be nan, as the
+        # sequential driver's: their windows diverge)
+        if not (run / f"{stem}.ckpt").is_file() \
+                or not np.isfinite(rec["best_val_loss"]) \
+                or rec["best_epoch"] != 1:
+            raise AssertionError(f"fleet record {rec}")
+        check_artifact(run / f"{stem}_results.npz", test_b * BATCH,
+                       model=model)
+
+    # the sequential runs of the same seeds on the card, to epoch 1's
+    # validation, and the walls of their steps
+    ds = NBodyDataset(data_dir, partition="train", device=dev)
+    ds_val = NBodyDataset(data_dir, partition="val", device=dev)
+    seq_step_ms, worst = [], 0.0
+    for rec in records:
+        seed = rec["seed"]
+        exp = seed_experiment(nt_main, model, dev, seed=seed)
+        rng = np.random.RandomState(seed)
+        for epoch in range(epochs):
+            perm, windows = exp.draw_epoch(ds, rng, BATCH)
+            exp.train_epoch(ds, windows, perm)
+        perm, windows = exp.draw_epoch(ds_val, rng, BATCH, shuffle=False)
+        val = float(exp.eval_epoch(ds_val, windows, perm)[1].mean())
+        rel = abs(rec["best_val_loss"] - val) / max(abs(val), 1e-30)
+        worst = max(worst, rel)
+        if rel > FLEET_RTOL:
+            raise AssertionError(f"seed {seed}: fleet epoch-1 validation "
+                                 f"loss {rec['best_val_loss']}, sequential "
+                                 f"{val}")
+        perm, windows = exp.draw_epoch(ds, rng, BATCH)
+        seq_step_ms.append(median_step_ms(
+            lambda b: exp.train_epoch(ds, windows, perm[b % len(perm)][None])))
+    seq_trace = traced(lambda: exp.train_epoch(ds, windows, perm[:2]))
+
+    # a fleet step: its launches of #1/#2, wall and idle share
+    build = fleet_main.build_experiment
+    fargs = nt_main.get_args(["--model", model])
+    fexp = seed_experiment(nt_main, model, dev, seed=FLEET_SEEDS[0])
+    fleet = SeedFleet(fexp, FLEET_SEEDS)
+    params, opt = fleet.init(lambda g: build(fargs, dev,
+                                             g).model)
+    perms = fleet.make_perms([np.random.RandomState(s) for s in FLEET_SEEDS],
+                             len(ds), BATCH)
+    fwin = fexp.windows(ds, None, perms.shape[1])
+    step = lambda b: fleet.train_epoch(  # noqa: E731
+        params, opt, ds, fwin, perms[:, b % perms.shape[1]][:, None])
+    step(0)
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    step(1)
+    torch.cuda.synchronize()
+    read_launches(kernels, {"egnn_pairwise_fwd": pf,
+                            "egnn_pairwise_bwd": pf},
+                  f"{model} fleet step ({pf} of each for all {k} seeds, as "
+                  f"one sequential step)")
+    fleet_ms = median_step_ms(step)
+    f_trace = traced(lambda: [step(2), step(3)])
+    seq_k = float(np.sum(seq_step_ms))
+    print(f"  {model} fleet of {k} seeds: fleet_main wall {wall:.3f} s "
+          f"(training {train_wall} s); epoch-1 validation losses "
+          f"{[r['best_val_loss'] for r in records]}, worst relative "
+          f"difference from the sequential runs {worst:.3e} (tolerance "
+          f"{FLEET_RTOL:g}); fleet step {fleet_ms:.3f} ms against {k} "
+          f"sequential steps {seq_k:.3f} ms ({', '.join(f'{m:.3f}' for m in seq_step_ms)}"
+          f"), {seq_k / fleet_ms:.2f}x; traced over 2 steps: fleet wall "
+          f"{1e3 * f_trace[0]:.3f} ms, device {f_trace[1]:.3f} ms over "
+          f"{f_trace[2]} launches, idle share {f_trace[3]:.4f}; one seed "
+          f"sequential wall {1e3 * seq_trace[0]:.3f} ms, device "
+          f"{seq_trace[1]:.3f} ms over {seq_trace[2]} launches, idle share "
+          f"{seq_trace[3]:.4f}; launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
+BF16_RTOL = 0.2     # bf16 against fp32 losses (tests/test_driver.py:135-145)
+
+
+def run_bf16_path(nt_main, kernels, data_dir, out_dir, dev, fp32,
+                  fp32_step_ms, model="egno"):
+    """``main --precision bf16 --only_test false --epochs 2``: the bf16
+    forward and backward take the dense chain (the kernel gate passes fp32
+    only), so #1/#2 launch only in the test rollout, which stays fp32;
+    finite losses within BF16_RTOL of the fp32 train path of this call
+    (``fp32``, its results); a bf16 step's wall beside the fp32 step's."""
+    from nonode_tpu_torch.analysis.registry import artifact_stem
+
+    args = nt_main.get_args([
+        "--model", model, "--only_test", "false", "--device", dev.type,
+        "--data_dir", str(data_dir), "--outf", str(out_dir),
+        "--epochs", "2", "--test_interval", "1", "--precision", "bf16",
+        "--batch_size", str(BATCH), "--traj_len", str(TRAJ_LEN),
+        "--seed", str(SEED)])
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    _, (best_val, test_loss, _) = run_echoed(nt_main.main, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    test_b = split_size(data_dir, "test") // BATCH
+    launches = read_launches(
+        kernels, path_launches(EXPECT[model]["per_forward"], test_b,
+                               TRAJ_LEN),
+        f"{model} bf16 train path (no kernel in bf16 training and "
+        f"validation; the fp32 test rollout)")
+    stem = artifact_stem(model, "charged", SEED, 5)
+    results = json.loads((out_dir / args.exp_name / f"{stem}.json")
+                         .read_text())
+    for key in ("train loss", "val loss"):
+        got, ref = np.asarray(results[key]), np.asarray(fp32[key])
+        if not np.isfinite(got).all() or not np.allclose(
+                got, ref, rtol=BF16_RTOL, atol=0):
+            raise AssertionError(f"{model} bf16 {key} {got.tolist()}, fp32 "
+                                 f"{ref.tolist()} (rtol {BF16_RTOL})")
+    _, _, step = train_batch0(nt_main, model, dev, data_dir,
+                              extra=("--precision", "bf16"))
+    bf16_ms = median_step_ms(step)
+    print(f"  {model} bf16: train losses {results['train loss']} val loss "
+          f"{best_val} (fp32 {fp32['train loss']} {fp32['val loss']}; "
+          f"rtol {BF16_RTOL}) test_loss {test_loss} train path wall "
+          f"{wall:.3f} s; bf16 step {bf16_ms:.3f} ms against fp32 "
+          f"{fp32_step_ms:.3f} ms ({bf16_ms / fp32_step_ms:.2f}x; no speed "
+          f"claim); launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
 def main():
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1131,8 +1484,9 @@ def main():
     pair_rows = {"egnn_pairwise_fwd": check_pairwise_kernel(egnn_fused, dev),
                  "egnn_pairwise_bwd": check_pairwise_bwd_kernel(egnn_fused,
                                                                 dev)}
+    seed_rows = check_seed_axis_kernels(egnn_fused, dev)
     rows = {name: dict(r["slice"], segno_shape=r["segno"],
-                       ragged_shape=r["ragged"])
+                       ragged_shape=r["ragged"], seed_axis=seed_rows[name])
             for name, r in pair_rows.items()}
     rows.update(check_nbody_kernels(dev))
     check_fused_frames(dev)
@@ -1145,14 +1499,15 @@ def main():
                                          Path(tmp) / "out")
     phase("main path", t0)
 
+    fp32_runs = {}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        paths["train"] = run_train_path(nt_main, KERNELS, data_dir,
-                                        Path(tmp) / "out")
+        paths["train"], fp32_runs["egno"] = run_train_path(
+            nt_main, KERNELS, data_dir, Path(tmp) / "out")
     phase("train path", t0)
 
     t0 = time.perf_counter()
-    check_train_step(nt_main, data_dir, dev)
+    step_ms = {"egno": check_train_step(nt_main, data_dir, dev)}
     phase("train step", t0)
 
     t0 = time.perf_counter()
@@ -1163,13 +1518,29 @@ def main():
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        paths["segno train"] = run_train_path(
+        paths["segno train"], fp32_runs["segno"] = run_train_path(
             nt_main, KERNELS, data_dir, Path(tmp) / "out", model="segno")
     phase("segno train path", t0)
 
     t0 = time.perf_counter()
-    check_train_step(nt_main, data_dir, dev, model="segno")
+    step_ms["segno"] = check_train_step(nt_main, data_dir, dev,
+                                        model="segno")
     phase("segno train step", t0)
+
+    for model in ("egno", "segno"):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            paths[f"{model} fleet"] = run_fleet_path(
+                nt_main, KERNELS, data_dir, Path(tmp) / "out", dev, model)
+        phase(f"{model} fleet path", t0)
+
+    for model in ("egno", "segno"):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            paths[f"{model} bf16 train"] = run_bf16_path(
+                nt_main, KERNELS, data_dir, Path(tmp) / "out", dev,
+                fp32_runs[model], step_ms[model], model)
+        phase(f"{model} bf16 train path", t0)
 
     t0 = time.perf_counter()
     paths["stretch"], _ = run_stretch(KERNELS, dev)

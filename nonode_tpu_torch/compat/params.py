@@ -75,3 +75,28 @@ def segno_state_dict_from_jax_params(params_np) -> dict:
     if "attn" in params_np:
         put_mlp("enc_attn_net.attn_mlp", params_np["attn"])
     return _tensors(out)
+
+
+def _seed_slice(tree, i):
+    """Seed ``i`` of a tree of numpy leaves with a leading K axis."""
+    if isinstance(tree, dict):
+        return {k: _seed_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_seed_slice(v, i) for v in tree)
+    return np.asarray(tree)[i]
+
+
+def fleet_params_from_jax_params(convert, params_np) -> dict:
+    """A nonode_tpu seed-fleet tree (numpy leaves with a leading K axis, as
+    ``SeedFleet.init`` makes it) -> the port's fleet parameters, a
+    ``state_dict``-named dict of [K, ...] tensors. ``convert`` maps one
+    seed's tree (``egno_state_dict_from_jax_params`` with its ``n_layers``
+    bound, or ``segno_state_dict_from_jax_params``)."""
+    first = params_np
+    while isinstance(first, (dict, list, tuple)):
+        first = next(iter(first.values())) if isinstance(first, dict) \
+            else first[0]
+    per_seed = [convert(_seed_slice(params_np, i))
+                for i in range(np.asarray(first).shape[0])]
+    return {name: torch.stack([sd[name] for sd in per_seed])
+            for name in per_seed[0]}

@@ -58,6 +58,13 @@
 //   bits.
 // - Masked-out rows (the diagonal) are computed and multiplied by the mask,
 //   as the plain version does, so a non-finite row propagates.
+// - Seed axis: K weight sets over G = K * B graphs (graph g on set g / B), for
+//   seed fleets. The grid is (blocks, K): block (b, s) takes seed s's units b,
+//   b + blocks, ... with seed s's weights, and writes slot s * blocks + b; the
+//   second launch sums each seed's slots in block order into its own
+//   gradients. blocks is the persistent grid of one seed's units, so each
+//   seed's units, slots and sums are those of a launch of its B graphs alone:
+//   the same bits. With K > 1 the K * blocks blocks run in waves.
 // Only H = 64, the width of every configuration in model_confs.yaml, is
 // instantiated; the code is templated on H for other widths.
 //
@@ -168,6 +175,11 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
                          float* __restrict__ dhj, float* __restrict__ defea,
                          float* __restrict__ partial, long long num_graphs, long long units,
                          int n, int e, int clip_edges) {
+  // this block's seed: the first of its graphs (num_graphs and units count
+  // one seed's) and its weight set, read only while staging (the parameters
+  // stay in the constant bank: no pointer is held in registers)
+  const long long seed = blockIdx.y;
+  const long long seed_g0 = seed * num_graphs;
   constexpr int LD = padded<H>();
   constexpr int CH = H / 4;                        // 4-column chunks of a row
   constexpr int RPI = 32 / CH;                     // rows a warp covers at once
@@ -202,15 +214,15 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  stage_weights_async<H>(s_w2, s_wc1, w2, wc1);
+  stage_weights_async<H>(s_w2, s_wc1, w2 + seed * H * H, wc1 + seed * H * H);
   for (int k = tid; k < H; k += kThreads) {
-    s_wg[k] = wg[k];
-    s_b1[k] = b1[k];
-    s_b2[k] = b2[k];
-    s_bc1[k] = bc1[k];
-    s_wc2[k] = wc2[k];
+    s_wg[k] = wg[seed * H + k];
+    s_b1[k] = b1[seed * H + k];
+    s_b2[k] = b2[seed * H + k];
+    s_bc1[k] = bc1[seed * H + k];
+    s_wc2[k] = wc2[seed * H + k];
   }
-  for (int k = tid; k < e * H; k += kThreads) s_we[k] = we[k];
+  for (int k = tid; k < e * H; k += kThreads) s_we[k] = we[seed * e * H + k];
   for (int i = tid; i < n; i += kThreads) {
     float d = 0.0f;
     for (int j = 0; j < n; ++j) d += __ldg(mask + i * n + j);
@@ -221,7 +233,7 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   // The warp's part of dW2 and dWc1: the m16 tile mi of their rows and WT n8
   // tiles from column 8 nb0. Each tile's product is added to the block's sums
   // in its own slot of the scratch buffer (the first tile writes them).
-  float* part = partial + (long long)blockIdx.x * slot_floats(H, e);
+  float* part = partial + (seed * gridDim.x + blockIdx.x) * slot_floats(H, e);
   const int mi = warp * WT / NT8;                  // the warp's m16 tile of dW
   const int nb0 = warp * WT - mi * NT8;            // and its first n8 tile
   const int g = lane >> 2, t4 = lane & 3;          // the fragments' row and column
@@ -236,7 +248,7 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
     for (int k = 0; k < kMaxE; ++k) v_we[k][t] = 0.0f;
   }
 
-  const float bias_c2 = __ldg(bc2);
+  const float bias_c2 = __ldg(bc2 + seed);
   const int nn = n * n;
   const int gpu = graphs_per_unit(n);
   const int r0 = warp * 16;                        // the warp's rows of a tile
@@ -249,13 +261,13 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
 #define ROW4(buf, r) (*reinterpret_cast<float4*>((buf) + (r) * LD + 4 * ch))
 
   for (long long unit = blockIdx.x; unit < units; unit += gridDim.x) {
-    const long long g0 = unit * gpu;
-    const long long left = num_graphs - g0;
+    const long long left = num_graphs - unit * gpu;
     const int ng = left < gpu ? (int)left : gpu;
     const int edges = ng * nn;
     const int tiles = (edges + kRows - 1) / kRows;
-    const long long nbase = g0 * n;                // the unit's first node
-    const long long ebase = g0 * nn;               // and first edge
+    const long long g0 = seed_g0 + unit * gpu;     // the unit's first graph,
+    const long long nbase = g0 * n;                // node
+    const long long ebase = g0 * nn;               // and edge
 
     for (int t = 0; t < tiles; ++t) {
       const int t0 = t * kRows;
@@ -649,16 +661,19 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   }
 }
 
-// Second pass: out[p] = sum over blocks b, in order, of partial[b][p].
+// Second pass: out[s][p] = sum over blocks b, in order, of seed s's
+// partial[s * blocks + b][p]; the grid's y is the seed.
 __global__ void egnn_pairwise_bwd_reduce(const float* __restrict__ partial,
                                          float* __restrict__ out, int blocks, long long slot,
                                          long long np) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= np) return;
+  const long long seed = blockIdx.y;
+  partial += seed * blocks * slot;
   float s = 0.0f;
 #pragma unroll 8
   for (int b = 0; b < blocks; ++b) s += partial[(long long)b * slot + p];
-  out[p] = s;
+  out[seed * np + p] = s;
 }
 
 template <int H>
@@ -672,22 +687,22 @@ cudaError_t grid_of(long long g, int n, int* grid, long long* units) {
 }  // namespace
 
 // Floats of scratch the wrapper allocates for one call on the current device:
-// one slot of partial weight gradients per block of the launch's grid. -1 if
-// the grid cannot be found.
-extern "C" long long egnn_pairwise_bwd_scratch_floats(long long g, int n, int h, int e) {
-  if (g <= 0 || n < 1 || n > kMaxN || h != 64 || e < 1 || e > kMaxE) return -1;
+// one slot of partial weight gradients per block of the launch's grid, for
+// each of the K seeds of G = K * B graphs. -1 if the grid cannot be found.
+extern "C" long long egnn_pairwise_bwd_scratch_floats(long long g, int n, int h, int e, int k) {
+  if (bad_shape(g, n, h, e, k)) return -1;
   int grid = 0;
   long long units = 0;
-  if (grid_of<64>(g, n, &grid, &units) != cudaSuccess) return -1;
-  return grid * slot_floats(h, e);
+  if (grid_of<64>(g / k, n, &grid, &units) != cudaSuccess) return -1;
+  return (long long)k * grid * slot_floats(h, e);
 }
 
 // Plain C entry point, loaded with ctypes. Returns a cudaError_t (0 = both
-// kernels launched). Inputs as egnn_pairwise_fwd plus gtotf [G,N,3] and
-// gtotm [G,N,H]; outputs dx [G,N,3], dhi/dhj [G,N,H], defea [G,N,N,E] and
-// dweights, the flat [2H^2 + 5H + EH + 1] layout above; scratch holds
-// egnn_pairwise_bwd_scratch_floats floats (256-byte aligned). All fp32,
-// contiguous, on the current device.
+// kernels launched). Inputs as egnn_pairwise_fwd (K weight sets over G = K * B
+// graphs) plus gtotf [G,N,3] and gtotm [G,N,H]; outputs dx [G,N,3], dhi/dhj
+// [G,N,H], defea [G,N,N,E] and dweights [K] x the flat [2H^2 + 5H + EH + 1]
+// layout above; scratch holds egnn_pairwise_bwd_scratch_floats floats (256-byte
+// aligned). All fp32, contiguous, on the current device.
 extern "C" int egnn_pairwise_bwd(const float* x, const float* hi, const float* hj,
                                  const float* efea, const float* mask, const float* wg,
                                  const float* we, const float* b1, const float* w2,
@@ -695,22 +710,23 @@ extern "C" int egnn_pairwise_bwd(const float* x, const float* hi, const float* h
                                  const float* wc2, const float* bc2, const float* gtotf,
                                  const float* gtotm, float* dx, float* dhi, float* dhj,
                                  float* defea, float* dweights, float* scratch, long long g,
-                                 int n, int h, int e, int clip_edges, void* stream_ptr) {
-  if (g <= 0 || n < 1 || n > kMaxN || h != 64 || e < 1 || e > kMaxE)
-    return (int)cudaErrorInvalidValue;
+                                 int n, int h, int e, int k, int clip_edges, void* stream_ptr) {
+  if (bad_shape(g, n, h, e, k)) return (int)cudaErrorInvalidValue;
   constexpr int H = 64;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  const long long b = g / k;                     // one seed's graphs
   int grid = 0;
   long long units = 0;
-  cudaError_t err = grid_of<H>(g, n, &grid, &units);
+  cudaError_t err = grid_of<H>(b, n, &grid, &units);
   if (err != cudaSuccess) return (int)err;
-  egnn_pairwise_bwd_kernel<H><<<grid, kThreads, sizeof(float) * smem_floats<H>(), stream>>>(
-      x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1, wc2, bc2, gtotf, gtotm, dx, dhi,
-      dhj, defea, scratch, g, units, n, e, clip_edges);
+  egnn_pairwise_bwd_kernel<H>
+      <<<dim3(grid, k), kThreads, sizeof(float) * smem_floats<H>(), stream>>>(
+          x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1, wc2, bc2, gtotf, gtotm, dx, dhi,
+          dhj, defea, scratch, b, units, n, e, clip_edges);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long np = partial_floats(H, e);
-  egnn_pairwise_bwd_reduce<<<(unsigned)((np + 255) / 256), 256, 0, stream>>>(
+  egnn_pairwise_bwd_reduce<<<dim3((unsigned)((np + 255) / 256), k), 256, 0, stream>>>(
       scratch, dweights, grid, slot_floats(H, e), np);
   return (int)cudaGetLastError();
 }

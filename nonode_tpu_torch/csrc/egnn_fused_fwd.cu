@@ -42,6 +42,13 @@
 //   order: no atomics, and two runs give the same bits. Masked-out rows (the
 //   diagonal) are computed and multiplied by the mask, so a non-finite row
 //   propagates as in the JAX package.
+// - Seed axis: K weight sets over G = K * B graphs (graph g on set g / B), for
+//   seed fleets. The grid is (blocks, K): block (b, s) runs seed s's tiles b,
+//   b + blocks, ... with seed s's weights, so a block stages one weight set
+//   once, and each seed's tiles are cut and assigned as a launch of its B
+//   graphs alone would cut and assign them. blocks comes from the persistent
+//   grid of one seed's tiles; with K > 1 the K * blocks blocks run in waves.
+//   K = 1 is the single-set launch.
 // Only H = 64, the width of every configuration in model_confs.yaml, is
 // instantiated; the code is templated on H for other widths.
 //
@@ -77,6 +84,11 @@ egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ 
                          float* __restrict__ totf, float* __restrict__ totm,
                          long long num_nodes, long long tiles, int n, int e,
                          int clip_edges) {
+  // this block's seed: the first of its graphs' nodes (num_nodes and tiles
+  // count one seed's) and its weight set, read only while staging (the
+  // parameters stay in the constant bank: no pointer is held in registers)
+  const long long seed = blockIdx.y;
+  const long long seed_node0 = seed * num_nodes;
   constexpr int LD = padded<H>();
   constexpr int CH = H / 4;                // 4-column chunks of a row
   constexpr int RPI = 32 / CH;             // rows a warp covers at once
@@ -101,15 +113,15 @@ egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  stage_weights_async<H>(s_w2, s_wc1, w2, wc1);
+  stage_weights_async<H>(s_w2, s_wc1, w2 + seed * H * H, wc1 + seed * H * H);
   for (int k = tid; k < H; k += kThreads) {
-    s_wg[k] = wg[k];
-    s_b1[k] = b1[k];
-    s_b2[k] = b2[k];
-    s_bc1[k] = bc1[k];
-    s_wc2[k] = wc2[k];
+    s_wg[k] = wg[seed * H + k];
+    s_b1[k] = b1[seed * H + k];
+    s_b2[k] = b2[seed * H + k];
+    s_bc1[k] = bc1[seed * H + k];
+    s_wc2[k] = wc2[seed * H + k];
   }
-  for (int k = tid; k < e * H; k += kThreads) s_we[k] = we[k];
+  for (int k = tid; k < e * H; k += kThreads) s_we[k] = we[seed * e * H + k];
   for (int i = tid; i < n; i += kThreads) {
     float d = 0.0f;
     for (int j = 0; j < n; ++j) d += __ldg(mask + i * n + j);
@@ -117,7 +129,7 @@ egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   }
   __syncthreads();
 
-  const float bias_c2 = __ldg(bc2);
+  const float bias_c2 = __ldg(bc2 + seed);
   const int npt = kRows / n;               // receivers a tile
   const int r0 = warp * 16;                // the warp's rows
   float* own = s_act + r0 * LD;
@@ -128,11 +140,12 @@ egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   bool staged = false;
 
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long node0 = tile * npt;
-    const long long left = num_nodes - node0;
+    const long long left = num_nodes - tile * npt;
+    const long long node0 = seed_node0 + tile * npt;   // from the first graph
     const int nodes = left < npt ? (int)left : npt;
     const int rows = nodes * n;
     const int i0 = (int)(node0 % n);       // receiver index of the tile's first node
+                                           // (a seed's nodes start at a graph)
 
     // ---- per row, a lane each: receiver, sender, rij, r2, efea, mask ----
     if (lane < 16) {
@@ -292,15 +305,15 @@ cudaError_t launch(const float* x, const float* hi, const float* hj, const float
                    const float* mask, const float* wg, const float* we, const float* b1,
                    const float* w2, const float* b2, const float* wc1, const float* bc1,
                    const float* wc2, const float* bc2, float* totf, float* totm,
-                   long long g, int n, int e, int clip_edges, cudaStream_t stream) {
+                   long long g, int n, int e, int k, int clip_edges, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<H>();
-  const long long num_nodes = g * n;
+  const long long num_nodes = g / k * n;     // one seed's
   const int npt = kRows / n;
   const long long tiles = (num_nodes + npt - 1) / npt;
   int grid = 0;
   cudaError_t err = persistent_grid(egnn_pairwise_fwd_kernel<H>, smem, tiles, 2, &grid);
   if (err != cudaSuccess) return err;
-  egnn_pairwise_fwd_kernel<H><<<grid, kThreads, smem, stream>>>(
+  egnn_pairwise_fwd_kernel<H><<<dim3(grid, k), kThreads, smem, stream>>>(
       x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1, wc2, bc2, totf, totm, num_nodes,
       tiles, n, e, clip_edges);
   return cudaGetLastError();
@@ -310,7 +323,8 @@ cudaError_t launch(const float* x, const float* hi, const float* hj, const float
 
 // Plain C entry point, loaded with ctypes. Returns a cudaError_t (0 = launched).
 // Shapes: x [G,N,3], hi/hj [G,N,H], efea [G,N,N,E], mask [N,N], wg/b1/b2/bc1/wc2
-// [H], we [E,H], w2/wc1 [H,H] in [in,out] layout (16-byte aligned), bc2 [1];
+// [K,H], we [K,E,H], w2/wc1 [K,H,H] in [in,out] layout (16-byte aligned), bc2
+// [K]: K weight sets, G = K * B graphs, graph g on set g / B (K = 1: one set);
 // outputs totf [G,N,3], totm [G,N,H]. All fp32, contiguous, on the current
 // device.
 extern "C" int egnn_pairwise_fwd(const float* x, const float* hi, const float* hj,
@@ -318,10 +332,9 @@ extern "C" int egnn_pairwise_fwd(const float* x, const float* hi, const float* h
                                  const float* we, const float* b1, const float* w2,
                                  const float* b2, const float* wc1, const float* bc1,
                                  const float* wc2, const float* bc2, float* totf,
-                                 float* totm, long long g, int n, int h, int e,
+                                 float* totm, long long g, int n, int h, int e, int k,
                                  int clip_edges, void* stream) {
-  if (g <= 0 || n < 1 || n > kMaxN || h != 64 || e < 1 || e > kMaxE)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(g, n, h, e, k)) return (int)cudaErrorInvalidValue;
   return (int)launch<64>(x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1, wc2, bc2, totf,
-                         totm, g, n, e, clip_edges, reinterpret_cast<cudaStream_t>(stream));
+                         totm, g, n, e, k, clip_edges, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -217,4 +217,11 @@ inline cudaError_t persistent_grid(Kernel kernel, size_t smem, long long units, 
   return cudaSuccess;
 }
 
+// The shapes #1 and #2 both take: G = K * B graphs of 1..kMaxN nodes, H = 64,
+// 1..kMaxE edge features, and 1..65535 weight sets (the grid's y extent).
+inline bool bad_shape(long long g, int n, int h, int e, int k) {
+  return g <= 0 || n < 1 || n > kMaxN || h != 64 || e < 1 || e > kMaxE || k < 1 || k > 65535 ||
+         g % k != 0;
+}
+
 }  // namespace egnn_tc

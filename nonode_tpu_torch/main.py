@@ -83,7 +83,10 @@ def get_args(argv=None):
     parser.add_argument("--num_inputs", type=int, default=1)
     parser.add_argument("--use_wb", type=str2bool, default=False)
     parser.add_argument("--precision", type=str, default="fp32",
-                        choices=["fp32", "bf16"])
+                        choices=["fp32", "bf16"],
+                        help="fp32: the parity mode; bf16: fp32 master "
+                             "weights and Adam state, bf16 forward and "
+                             "backward, fp32 loss (the rollout stays fp32)")
     parser.add_argument("--dp", type=int, default=1)
     parser.add_argument("--space", type=int, default=1)
     parser.add_argument("--config_by_file", default=None, nargs="?", const="",
@@ -101,7 +104,6 @@ def get_args(argv=None):
 
 def _refuse_unported(args):
     todo = [
-        (args.precision == "bf16", "--precision bf16", "bf16 mode"),
         (args.dp * args.space > 1, "--dp/--space > 1", "Multi-GPU"),
     ]
     for hit, what, item in todo:
@@ -130,6 +132,7 @@ def build_experiment(args, device, generator):
     if args.scale_lr:
         cfg = dataclasses.replace(cfg, lr=cfg.lr * args.scale_lr)
     kw = dict(device=device, generator=generator)
+    dtype = torch.bfloat16 if args.precision == "bf16" else None
     if args.model == "segno":
         model = SEGNO(in_node_nf=cfg.in_node_nf, in_edge_nf=cfg.in_edge_nf,
                       hidden_nf=cfg.hidden_nf, recurrent=cfg.recurrent,
@@ -138,14 +141,16 @@ def build_experiment(args, device, generator):
                       **kw)
         return SEGNOExperiment(model, num_timesteps=args.num_timesteps,
                                varDT=args.varDT, lr=cfg.lr,
-                               weight_decay=cfg.weight_decay)
+                               weight_decay=cfg.weight_decay,
+                               compute_dtype=dtype)
     model = EGNO(n_layers=cfg.n_layers, in_node_nf=cfg.in_node_nf,
                  in_edge_nf=cfg.in_edge_nf, hidden_nf=cfg.hidden_nf,
                  num_modes=cfg.num_modes, num_timesteps=args.num_timesteps,
                  time_emb_dim=cfg.time_emb_dim, num_inputs=args.num_inputs,
                  varDT=bool(args.varDT and args.num_inputs > 1),
                  with_v=cfg.with_v, flat=cfg.flat, norm=cfg.norm, **kw)
-    return EGNOExperiment(model, lr=cfg.lr, weight_decay=cfg.weight_decay)
+    return EGNOExperiment(model, lr=cfg.lr, weight_decay=cfg.weight_decay,
+                          compute_dtype=dtype)
 
 
 def main(args):

@@ -66,8 +66,12 @@ class SEGNO(nn.Module):
                                                            hidden_nf, **kw)
 
     def integrate(self, h, x, v, edge_attr, steps: int):
-        """forward_step (model.py:95-102): ``steps`` GCL steps of 1/steps."""
+        """forward_step (model.py:95-102): ``steps`` GCL steps of 1/steps.
+        Under a lower compute dtype the step is rounded to it first, as
+        JAX's weak-typed ``1.0 / steps`` adopts a bf16 carry's dtype."""
         inv = 1.0 / steps
+        if x.dtype != torch.float32:
+            inv = torch.tensor(inv).to(x.dtype).item()
         for _ in range(steps):
             h, x, v = self.module(h, x, v, edge_attr, inv)
         return h, x, v

@@ -19,6 +19,14 @@ The backward recomputes the chain from the inputs (the only residuals, as
 nine weights; the mask gets none. Both directions take the plain version
 for CPU tensors only. For CUDA tensors they launch the kernel or raise; they
 never fall back.
+
+Seed axis. The weights may also come as K stacked sets ([K, ...] each) over
+G = K * B graphs: graph g reads set g // B, and the mask stays shared. One
+launch of each kernel then serves K seeds, which is what ``jax.vmap`` of the
+custom-VJP op computes in nonode_tpu's seed fleet. Under ``torch.vmap`` the
+op's vmap rule folds the vmapped axis into that seed axis, so a fleet that
+vmaps the ordinary modules over stacked parameters (parallel/fleet.py)
+launches each kernel once per call for all its seeds.
 """
 
 from __future__ import annotations
@@ -135,9 +143,16 @@ def _check(name, t, shape, device):
                          f"pieces)")
 
 
+def seeds_of(weights) -> int | None:
+    """K when the nine weights are K stacked sets ([K, ...] each), None for
+    one set."""
+    return weights[0].shape[0] if weights[0].dim() == 3 else None
+
+
 def _checked_inputs(x, hi, hj, efea, mask, weights):
-    """The launch's shapes (g, n, h, e) and contiguous weights, after checking
-    every input; raises on what the kernels do not take."""
+    """The launch's shapes (g, n, h, e, k) and contiguous weights, after
+    checking every input; k = 1 for one weight set. Raises on what the
+    kernels do not take."""
     if len(weights) != N_WEIGHTS:
         raise ValueError(f"expected {N_WEIGHTS} weights, got {len(weights)}")
     g, n, _ = x.shape
@@ -148,15 +163,19 @@ def _checked_inputs(x, hi, hj, efea, mask, weights):
         raise ValueError(f"unsupported shape: N={n}, H={h}, E={e} "
                          f"(kernel takes N<={MAX_NODES}, H in {HIDDEN}, "
                          f"1<=E<={MAX_EDGE_FEATURES})")
+    k = seeds_of(weights)
+    lead = () if k is None else (k,)
+    if k is not None and (k < 1 or g % k):
+        raise ValueError(f"{g} graphs do not split over {k} weight sets")
     weights = tuple(w.contiguous() for w in weights)
     dev = x.device
     for name, t, shape in (
             ("x", x, (g, n, 3)), ("hi", hi, (g, n, h)), ("hj", hj, (g, n, h)),
             ("efea", efea, (g, n, n, e)), ("mask", mask, (n, n)),
             *zip(("wg", "we", "b1", "w2", "b2", "wc1", "bc1", "wc2", "bc2"),
-                 weights, _weight_shapes(h, e))):
+                 weights, (lead + s for s in _weight_shapes(h, e)))):
         _check(name, t, shape, dev)
-    return (g, n, h, e), weights
+    return (g, n, h, e, k or 1), weights
 
 
 def _weight_shapes(h, e):
@@ -164,10 +183,42 @@ def _weight_shapes(h, e):
             (1, 1))
 
 
+def _per_seed(k, t):
+    """[K * B, ...] -> [K, B, ...]."""
+    return t.reshape(k, t.shape[0] // k, *t.shape[1:])
+
+
+def pairwise_message_seeds_reference(clip_edges, x, hi, hj, efea, mask,
+                                     weights):
+    """Plain seed-axis version: ``pairwise_message_reference`` vmapped over
+    K stacked weight sets, graph g on set g // B."""
+    k = seeds_of(weights)
+    one = lambda x, hi, hj, efea, *w: pairwise_message_reference(  # noqa: E731
+        clip_edges, x, hi, hj, efea, mask, w)
+    totf, totm = torch.func.vmap(one)(
+        *(_per_seed(k, a) for a in (x, hi, hj, efea)), *weights)
+    return totf.flatten(0, 1), totm.flatten(0, 1)
+
+
+def pairwise_message_bwd_seeds_reference(clip_edges, x, hi, hj, efea, mask,
+                                         weights, gtotf, gtotm):
+    """Plain seed-axis backward: ``pairwise_message_bwd_reference`` vmapped
+    over the K weight sets; the weight gradients come stacked [K, ...]."""
+    k = seeds_of(weights)
+    one = lambda x, hi, hj, efea, gf, gm, *w: \
+        pairwise_message_bwd_reference(                      # noqa: E731
+            clip_edges, x, hi, hj, efea, mask, w, gf, gm)
+    dx, dhi, dhj, defea, dweights = torch.func.vmap(one)(
+        *(_per_seed(k, a) for a in (x, hi, hj, efea, gtotf, gtotm)),
+        *weights)
+    return (dx.flatten(0, 1), dhi.flatten(0, 1), dhj.flatten(0, 1),
+            defea.flatten(0, 1), tuple(dweights))
+
+
 def _bind_fwd():
     fn = load(SOURCE).egnn_pairwise_fwd
     fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -176,10 +227,10 @@ def _bind_bwd():
     lib = load(BWD_SOURCE)
     fn = lib.egnn_pairwise_bwd
     fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     scratch = lib.egnn_pairwise_bwd_scratch_floats
-    scratch.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 3
+    scratch.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 4
     scratch.restype = ctypes.c_longlong
     return fn, scratch
 
@@ -190,13 +241,15 @@ def _stream(dev):
 
 def pairwise_message_fwd(clip_edges, x, hi, hj, efea, mask, weights):
     """(tot_f, tot_m) without autograd: the forward kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors. ``weights``: one set or K stacked."""
     if x.device.type == "cpu":
-        return pairwise_message_reference(clip_edges, x, hi, hj, efea, mask,
-                                          weights)
+        ref = pairwise_message_reference if seeds_of(weights) is None \
+            else pairwise_message_seeds_reference
+        return ref(clip_edges, x, hi, hj, efea, mask, weights)
     if x.device.type != "cuda":
         raise ValueError(f"pairwise_message: unsupported device {x.device}")
-    (g, n, h, e), weights = _checked_inputs(x, hi, hj, efea, mask, weights)
+    (g, n, h, e, k), weights = _checked_inputs(x, hi, hj, efea, mask,
+                                               weights)
     dev = x.device
     totf = torch.empty((g, n, 3), dtype=torch.float32, device=dev)
     totm = torch.empty((g, n, h), dtype=torch.float32, device=dev)
@@ -206,7 +259,7 @@ def pairwise_message_fwd(clip_edges, x, hi, hj, efea, mask, weights):
     with torch.cuda.device(dev):
         err = fn(*(t.data_ptr() for t in (x, hi, hj, efea, mask, *weights,
                                           totf, totm)),
-                 g, n, h, e, int(bool(clip_edges)), _stream(dev))
+                 g, n, h, e, k, int(bool(clip_edges)), _stream(dev))
     if err != 0:
         raise RuntimeError(f"egnn_pairwise_fwd launch failed: cudaError {err}")
     pairwise_message.launches += 1
@@ -218,13 +271,17 @@ def pairwise_message_bwd(clip_edges, x, hi, hj, efea, mask, weights, gtotf,
     """(dx, dhi, dhj, defea, dweights) of the chain for the cotangents
     (gtotf, gtotm): the backward kernel for CUDA tensors (its two launches,
     the persistent blocks' pass and the fixed-order sum of their partial
-    weight gradients, count as one), the plain version for CPU tensors."""
+    weight gradients, count as one), the plain version for CPU tensors.
+    With K stacked weight sets the weight gradients come stacked too."""
     if x.device.type == "cpu":
-        return pairwise_message_bwd_reference(clip_edges, x, hi, hj, efea,
-                                              mask, weights, gtotf, gtotm)
+        ref = pairwise_message_bwd_reference if seeds_of(weights) is None \
+            else pairwise_message_bwd_seeds_reference
+        return ref(clip_edges, x, hi, hj, efea, mask, weights, gtotf, gtotm)
     if x.device.type != "cuda":
         raise ValueError(f"pairwise_message: unsupported device {x.device}")
-    (g, n, h, e), weights = _checked_inputs(x, hi, hj, efea, mask, weights)
+    stacked = seeds_of(weights) is not None
+    (g, n, h, e, k), weights = _checked_inputs(x, hi, hj, efea, mask,
+                                               weights)
     dev = x.device
     _check("gtotf", gtotf, (g, n, 3), dev)
     _check("gtotm", gtotm, (g, n, h), dev)
@@ -235,13 +292,13 @@ def pairwise_message_bwd(clip_edges, x, hi, hj, efea, mask, weights, gtotf,
     shapes = _weight_shapes(h, e)
     # the kernel's flat layout: dw2, dwc1, dwg, db1, db2, dbc1, dwc2, dwe, dbc2
     order = (3, 5, 0, 2, 4, 6, 7, 1, 8)
-    flat = torch.zeros(2 * h * h + 5 * h + e * h + 1, dtype=torch.float32,
-                       device=dev)
+    np_ = 2 * h * h + 5 * h + e * h + 1
+    flat = torch.zeros((k, np_), dtype=torch.float32, device=dev)
     if g > 0:
         fn, scratch_floats = _bind_bwd()
         with torch.cuda.device(dev):
             # one slot per block of the launch's grid on this device
-            size = scratch_floats(g, n, h, e)
+            size = scratch_floats(g, n, h, e, k)
             if size < 0:
                 raise RuntimeError("egnn_pairwise_bwd: no launch grid for "
                                    f"N={n}, H={h}, E={e} on {dev}")
@@ -249,16 +306,17 @@ def pairwise_message_bwd(clip_edges, x, hi, hj, efea, mask, weights, gtotf,
             err = fn(*(t.data_ptr() for t in (
                 x, hi, hj, efea, mask, *weights, gtotf, gtotm, dx, dhi, dhj,
                 defea, flat, scratch)),
-                g, n, h, e, int(bool(clip_edges)), _stream(dev))
+                g, n, h, e, k, int(bool(clip_edges)), _stream(dev))
         if err != 0:
             raise RuntimeError(
                 f"egnn_pairwise_bwd launch failed: cudaError {err}")
         pairwise_message_bwd.launches += 1
     dweights = [None] * N_WEIGHTS
     off = 0
-    for k in order:
-        size = shapes[k][0] * shapes[k][1]
-        dweights[k] = flat[off:off + size].view(shapes[k])
+    for w in order:
+        size = shapes[w][0] * shapes[w][1]
+        part = flat[:, off:off + size].view(k, *shapes[w])
+        dweights[w] = part if stacked else part[0]
         off += size
     return dx, dhi, dhj, defea, tuple(dweights)
 
@@ -266,14 +324,24 @@ def pairwise_message_bwd(clip_edges, x, hi, hj, efea, mask, weights, gtotf,
 class _PairwiseMessage(torch.autograd.Function):
     """The custom-VJP op (``_pm_fwd`` / ``_pm_bwd``): the forward keeps only
     the inputs as residuals, the backward recomputes the chain. The nine
-    weights are separate arguments, so that autograd tracks each one."""
+    weights are separate arguments, so that autograd tracks each one; they
+    are one set, or K stacked sets over G = K * B graphs.
+
+    Its vmap rule (``torch.vmap``, as ``jax.vmap`` of the Pallas op) folds
+    the vmapped axis into the seed axis: every vmapped input moves it first,
+    an input that is not vmapped is broadcast over it, and the one call of
+    the seed-axis op launches each kernel once for the whole vmap."""
 
     @staticmethod
-    def forward(ctx, clip_edges, x, hi, hj, efea, mask, *weights):
-        ctx.clip_edges = clip_edges
-        ctx.save_for_backward(x, hi, hj, efea, mask, *weights)
+    def forward(clip_edges, x, hi, hj, efea, mask, *weights):
         return pairwise_message_fwd(clip_edges, x, hi, hj, efea, mask,
                                     weights)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        clip_edges, *tensors = inputs
+        ctx.clip_edges = clip_edges
+        ctx.save_for_backward(*tensors)
 
     @staticmethod
     def backward(ctx, gtotf, gtotm):
@@ -285,6 +353,26 @@ class _PairwiseMessage(torch.autograd.Function):
         return (None, *(gr if need else None for gr, need in
                         zip(grads, ctx.needs_input_grad[1:])))
 
+    @staticmethod
+    def vmap(info, in_dims, clip_edges, x, hi, hj, efea, mask, *weights):
+        if in_dims[5] is not None:
+            raise ValueError("pairwise_message: the mask is shared by every "
+                             "seed; it cannot be vmapped")
+        k = info.batch_size
+
+        def seeds(t, d):
+            return t.movedim(d, 0) if d is not None else t.expand(k, *t.shape)
+
+        if weights[0].dim() - (in_dims[6] is not None) != 2:
+            raise ValueError("pairwise_message: vmap over stacked weights")
+        nodes = [seeds(t, d) for t, d in zip((x, hi, hj, efea), in_dims[1:5])]
+        g = nodes[0].shape[1]
+        flat = [t.reshape(k * g, *t.shape[2:]).contiguous() for t in nodes]
+        ws = [seeds(w, d).contiguous() for w, d in zip(weights, in_dims[6:])]
+        totf, totm = _PairwiseMessage.apply(clip_edges, *flat, mask, *ws)
+        return (totf.view(k, g, *totf.shape[1:]),
+                totm.view(k, g, *totm.shape[1:])), (0, 0)
+
 
 def pairwise_message(clip_edges, x, hi, hj, efea, mask, weights):
     """(tot_f, tot_m) of the fused pairwise chain, differentiable in every
@@ -292,7 +380,8 @@ def pairwise_message(clip_edges, x, hi, hj, efea, mask, weights):
 
     x [G,N,3]; hi/hj [G,N,H] (node features projected by the Wi/Wj column
     slices of the first edge-MLP Linear); efea [G,N,N,E]; mask [N,N] 0/1 with
-    zero diagonal; weights: the 9-tuple above in [in,out] layout.
+    zero diagonal; weights: the 9-tuple above in [in,out] layout, or K such
+    sets stacked [K, ...] over G = K * B graphs (graph g on set g // B).
     """
     if len(weights) != N_WEIGHTS:
         raise ValueError(f"expected {N_WEIGHTS} weights, got {len(weights)}")

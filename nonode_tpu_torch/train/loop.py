@@ -8,6 +8,17 @@ per-batch losses stay on the device: an epoch makes no host sync. The
 rollout's scan over windows is a Python loop too; everything in a window
 stays on the device. Input frames and segment lengths are host integers
 drawn from the driver's numpy ``RandomState``.
+
+``compute_dtype`` (``--precision bf16``) is the JAX package's cast-everything
+policy: the parameters stay fp32 leaves, and so does Adam's state; ``_loss``
+casts them and the batch's inputs explicitly for its forward and backward,
+and takes the loss in fp32. Not ``torch.autocast``, whose per-op lists keep
+reductions and pointwise ops in fp32 where JAX runs them in bf16. Only
+``_loss`` casts: the rollouts stay fp32, as in JAX.
+
+``_loss`` also takes the parameters as an argument (a name -> tensor dict,
+through ``torch.func.functional_call``), so that a seed fleet can vmap it
+over stacked per-seed parameters (parallel/fleet.py).
 """
 
 from __future__ import annotations
@@ -83,11 +94,13 @@ class _Experiment:
     ``eval_epoch``, ``rollout`` and ``test_rollout``. How a model draws its
     windows and steps its forward stays behind them."""
 
-    def __init__(self, model, lr: float, weight_decay: float):
+    def __init__(self, model, lr: float, weight_decay: float,
+                 compute_dtype: torch.dtype | None = None):
         self.model = model
         self.device = next(model.parameters()).device
         self.lr = lr
         self.weight_decay = weight_decay
+        self.compute_dtype = compute_dtype
 
     @functools.cached_property
     def optimizer(self) -> torch.optim.Adam:
@@ -136,14 +149,32 @@ class _Experiment:
     def _perm(self, perm):
         return torch.from_numpy(np.asarray(perm, np.int64)).to(self.device)
 
+    def _cast(self, params, inputs):
+        """(params, inputs) for the loss's forward: in ``compute_dtype``
+        when it is set (``params`` None: the model's own), else as given."""
+        if self.compute_dtype is None:
+            return params, inputs
+        if params is None:
+            params = dict(self.model.named_parameters())
+        dt = self.compute_dtype
+        return ({k: p.to(dt) for k, p in params.items()},
+                tuple(a.to(dt) for a in inputs))
+
+    def _call(self, params, *args, **kwargs):
+        """The model on ``params`` (None: its own parameters)."""
+        if params is None:
+            return self.model(*args, **kwargs)
+        return torch.func.functional_call(self.model, params, args, kwargs)
+
 
 class EGNOExperiment(_Experiment):
     """EGNO training, validation and evaluation. Its windows are per sample:
     the input frames and output frames of every sample of the split."""
 
     def __init__(self, model: EGNO, lr: float = 1e-4,
-                 weight_decay: float = 1e-8):
-        super().__init__(model, lr, weight_decay)
+                 weight_decay: float = 1e-8,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__(model, lr, weight_decay, compute_dtype)
 
     def epoch_index_arrays(self, ds: NBodyDataset, rng: np.random.RandomState):
         """Host-side per-epoch index arrays: frames_in [S, L], t_in [S, L],
@@ -195,29 +226,33 @@ class EGNOExperiment(_Experiment):
         corr = (last - last.max()).to(torch.float32)       # [B, 1] <= 0
         return (loc_in, vel_in, charges, w, loc_out, t_in + corr, t_out + corr)
 
-    def _forward(self, loc_in, vel_in, charges, w, t_in, t_out):
+    def _forward(self, loc_in, vel_in, charges, w, t_in, t_out,
+                 params=None):
         if self.model.num_inputs > 1:
             loc = loc_in.transpose(0, 1)                   # [L, B, N, 3]
             vel = vel_in.transpose(0, 1)
             nodes, edge_attr, loc_mean = prepare_inputs(
                 loc, vel, w[None], charges[None])
-            return self.model(loc, vel, nodes, edge_attr, loc_mean,
+            return self._call(params, loc, vel, nodes, edge_attr, loc_mean,
                               timesteps_out=t_out, timesteps_in=t_in)
         loc = loc_in[:, 0]
         vel = vel_in[:, 0]
         nodes, edge_attr, loc_mean = prepare_inputs(loc, vel, w, charges)
-        return self.model(loc, vel, nodes, edge_attr, loc_mean,
+        return self._call(params, loc, vel, nodes, edge_attr, loc_mean,
                           timesteps_out=t_out)
 
-    def _loss(self, batch):
+    def _loss(self, batch, params=None):
         """(mean over timesteps, per-timestep losses [T]); the mean is the
         backprop target, the last timestep's loss the reported epoch loss
-        (main_simulation_simple_no.py:287)."""
+        (main_simulation_simple_no.py:287). ``params``: a name -> tensor
+        dict to run the model on (None: its own parameters)."""
         loc_in, vel_in, charges, w, loc_out, t_in, t_out = batch
         t_model = self.model.num_timesteps
+        params, (loc_in, vel_in, charges, w) = self._cast(
+            params, (loc_in, vel_in, charges, w))
         x, _, _ = self._forward(loc_in, vel_in, charges, w, t_in,
-                                t_out[:, :t_model])
-        pred = x.transpose(0, 1)                           # [B, T, N, 3]
+                                t_out[:, :t_model], params)
+        pred = x.to(torch.float32).transpose(0, 1)         # [B, T, N, 3]
         target = loc_out[:, :t_model]
         losses = ((pred - target) ** 2).mean(dim=(0, 2, 3))   # [T]
         return losses.mean(), losses
@@ -315,8 +350,9 @@ class SEGNOExperiment(_Experiment):
 
     def __init__(self, model: SEGNO, num_timesteps: int = 10,
                  varDT: bool = False, lr: float = 5e-3,
-                 weight_decay: float = 1e-12):
-        super().__init__(model, lr, weight_decay)
+                 weight_decay: float = 1e-12,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__(model, lr, weight_decay, compute_dtype)
         self.num_timesteps = num_timesteps
         self.varDT = varDT
 
@@ -394,14 +430,17 @@ class SEGNOExperiment(_Experiment):
         return (loc_in, vel_in, ds.charges[idx], ds.edge_weights[idx],
                 loc[idx, end], in_steps)
 
-    def _loss(self, batch):
+    def _loss(self, batch, params=None):
         """(mean squared error of the position T steps ahead, the per-frame
-        losses [1]: SEGNO predicts one frame)."""
+        losses [1]: SEGNO predicts one frame). ``params`` as
+        EGNOExperiment._loss."""
         loc_in, vel_in, charges, w, loc_end, in_steps = batch
+        params, (loc_in, vel_in, charges, w) = self._cast(
+            params, (loc_in, vel_in, charges, w))
         his, edge_attr = self._features(loc_in, vel_in, charges, w)
-        x, _, _ = self.model(his, loc_in, vel_in, edge_attr,
+        x, _, _ = self._call(params, his, loc_in, vel_in, edge_attr,
                              T=self.num_timesteps, in_steps=in_steps)
-        loss = ((x - loc_end) ** 2).mean()
+        loss = ((x.to(torch.float32) - loc_end) ** 2).mean()
         return loss, loss[None]
 
     # ---------- rollout ----------

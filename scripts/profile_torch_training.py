@@ -1,7 +1,7 @@
 """Where the time of the port's training step goes, on one NVIDIA GPU.
 
     python scripts/profile_torch_training.py [--model egno|segno]
-        [--data_dir data] [--steps 2]
+        [--data_dir data] [--steps 2] [--fleet K]
 
 Builds the model at its model_confs.yaml width (EGNO by default; SEGNO with
 ``--model segno``) from seed 42 on the card, loads the charged-5 train
@@ -9,7 +9,9 @@ split, takes one Adam-L2 step on a batch of 256 to warm up, then traces
 ``--steps`` steps with torch.profiler. Prints the host wall time, the summed
 device kernel time, the device idle share (1 - kernel time / wall) and the
 kernels with the most device time, with the card's name and power limit;
-then the untraced wall of as many other steps.
+then the untraced wall of as many other steps. With ``--fleet K`` a step is
+a seed fleet's (parallel/fleet.py): K seeds 1 .. K, each on its own batch
+of 256, as fleet_main trains them.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from nonode_tpu_torch.data.nbody import NBodyDataset  # noqa: E402
 from nonode_tpu_torch.main import build_experiment, get_args  # noqa: E402
+from nonode_tpu_torch.parallel.fleet import SeedFleet  # noqa: E402
 from nonode_tpu_torch.runtime import resolve_device  # noqa: E402
 
 BATCH = 256
@@ -38,20 +41,37 @@ def main(argv=None):
     ap.add_argument("--model", choices=["egno", "segno"], default="egno")
     ap.add_argument("--data_dir", type=Path, default=Path("data"))
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="K > 0: a step of a K-seed fleet")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(f"card: {card}")
-    exp = build_experiment(get_args(["--model", args.model]), dev,
-                           torch.Generator().manual_seed(42))
+    margs = get_args(["--model", args.model])
+    exp = build_experiment(margs, dev, torch.Generator().manual_seed(42))
     ds = NBodyDataset(args.data_dir, partition="train", device=dev)
     perm, windows = exp.draw_epoch(ds, np.random.RandomState(42), BATCH)
 
     def steps(rows):
         # one input: every batch's windows are batch 0's
         exp.train_epoch(ds, windows, rows)
+
+    what = args.model
+    if args.fleet:
+        seeds = list(range(1, args.fleet + 1))
+        fleet = SeedFleet(exp, seeds)
+        params, opt = fleet.init(
+            lambda g: build_experiment(margs, dev, g).model)
+        perms = fleet.make_perms([np.random.RandomState(s) for s in seeds],
+                                 len(ds), BATCH)
+        perm = np.arange(perms.shape[1])     # steps index the fleet's batches
+
+        def steps(rows):                     # noqa: F811
+            fleet.train_epoch(params, opt, ds, windows, perms[:, rows])
+
+        what = f"{args.model} fleet of {args.fleet} seeds"
 
     if len(perm) < 2 * args.steps + 1:
         raise ValueError(f"{len(perm)} batches: too few for {args.steps} "
@@ -73,7 +93,7 @@ def main(argv=None):
               and not getattr(e, "is_user_annotation", False)]
     device_us = sum(e.self_device_time_total for e in events)
     launches = sum(e.count for e in events)
-    print(f"{args.model}: {args.steps} training step(s) of batch {BATCH}: "
+    print(f"{what}: {args.steps} training step(s) of batch {BATCH}: "
           f"wall {wall * 1e3:.3f} ms (traced), device kernel time "
           f"{device_us / 1e3:.3f} ms over {launches} kernel launches, "
           f"device idle share {1 - device_us / 1e6 / wall:.4f}")

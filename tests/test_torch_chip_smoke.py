@@ -186,3 +186,25 @@ def test_check_artifact_holds_each_models_shapes(tmp_path, model, frames):
     other = "segno" if model == "egno" else "egno"
     with pytest.raises(AssertionError, match="has shape"):
         chip_smoke.check_artifact(path, 4, traj_len=2, model=other)
+
+
+def test_seed_axis_inputs_stack_one_weight_set_a_seed():
+    """The seed-axis cases' inputs: G = K x B graphs, the K weight sets
+    stacked [K, ...] in seed order, each set as pairwise_inputs draws one,
+    the SEGNO case's coordinate head scaled so that the clip engages."""
+    k, b, n, h, e = 3, 4, 5, 16, 2
+    x, hi, hj, efea, mask, weights, sets = chip_smoke.seed_axis_inputs(
+        k, b, n, h, e, 11, torch.device("cpu"), 400.0)
+    assert x.shape == (k * b, n, 3) and efea.shape == (k * b, n, n, e)
+    assert [tuple(w.shape) for w in weights] == [
+        (k, 1, h), (k, e, h), (k, 1, h), (k, h, h), (k, 1, h), (k, h, h),
+        (k, 1, h), (k, h, 1), (k, 1, 1)]
+    for s in range(k):
+        for w, ws in zip(weights, sets[s]):
+            assert torch.equal(w[s], ws)
+    assert not torch.equal(weights[3][0], weights[3][1])
+    plain = chip_smoke.pairwise_inputs(1, n, h, e, 12, torch.device("cpu"),
+                                       coord_scale=400.0)[5]
+    assert torch.equal(sets[0][7], plain[7])
+    assert [c[0] for c in chip_smoke.SEED_AXIS_CASES] == ["egno", "segno"]
+    assert chip_smoke.SEEDS == len(chip_smoke.FLEET_SEEDS) == 5

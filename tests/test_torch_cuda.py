@@ -14,6 +14,8 @@ Tolerance: max|kernel - plain| <= 1e-4 x max(1, max|plain|); both are fp32
 micro-steps) taken in another order.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -320,6 +322,120 @@ def test_segno_rollout_matches_the_cpu(dev):
     assert torch.isfinite(outs[0]).all()
     err = float((outs[0] - outs[1]).abs().max())
     assert err <= 1e-3 * max(1.0, float(outs[1].abs().max())), err
+
+
+def _seed_axis(k, b, n, e, clip, dev):
+    """G = k x b graphs and k weight sets, stacked and one by one."""
+    x, hi, hj, efea, mask, _ = _inputs(k * b, n, 64, e, seed=n, dev=dev)
+    sets = [_inputs(1, n, 64, e, seed=n + 1 + s, dev=dev,
+                    coord_scale=400.0 if clip else 1.0)[5]
+            for s in range(k)]
+    rng = np.random.RandomState(k)
+    cot = tuple(torch.tensor(rng.randn(*s), dtype=torch.float32, device=dev)
+                for s in ((k * b, n, 3), (k * b, n, 64)))
+    return (x, hi, hj, efea, mask), sets, cot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,b,n,e,clip", [
+    (5, 2560, 5, 2, False),      # EGNO's fleet shape
+    (5, 256, 5, 2, True),        # SEGNO's, with the clip
+    (3, 7, 5, 2, True),          # a ragged tile per seed
+    (2, 3, 64, 3, False),        # graphs over several tiles, E=3
+    (1, 9, 5, 2, False),         # one stacked set
+])
+def test_seed_axis_kernels_give_the_bits_of_single_seed_launches(
+        dev, k, b, n, e, clip):
+    """#1 and #2 with k stacked weight sets over G = k x b graphs in one
+    launch each: every output bitwise equal to one launch per seed (the
+    weight-gradient slots keep each seed's block order), and within 1e-4 x
+    max(1, max|plain|) of the plain seed-axis version."""
+    nodes, sets, cot = _seed_axis(k, b, n, e, clip, dev)
+    stacked = tuple(torch.stack(ws) for ws in zip(*sets))
+    part = lambda t, s: t[s * b:(s + 1) * b]                    # noqa: E731
+    before = (egnn_fused.pairwise_message.launches,
+              egnn_fused.pairwise_message_bwd.launches)
+    with torch.no_grad():
+        fwd = egnn_fused.pairwise_message(clip, *nodes, stacked)
+    bwd = egnn_fused.pairwise_message_bwd(clip, *nodes, stacked, *cot)
+    assert (egnn_fused.pairwise_message.launches,
+            egnn_fused.pairwise_message_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for s in range(k):
+        one = (*(part(t, s) for t in nodes[:4]), nodes[4], sets[s])
+        with torch.no_grad():
+            f1 = egnn_fused.pairwise_message(clip, *one)
+        b1 = egnn_fused.pairwise_message_bwd(
+            clip, *one, *(part(c, s) for c in cot))
+        for a, w in zip(fwd, f1):
+            assert torch.equal(part(a, s), w)
+        for a, w in zip(bwd[:4], b1[:4]):
+            assert torch.equal(part(a, s), w)
+        for a, w in zip(bwd[4], b1[4]):
+            assert torch.equal(a[s], w)
+    with torch.no_grad():
+        _assert_close(fwd, egnn_fused.pairwise_message_seeds_reference(
+            clip, *nodes, stacked))
+    want = egnn_fused.pairwise_message_bwd_seeds_reference(
+        clip, *nodes, stacked, *cot)
+    _assert_close((*bwd[:4], *bwd[4]), (*want[:4], *want[4]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["egno", "segno"])
+def test_fleet_step_on_the_card_matches_sequential_steps(dev, model):
+    """Three Adam steps of a 3-seed fleet of the model_confs.yaml model on
+    the card (#1/#2 once a layer or integrator step for all seeds) against
+    each seed's own steps on the card: losses within 1e-4 relative (fp32
+    batched over the seeds in other GEMM shapes), and each seed's Adam
+    moments (exp_avg, exp_avg_sq) within 1e-3 of its own optimizer's in the
+    norm of every leaf. The moments carry each step's gradient, and two
+    seeds' differ by far more than that: a fleet that gave one seed
+    another's gradient or Adam state fails here. The parameters are not
+    compared: 3 Adam steps move each entry by at most about 3 lr, from the
+    same start, whatever the gradients."""
+    from nonode_tpu_torch.data.nbody import NBodyDataset
+    from nonode_tpu_torch.main import build_experiment, get_args
+    from nonode_tpu_torch.parallel.fleet import SeedFleet
+    from nonode_tpu_torch.runtime import seed_everything
+
+    args = get_args(["--model", model])
+    build = lambda g: build_experiment(args, dev, g)              # noqa: E731
+    seeds, b = [1, 2, 3], 64
+    ds = NBodyDataset(Path(__file__).resolve().parents[1] / "data",
+                      partition="train", max_samples=4 * b, device=dev)
+    fleet = SeedFleet(build(seed_everything(seeds[0])), seeds)
+    params, opt = fleet.init(lambda g: build(g).model)
+    perms = np.stack([np.random.RandomState(s).permutation(4 * b)[:3 * b]
+                      .reshape(3, b) for s in seeds])
+    windows = fleet.exp.windows(ds, None, 3)     # one input: no draw
+    before = (egnn_fused.pairwise_message.launches,
+              egnn_fused.pairwise_message_bwd.launches)
+    losses, _ = fleet.train_epoch(params, opt, ds, windows, perms)
+    per = 4 if model == "egno" else 10
+    assert (egnn_fused.pairwise_message.launches - before[0],
+            egnn_fused.pairwise_message_bwd.launches - before[1]) == \
+        (3 * per, 3 * per)
+    moments = []                 # each seed's own exp_avg, all leaves
+    for i, s in enumerate(seeds):
+        exp = build(seed_everything(s))
+        tl, _ = exp.train_epoch(ds, windows, perms[i])
+        err = float((losses[i] - tl).abs().max())
+        assert err <= 1e-4 * float(tl.abs().max()), err
+        for name, p in exp.model.named_parameters():
+            want, got = exp.optimizer.state[p], opt.state[params[name]]
+            assert set(got) == set(want), name   # no state: no gradient
+            if not want:
+                continue
+            assert int(got["step"]) == int(want["step"]) == 3
+            for key in ("exp_avg", "exp_avg_sq"):
+                ref = want[key]
+                err = float((got[key][i] - ref).norm())
+                assert err <= 1e-3 * float(ref.norm()), (name, key, err)
+        moments.append(torch.cat([st["exp_avg"].ravel() for st in
+                                  exp.optimizer.state.values() if st]))
+    for i, j in [(0, 1), (1, 2), (0, 2)]:         # the check has teeth
+        assert (moments[i] - moments[j]).norm() > 0.1 * moments[i].norm()
 
 
 def _charged_state(n, dev, seed=0):

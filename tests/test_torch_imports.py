@@ -19,7 +19,8 @@ REPO = Path(__file__).resolve().parents[1]
 SOURCES = sorted((REPO / "nonode_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_serving.py",
     REPO / "scripts" / "profile_torch_training.py",
-    REPO / "scripts" / "profile_torch_stretch.py"]
+    REPO / "scripts" / "profile_torch_stretch.py",
+    REPO / "scripts" / "time_pairwise_kernels.py"]
 LAZY_ONLY = {"flax", "optax", "yaml", "wandb"}
 
 
