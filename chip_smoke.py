@@ -33,7 +33,12 @@ Phases, each timed on its own line:
    --test_interval 1`` at the same width on the committed train, valid and
    test splits: training, validation at epoch 1, the best checkpoint saved
    and reloaded, the test rollout. Checks the launch counts of both kernels,
-   finite losses, the checkpoint and the artifact;
+   finite losses, the checkpoint and the artifact; prints the run's wall
+   broken down by the port's PhaseTimer (the model and optimizer builds,
+   the datasets, the epochs' draws, each train epoch, the validation epoch,
+   checkpoint save and load, the test rollout, the artifact write, each
+   closed on the card; put in around the driver from outside) and the wall
+   left over;
 6. train step: the loss and the gradient of every parameter on train batch 0
    from the seed-42 weights, card against the port's CPU; then the median
    wall of a training step;
@@ -69,7 +74,20 @@ Phases, each timed on its own line:
    total momentum conserved; then large-N against dense (N=40, T=300);
 16. generate: ``python -m nonode_tpu_torch.sim.generate --simulation gravity``
    (in-process) writes small gravity splits on the card; ``main --dataset
-   gravity --only_test false --epochs 1`` trains and rolls out on them.
+   gravity --only_test false --epochs 1`` trains and rolls out on them;
+17. sweep: ``python -m nonode_tpu_torch.parallel.sweep --use_fleet
+   --epochs 2 --traj_len 20`` (in-process) on a JSON schedule of two grids
+   into one --outf: SMOKE (charged-5, one input, EGNO and SEGNO x seeds
+   1-3: two fleet groups of K=3) and SMOKE_SEQ (SEGNO, two inputs, varDT,
+   seed 1: the sequential driver). Checks that the ledgers hold exactly
+   the expanded configs, finite validation losses, each row's test_loss
+   equal to its artifact's, #1/#2 launched as the fleets' training,
+   validation and test rollouts and the sequential run's integrator steps
+   ask, and that a resumed call appends nothing and launches nothing;
+18. report: ``python -m nonode_tpu_torch.analysis.registry`` (in-process) on
+   that --outf: three groups with their seeds, each group's mean test loss
+   equal to its ledger rows' (``analysis.ledger.load_ledger_groups``, both
+   ledgers) within 1e-6 relative; no launch.
 
 Every kernel's time is its device time alone (CUDA events around one call,
 the stream held busy while the host enqueues it), median of repeats. Then it
@@ -79,6 +97,8 @@ with no result, without CUDA, outside the repository, or when the checkout
 lacks the committed splits.
 """
 
+import collections
+import contextlib
 import json
 import subprocess
 import sys
@@ -939,6 +959,16 @@ def path_launches(per_forward, test_batches, traj_len, epochs=0,
     return {"egnn_pairwise_fwd": fwd, "egnn_pairwise_bwd": bwd}
 
 
+def fleet_launches(per_forward, k, epochs, train_b, val_b, test_b):
+    """Launches of #1 and #2 on a ``fleet_main`` run of ``k`` seeds: one
+    sequential run's training and validation (a fleet step launches each
+    kernel once a layer or integrator step for all k seeds), then k test
+    rollouts, one seed at a time."""
+    want = path_launches(per_forward, 0, 0, epochs, train_b, 1, val_b)
+    want["egnn_pairwise_fwd"] += k * test_b * TRAJ_LEN * per_forward
+    return want
+
+
 def check_artifact(path, total, traj_len=TRAJ_LEN, model="egno"):
     """The test rollout's artifact has the shapes of ``total`` samples and
     ``traj_len`` windows (``EXPECT``): EGNO's of T=10 frames each, cut at
@@ -1049,10 +1079,75 @@ def run_main_path(nt_main, kernels, data_dir, out_dir, model="egno"):
     return launches
 
 
+@contextlib.contextmanager
+def phase_breakdown(nt_main, dev):
+    """A PhaseTimer over the parts of a driver run, put in from outside
+    (``main.py`` is not changed): the model and its optimizer (the first
+    Adam a process builds imports torch._dynamo), the datasets (by
+    partition), every epoch's draws, each train epoch (numbered), the
+    validation epochs, checkpoint save and load, the test rollout and the
+    artifact write, each closed on ``dev``. Yields the timer; the wrapped
+    names are restored on exit."""
+    from nonode_tpu_torch.train.checkpoint import EarlyStopping
+    from nonode_tpu_torch.train.loop import (EGNOExperiment, SEGNOExperiment,
+                                             _Experiment)
+    from nonode_tpu_torch.utils.profiling import PhaseTimer
+
+    timer = PhaseTimer()
+    on_device = torch.zeros(1, device=dev)     # every phase waits for dev
+    seen = collections.Counter()
+
+    def numbered(name):
+        def label(args, kwargs):
+            seen[name] += 1
+            return f"{name} {seen[name] - 1}"
+        return label
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            label = name(args, kwargs) if callable(name) else name
+            with timer.phase(label, block_on=on_device):
+                return fn(*args, **kwargs)
+        return run
+
+    parts = [
+        (nt_main, "build_experiment", "model build"),
+        (torch.optim, "Adam", "optimizer build"),
+        (nt_main, "NBodyDataset",
+         lambda args, kwargs: f"data load {kwargs['partition']}"),
+        (_Experiment, "draw_epoch", "epoch draws"),
+        (_Experiment, "train_epoch", numbered("train epoch")),
+        (_Experiment, "eval_epoch", "validation epoch"),
+        (EarlyStopping, "save_checkpoint", "checkpoint save"),
+        (nt_main, "load_params", "checkpoint load"),
+        (EGNOExperiment, "test_rollout", "test rollout"),
+        (SEGNOExperiment, "test_rollout", "test rollout"),
+        (np, "savez", "artifact write"),
+    ]
+    saved = [(owner, attr, owner.__dict__[attr]) for owner, attr, _ in parts]
+    try:
+        for owner, attr, name in parts:
+            setattr(owner, attr, timed(name, owner.__dict__[attr]))
+        yield timer
+    finally:
+        for owner, attr, original in saved:
+            setattr(owner, attr, original)
+
+
+def breakdown_text(timer, wall):
+    """The PhaseTimer's phases in order, and the wall left over."""
+    summary = timer.summary()
+    parts = [f"{name} {s['total_s']:.3f}" + (f" ({s['count']} calls)"
+                                              if s["count"] > 1 else "")
+             for name, s in summary.items()]
+    left = wall - sum(timer.totals.values())
+    return f"{', '.join(parts)}; left over {left:.3f} of {wall:.3f} s"
+
+
 def run_train_path(nt_main, kernels, data_dir, out_dir, model="egno"):
     """``main --only_test false`` for two epochs: training, the validation
     at epoch 1, the best checkpoint saved and reloaded, the test rollout
-    (``path_launches``)."""
+    (``path_launches``); its wall broken down by ``phase_breakdown``."""
     from nonode_tpu_torch.analysis.registry import artifact_stem
 
     epochs = 2
@@ -1063,10 +1158,12 @@ def run_train_path(nt_main, kernels, data_dir, out_dir, model="egno"):
         "--batch_size", str(BATCH), "--traj_len", str(TRAJ_LEN),
         "--seed", str(SEED)])
     reset_launches(kernels)
-    t0 = time.perf_counter()
-    lines, (best_val, test_loss, best_epoch) = run_echoed(nt_main.main, args)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with phase_breakdown(nt_main, torch.device("cuda")) as timer:
+        t0 = time.perf_counter()
+        lines, (best_val, test_loss, best_epoch) = run_echoed(nt_main.main,
+                                                              args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
 
     train_b = min(args.max_samples, split_size(data_dir, "train")) // BATCH
     val_b = split_size(data_dir, "valid") // BATCH
@@ -1102,6 +1199,8 @@ def run_train_path(nt_main, kernels, data_dir, out_dir, model="egno"):
     print(f"  train losses {results['train loss']} val loss {best_val} "
           f"test_loss {test_loss} train path wall {wall:.3f} s launches "
           f"{json.dumps(launches)}", flush=True)
+    print(f"  {model} train path by PhaseTimer (s, each part closed on the "
+          f"card): {breakdown_text(timer, wall)}", flush=True)
     return launches, results
 
 
@@ -1318,8 +1417,7 @@ def run_fleet_path(nt_main, kernels, data_dir, out_dir, dev,
     val_b = split_size(data_dir, "valid") // BATCH
     test_b = split_size(data_dir, "test") // BATCH
     pf = EXPECT[model]["per_forward"]
-    want = path_launches(pf, 0, 0, epochs, train_b, 1, val_b)
-    want["egnn_pairwise_fwd"] += k * test_b * TRAJ_LEN * pf
+    want = fleet_launches(pf, k, epochs, train_b, val_b, test_b)
     launches = read_launches(
         kernels, want,
         f"{model} fleet path ({epochs} epochs x {train_b} fleet steps x "
@@ -1453,6 +1551,191 @@ def run_bf16_path(nt_main, kernels, data_dir, out_dir, dev, fp32,
     return launches
 
 
+# the sweep phase's seeds a grid cell: a fleet group of K=3 per model
+SWEEP_SEEDS = [1, 2, 3]
+# a group's mean test loss in the report against its ledger rows' mean: the
+# same float64 numbers summed in the same order
+REPORT_RTOL = 1e-6
+
+
+def sweep_schedule():
+    """The sweep phase's JSON schedule: SMOKE, charged-5 with one input,
+    EGNO and SEGNO x SWEEP_SEEDS (two fleet groups of K=3 under
+    --use_fleet), and SMOKE_SEQ, SEGNO with two inputs and varDT, seed 1
+    (no fleet: the sequential driver)."""
+    def grid(**params):
+        return {"method": "grid",
+                "metric": {"goal": "minimize", "name": "test_loss"},
+                "parameters": {k: {"values": v} if isinstance(v, list)
+                               else {"value": v} for k, v in params.items()}}
+    cell = dict(exp_name="_exp_new", dataset="charged", n_balls=5)
+    return {"SMOKE": grid(**cell, num_inputs=1, varDT=False,
+                          model=["egno", "segno"], seed=SWEEP_SEEDS),
+            "SMOKE_SEQ": grid(**cell, num_inputs=2, varDT=True,
+                              model="segno", seed=1)}
+
+
+@contextlib.contextmanager
+def counted_integrator_steps():
+    """Counts SEGNO's weight-tied GCL steps (``SEGNO.integrate``), each of
+    which launches #1 once and, when autograd records it (training), #2
+    once in the backward. With varDT the steps a forward takes are drawn
+    per batch (s + T for a drawn segment s), so they are counted, not
+    reckoned. Yields {"recorded": n, "not recorded": n}."""
+    from nonode_tpu_torch.models.segno import SEGNO
+
+    original = SEGNO.__dict__["integrate"]
+    steps = {"recorded": 0, "not recorded": 0}
+
+    def integrate(self, h, x, v, edge_attr, n):
+        steps["recorded" if torch.is_grad_enabled() else "not recorded"] += n
+        return original(self, h, x, v, edge_attr, n)
+    SEGNO.integrate = integrate
+    try:
+        yield steps
+    finally:
+        SEGNO.integrate = original
+
+
+def same_loss(a, b):
+    """Equal, or both NaN (a random-weight EGNO rollout may diverge)."""
+    return a == b or (np.isnan(a) and np.isnan(b))
+
+
+def run_sweep_phase(kernels, data_dir, tmp, dev):
+    """``parallel.sweep --use_fleet`` over ``sweep_schedule()`` (SMOKE, then
+    SMOKE_SEQ) into one --outf at full width on the committed splits, two
+    epochs; then the same two calls again, resumed. Returns (launches, the
+    outf)."""
+    from nonode_tpu_torch.analysis.ledger import iter_ledger_artifacts
+    from nonode_tpu_torch.parallel import sweep
+
+    schedule, outf = tmp / "grid.json", tmp / "sweep"
+    schedule.write_text(json.dumps(sweep_schedule()))
+    grids = ("SMOKE", "SMOKE_SEQ")
+
+    def run(grid):
+        run_echoed(sweep.main, [
+            "--schedule", str(schedule), "--grid", grid, "--data_dir",
+            str(data_dir), "--outf", str(outf), "--epochs", "2",
+            "--traj_len", str(TRAJ_LEN), "--use_fleet", "--device",
+            dev.type])
+
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    run("SMOKE")
+    with counted_integrator_steps() as seq_steps:
+        run("SMOKE_SEQ")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    max_samples = 3000                  # the drivers' --max_samples default
+    train_b = min(max_samples, split_size(data_dir, "train")) // BATCH
+    val_b = split_size(data_dir, "valid") // BATCH
+    test_b = split_size(data_dir, "test") // BATCH
+    if seq_steps["recorded"] < 2 * train_b * (T_MODEL + 1):
+        raise AssertionError(f"the sequential run's integrator steps "
+                             f"{seq_steps}: too few for 2 epochs of "
+                             f"{train_b} two-input batches")
+    want = {"egnn_pairwise_fwd": sum(seq_steps.values()),
+            "egnn_pairwise_bwd": seq_steps["recorded"]}
+    for model in ("egno", "segno"):
+        for name, n in fleet_launches(EXPECT[model]["per_forward"],
+                                      len(SWEEP_SEEDS), 2, train_b, val_b,
+                                      test_b).items():
+            want[name] += n
+    launches = read_launches(
+        kernels, want,
+        f"sweep (fleets of K={len(SWEEP_SEEDS)}: EGNO and SEGNO training and "
+        f"validation as one sequential run each, {len(SWEEP_SEEDS)} test "
+        f"rollouts each; the sequential SEGNO run's {seq_steps} integrator "
+        f"steps)")
+
+    for grid in grids:
+        expanded = sweep.expand_grid(sweep.load_schedule(str(schedule), grid))
+        rows = [json.loads(line) for line in
+                (outf / f"sweep_{grid}.jsonl").read_text().splitlines()]
+        if sorted(r["config_id"] for r in rows) != sorted(
+                sweep.config_id(c) for c in expanded):
+            raise AssertionError(f"ledger {grid}: "
+                                 f"{[r['config_id'] for r in rows]}, "
+                                 f"expected {len(expanded)} configs")
+    rows = []
+    for rec, cfg, art in iter_ledger_artifacts(outf):
+        if art is None or not np.isfinite(rec["best_val_loss"]) \
+                or rec["best_epoch"] != 1 \
+                or rec.get("fleet", False) != (cfg["num_inputs"] == 1):
+            raise AssertionError(f"sweep row {rec} (artifact {art})")
+        stored = float(np.load(art)["test_loss"])
+        if not same_loss(stored, rec["test_loss"]):
+            raise AssertionError(f"{rec['config_id']}: ledger test_loss "
+                                 f"{rec['test_loss']}, artifact {stored}")
+        check_artifact(art, test_b * BATCH, model=cfg["model"])
+        rows.append(f"{cfg['model']} L={cfg['num_inputs']} seed "
+                    f"{cfg['seed']}: val {rec['best_val_loss']:.5f} test "
+                    f"{rec['test_loss']:.5f} run wall {rec['wall_s']} s")
+
+    ledgers = {g: (outf / f"sweep_{g}.jsonl").read_text() for g in grids}
+    reset_launches(kernels)
+    t1 = time.perf_counter()
+    for grid in grids:
+        run(grid)
+    resume_wall = time.perf_counter() - t1
+    read_launches(kernels, {}, "resumed sweep (every config in the ledger)")
+    if {g: (outf / f"sweep_{g}.jsonl").read_text() for g in grids} \
+            != ledgers:
+        raise AssertionError("a resumed sweep changed the ledger")
+    print(f"  sweep: {len(rows)} configs ({'; '.join(rows)}); wall "
+          f"{wall:.3f} s; resumed call {resume_wall:.3f} s, nothing run, "
+          f"nothing appended; launches {json.dumps(launches)}", flush=True)
+    return launches, outf
+
+
+def run_report_phase(kernels, outf, report_dir):
+    """``analysis.registry`` on the sweep's --outf: three groups with their
+    seeds, each group's mean test loss equal to its ledger rows' within
+    REPORT_RTOL (NaN-aware); no launch."""
+    from nonode_tpu_torch.analysis import registry
+    from nonode_tpu_torch.analysis.ledger import load_ledger_groups
+
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    run_echoed(registry.main, ["--results", str(outf), "--out",
+                               str(report_dir)])
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels, {}, "report (host numpy)")
+    report = json.loads((report_dir / "report.json").read_text())
+    ledger = load_ledger_groups(outf)
+    want_seeds = {("egno", 1): SWEEP_SEEDS, ("segno", 1): SWEEP_SEEDS,
+                  ("segno", 2): [1]}
+    seen = {}
+    for key, group in report["groups"].items():
+        path = Path(next(iter(report["registry"][key].values())))
+        cfg = registry.FNAME_RE.match(path.name).groupdict()
+        model, inputs = cfg["model"].lower(), int(cfg["num_inputs"])
+        rows = ledger[(model, cfg["dataset"], int(cfg["n_balls"]), inputs,
+                       cfg["varDT"] == "True")]
+        mean = float(np.mean([r["test"] for r in rows]))
+        got = group["test_loss_mean"]
+        if group["seeds"] != [str(s) for s in want_seeds.get(
+                (model, inputs), [])] or len(rows) != len(group["seeds"]) \
+                or not (same_loss(got, mean)
+                        or abs(got - mean) <= REPORT_RTOL * abs(mean)):
+            raise AssertionError(f"report group {key}: seeds "
+                                 f"{group['seeds']}, test_loss_mean {got}, "
+                                 f"ledger mean {mean} over {len(rows)} rows")
+        seen[(model, inputs)] = f"{got:.5f} (ledger {mean:.5f})"
+    if set(seen) != set(want_seeds) or len(ledger) != len(want_seeds):
+        raise AssertionError(f"report groups {sorted(seen)}, ledger groups "
+                             f"{sorted(ledger)}")
+    table = (report_dir / "table.tex").read_text()
+    print(f"  report: {len(seen)} groups, mean test loss "
+          f"{json.dumps({f'{m} L={i}': v for (m, i), v in seen.items()})}; "
+          f"table.tex {table.count(chr(92) * 2) - 1} rows; wall {wall:.3f} s; "
+          f"launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
 def main():
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1555,6 +1838,16 @@ def main():
         paths["generate"], paths["gravity main"] = \
             run_generate_and_gravity_main(nt_main, KERNELS, Path(tmp))
     phase("generate", t0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths["sweep"], outf = run_sweep_phase(KERNELS, data_dir, Path(tmp),
+                                               dev)
+        phase("sweep", t0)
+        t0 = time.perf_counter()
+        paths["report"] = run_report_phase(KERNELS, outf,
+                                           Path(tmp) / "report")
+        phase("report", t0)
 
     # each kernel's launches on the path that runs it at full width
     own_path = {"egnn_pairwise_fwd": "train", "egnn_pairwise_bwd": "train",

@@ -1,1 +1,2 @@
-"""Parallel training of the port: seed fleets (``fleet``)."""
+"""Parallel training of the port: seed fleets (``fleet``) and grid sweeps
+(``sweep``)."""

@@ -1,0 +1,1 @@
+from .profiling import PhaseTimer, trace, annotate

@@ -1,12 +1,17 @@
 """The parts of chip_smoke.py that run without a GPU: its refusal without
 CUDA, the bounds it reports, the launch counts it expects of each path, the
-artifact shapes it checks, and its refusal without the committed splits."""
+artifact shapes it checks, its refusal without the committed splits, the
+sweep phase's schedule, and the instruments it puts around a driver run (the
+PhaseTimer breakdown, the integrator-step count)."""
+
+import json
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from torch_port_util import write_charged_split
 
 
 def test_exits_nonzero_with_no_result_without_cuda(monkeypatch, capsys):
@@ -208,3 +213,93 @@ def test_seed_axis_inputs_stack_one_weight_set_a_seed():
     assert torch.equal(sets[0][7], plain[7])
     assert [c[0] for c in chip_smoke.SEED_AXIS_CASES] == ["egno", "segno"]
     assert chip_smoke.SEEDS == len(chip_smoke.FLEET_SEEDS) == 5
+
+
+def test_fleet_launches_reckons_the_fleet_paths_and_the_sweep_groups():
+    """One sequential run's training and validation, then K test
+    rollouts: the fleet paths' K=5 counts and the sweep's K=3 groups at the
+    committed splits' sizes."""
+    egno, segno = chip_smoke.LAYERS, chip_smoke.T_MODEL
+    assert chip_smoke.fleet_launches(egno, 5, 2, 11, 7, 7) == {
+        "egnn_pairwise_fwd": 2916, "egnn_pairwise_bwd": 88}
+    assert chip_smoke.fleet_launches(segno, 5, 2, 11, 7, 7) == {
+        "egnn_pairwise_fwd": 7290, "egnn_pairwise_bwd": 220}
+    assert chip_smoke.fleet_launches(egno, 3, 2, 11, 7, 7) == {
+        "egnn_pairwise_fwd": 88 + 28 + 3 * 560, "egnn_pairwise_bwd": 88}
+    assert chip_smoke.fleet_launches(segno, 3, 2, 11, 7, 7) == {
+        "egnn_pairwise_fwd": 220 + 70 + 3 * 1400, "egnn_pairwise_bwd": 220}
+
+
+def test_sweep_schedule_gives_two_fleet_groups_and_one_sequential_run(
+        tmp_path):
+    from nonode_tpu_torch.parallel import sweep
+
+    path = tmp_path / "grid.json"
+    path.write_text(json.dumps(chip_smoke.sweep_schedule()))
+    smoke = sweep.expand_grid(sweep.load_schedule(str(path), "SMOKE"))
+    assert len(smoke) == 6
+    groups = sweep.group_for_fleet(smoke)
+    assert sorted((json.loads(k)["model"], [c["seed"] for c in v])
+                  for k, v in groups.items()) == [
+        ("egno", chip_smoke.SWEEP_SEEDS), ("segno", chip_smoke.SWEEP_SEEDS)]
+    seq = sweep.expand_grid(sweep.load_schedule(str(path), "SMOKE_SEQ"))
+    assert seq == [{"exp_name": "_exp_new", "dataset": "charged",
+                    "n_balls": 5, "num_inputs": 2, "varDT": True,
+                    "model": "segno", "seed": 1}]
+    assert sweep.group_for_fleet(seq) == {}
+
+
+def _tiny_driver_run(tmp_path, model, *extra):
+    from nonode_tpu_torch import main as nt_main
+
+    data = tmp_path / "data"
+    data.mkdir()
+    for seed, part in enumerate(("train", "valid", "test")):
+        write_charged_split(data, part, seed=seed, s=8, f=55)
+    args = nt_main.get_args([
+        "--model", model, "--only_test", "false", "--device", "cpu",
+        "--data_dir", str(data), "--outf", str(tmp_path / "out"),
+        "--epochs", "2", "--test_interval", "1", "--batch_size", "4",
+        "--traj_len", "2", *extra])
+    return nt_main, lambda: nt_main.main(args)
+
+
+def test_phase_breakdown_times_each_part_of_a_driver_run(tmp_path):
+    """Every part of a training run gets its phase (the datasets by
+    partition, each train epoch by number), and the wrapped names are
+    restored afterwards."""
+    from nonode_tpu_torch.train.checkpoint import EarlyStopping
+    from nonode_tpu_torch.train.loop import _Experiment
+
+    nt_main, run = _tiny_driver_run(tmp_path, "segno")
+    before = (nt_main.NBodyDataset, nt_main.load_params, torch.optim.Adam,
+              _Experiment.__dict__["train_epoch"],
+              EarlyStopping.save_checkpoint, np.savez)
+    with chip_smoke.phase_breakdown(nt_main, torch.device("cpu")) as timer:
+        run()
+    assert (nt_main.NBodyDataset, nt_main.load_params, torch.optim.Adam,
+            _Experiment.__dict__["train_epoch"],
+            EarlyStopping.save_checkpoint, np.savez) == before
+    assert {name: s["count"] for name, s in timer.summary().items()} == {
+        "model build": 1, "optimizer build": 1, "data load train": 1,
+        "data load val": 1, "data load test": 1, "epoch draws": 3,
+        "train epoch 0": 1, "train epoch 1": 1, "validation epoch": 1,
+        "checkpoint save": 1, "checkpoint load": 1, "test rollout": 1,
+        "artifact write": 1}
+    assert "left over" in chip_smoke.breakdown_text(timer, 100.0)
+
+
+def test_counted_integrator_steps_are_the_launches_path_launches_reckons(
+        tmp_path):
+    """On a one-input SEGNO run (T steps a forward) the counted steps give
+    path_launches' counts: recorded steps launch #1 and #2, the others #1."""
+    nt_main, run = _tiny_driver_run(tmp_path, "segno")
+    with chip_smoke.counted_integrator_steps() as steps:
+        run()
+    # 8 samples in batches of 4: 2 train, 2 validation and 2 test batches
+    want = chip_smoke.path_launches(chip_smoke.T_MODEL, 2, 2, 2, 2, 1, 2)
+    assert {"egnn_pairwise_fwd": sum(steps.values()),
+            "egnn_pairwise_bwd": steps["recorded"]} == want
+    from nonode_tpu_torch.models.segno import SEGNO
+    assert SEGNO.integrate.__name__ == "integrate" and \
+        SEGNO.__dict__["integrate"].__qualname__ == "SEGNO.integrate"

@@ -1,6 +1,7 @@
 """Tests of the port's CUDA kernels (the pairwise chain's forward and
 backward, the N-body forces and leapfrog blocks), of SEGNO's weight-tied
-steps on them, and of the spectral conv's cuFFT path, on the card only.
+steps on them, of the spectral conv's cuFFT path and of PhaseTimer's wait
+on the card, on the card only.
 
 Every test here is marked ``cuda`` and skips without a GPU (a CUDA kernel
 has no CPU mode). The file imports neither JAX nor nonode_tpu, so that it
@@ -665,3 +666,20 @@ def test_spectral_conv_on_the_card_matches_the_cpu(dev, t_steps, modes):
         (y * ct.to(where)).sum().backward()
         outs.append((y.detach().cpu(), module.weights1.grad.cpu()))
     _assert_close(outs[1], outs[0])
+
+
+@pytest.mark.cuda
+def test_phase_timer_waits_for_the_card(dev):
+    """A phase whose block_on holds a CUDA tensor (in a list the body
+    fills) closes only when the card has done the work queued in it: about
+    20 ms of torch.cuda._sleep, which the host enqueues in microseconds."""
+    from nonode_tpu_torch.utils.profiling import PhaseTimer
+
+    torch.cuda.synchronize(dev)
+    timer = PhaseTimer()
+    out = []
+    with timer.phase("sleep", block_on=out):
+        torch.cuda._sleep(40_000_000)
+        out.append({"x": [torch.ones(1, device=dev)]})
+    assert torch.cuda.current_stream(dev).query()
+    assert timer.totals["sleep"] > 5e-3

@@ -1,11 +1,13 @@
 """Import guard for the port: the card's machine has torch, numpy, scipy,
-einops, pytest and hypothesis, and no jax, flax, optax, yaml or wandb.
+einops, pytest and hypothesis, and no jax, flax, optax, yaml, wandb or
+matplotlib.
 
 Every module of nonode_tpu_torch, chip_smoke.py and the port's profiling
 scripts are scanned: no jax, no
-module of the JAX package nonode_tpu, and flax, optax, yaml and wandb only
-inside a function (imported lazily, when asked for). Then the entry point is
-imported in a fresh interpreter with those packages blocked.
+module of the JAX package nonode_tpu, and flax, optax, yaml, wandb and
+matplotlib only inside a function (imported lazily, when asked for). Then
+the entry point is imported, and the sweep and report CLIs print their
+help, in a fresh interpreter with those packages blocked.
 """
 
 import ast
@@ -21,7 +23,7 @@ SOURCES = sorted((REPO / "nonode_tpu_torch").rglob("*.py")) + [
     REPO / "scripts" / "profile_torch_training.py",
     REPO / "scripts" / "profile_torch_stretch.py",
     REPO / "scripts" / "time_pairwise_kernels.py"]
-LAZY_ONLY = {"flax", "optax", "yaml", "wandb"}
+LAZY_ONLY = {"flax", "optax", "yaml", "wandb", "matplotlib"}
 
 
 def _imports(tree):
@@ -64,6 +66,22 @@ def test_main_imports_with_jax_and_friends_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module", ["nonode_tpu_torch.parallel.sweep",
+                                    "nonode_tpu_torch.analysis.registry"])
+def test_cli_help_runs_with_jax_and_friends_blocked(module):
+    blocked = ["jax", "jaxlib", "flax", "optax", "yaml", "wandb",
+               "matplotlib", "nonode_tpu"]
+    code = ("import runpy, sys\n"
+            f"for m in {blocked!r}:\n"
+            "    sys.modules[m] = None\n"
+            "sys.argv = ['x', '--help']\n"
+            f"runpy.run_module({module!r}, run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("usage:")
 
 
 def test_no_file_of_the_port_is_git_ignored():
