@@ -23,7 +23,12 @@ Phases, each timed on its own line:
    and with a seed axis, K=5 weight sets over G=5x2560 (EGNO) and G=5x256
    with the clip (SEGNO) in one launch: bitwise equal to 5 single-seed
    launches and over two runs, within 1e-4 x max(1, max|plain|) of the
-   plain seed-axis version, timed beside the 5 single-seed launches;
+   plain seed-axis version, timed beside the 5 single-seed launches.
+   #1 and #2 at H=128 (their second width, weights read from global
+   memory) at the mocap path's shape: G=60, N=31, E=1 on the written
+   skeleton's skeleton + 2-hop mask, without and with the clip, and K=2
+   weight sets over G = 2 x 30; each against its plain version, twice
+   bitwise equal, timed beside its bound;
 4. main path: ``nonode_tpu_torch.main --model egno --only_test true`` on the
    committed charged-5 test split at the canonical EGNO width (4 layers,
    hidden 64, T=10, batch 256, traj_len 20), weights from --seed 42. Checks
@@ -87,12 +92,23 @@ Phases, each timed on its own line:
 18. report: ``python -m nonode_tpu_torch.analysis.registry`` (in-process) on
    that --outf: three groups with their seeds, each group's mean test loss
    equal to its ledger rows' (``analysis.ledger.load_ledger_groups``, both
-   ledgers) within 1e-6 relative; no launch.
+   ledgers) within 1e-6 relative; no launch;
+19. mocap path: a CMU-style run case written under a temporary directory
+   (CMU's 31-bone skeleton as an ASF, 11 AMC trials of 140 frames, parsed
+   by the port's data/amc.py into motion_run.pkl: the CMU trials are not in
+   the repository), then ``python -m nonode_tpu_torch.motion_main`` at
+   configs/config_mocap_no.json's width (nf 128, 6 layers, T=5, batch 12)
+   with ``--epochs 2 --test_interval 1``: #1/#2 at H=128 launched as the
+   splits ask, the artifact's preds [240, 5, 31, 3] and its test_loss the
+   MSE of its own preds within rtol 1e-5, the run's wall by PhaseTimer;
+   train batch 0's loss and every gradient on the card within 1e-3 x
+   max(1, max|.|) of the port's CPU; a step's wall and idle share.
 
 Every kernel's time is its device time alone (CUDA events around one call,
 the stream held busy while the host enqueues it), median of repeats. Then it
 prints the kernels line (each kernel's launches on its own path, and on
-every path) and, last, one JSON line with the device. It exits non-zero,
+every path; #1 and #2 also as their H=128 instantiations, with the mocap
+path's launches) and, last, one JSON line with the device. It exits non-zero,
 with no result, without CUDA, outside the repository, or when the checkout
 lacks the committed splits.
 """
@@ -205,7 +221,11 @@ def device_ms(fn, iters=20, warmup=3):
     return float(np.median([a.elapsed_time(b) for a, b in events]))
 
 
-def pairwise_inputs(g, n, h, e, seed, dev, coord_scale=1.0, isolated=None):
+def pairwise_inputs(g, n, h, e, seed, dev, coord_scale=1.0, isolated=None,
+                    mask=None):
+    """Seeded inputs of #1/#2: G graphs of N nodes, width H, E edge features;
+    the mask is complete (off the diagonal), a random sparse graph with the
+    node ``isolated`` alone, or ``mask`` as given."""
     rng = np.random.RandomState(seed)
 
     def f(*shape, scale=1.0):
@@ -214,7 +234,8 @@ def pairwise_inputs(g, n, h, e, seed, dev, coord_scale=1.0, isolated=None):
 
     x, hi, hj, efea = f(g, n, 3), f(g, n, h, scale=0.5), \
         f(g, n, h, scale=0.5), f(g, n, n, e)
-    mask = 1.0 - torch.eye(n, device=dev)
+    if mask is None:
+        mask = 1.0 - torch.eye(n, device=dev)
     if isolated is not None:      # a mocap-like sparse graph with a lone node
         adj = torch.tensor(rng.rand(n, n) < 0.3, dtype=torch.float32,
                            device=dev)
@@ -305,9 +326,10 @@ def bounds_text(fp32_bound, tc_bound, ms):
 
 
 # #1/#2 cases: (label, shape and inputs, clip_edges, the row it times or
-# None). The EGNO slice shape first (held to the split-TF32 budget), then
-# SEGNO's: G = its batch, the clip engaged; a G whose 25 G edge rows leave the
-# last 128-row tile ragged; the mocap-like sparse graph.
+# None); H=64 and E=2 unless the inputs say otherwise. The EGNO slice shape
+# first (held to the split-TF32 budget), then SEGNO's: G = its batch, the
+# clip engaged; a G whose 25 G edge rows leave the last 128-row tile ragged;
+# the mocap-like sparse graph.
 PAIRWISE_CASES = [
     ("slice G=2560 N=5 H=64 E=2", dict(g=2560, n=5), False, "slice"),
     ("clip_edges=True", dict(g=2560, n=5, coord_scale=400.0), True, None),
@@ -318,16 +340,39 @@ PAIRWISE_CASES = [
     ("2-D edge_mask N=31 (mocap)", dict(g=256, n=31, isolated=3), False,
      None),
 ]
+# H=128 at the mocap path's shape: G = T x B = 5 x 12 graphs of the 31
+# joints, one edge feature, the written skeleton's skeleton + 2-hop mask;
+# without the clip (EGNO's layers) and with it
+MOCAP_G = 60
+MOCAP_CASES = [
+    ("mocap G=60 N=31 H=128 E=1", dict(g=MOCAP_G, n=31, h=128, e=1,
+                                       skeleton=True), False, "mocap"),
+    ("mocap G=60 N=31 H=128 E=1 clip_edges=True",
+     dict(g=MOCAP_G, n=31, h=128, e=1, skeleton=True, coord_scale=400.0),
+     True, "mocap clip"),
+]
+# the slice shape's times of the build that had H=64 alone (PERF.md §6),
+# printed beside this call's
+H64_ONLY_SLICE_MS = {"egnn_pairwise_fwd": "0.0481-0.0486",
+                     "egnn_pairwise_bwd": "0.1806-0.1814"}
 
 
-def check_pairwise_kernel(egnn_fused, dev):
-    """Kernel vs plain version in PAIRWISE_CASES; returns the timed rows
-    ({"slice": ..., "segno": ..., "ragged": ...})."""
+def case_inputs(kw, seed, dev):
+    """(g, n, h, e, pairwise_inputs) of a PAIRWISE_CASES or MOCAP_CASES
+    entry's shape and inputs."""
+    kw = dict(kw)
+    g, n, h, e = kw.pop("g"), kw.pop("n"), kw.pop("h", 64), kw.pop("e", 2)
+    if kw.pop("skeleton", False):
+        kw["mask"] = mocap_mask(dev)
+    return g, n, h, e, pairwise_inputs(g, n, h, e, seed=seed, dev=dev, **kw)
+
+
+def check_pairwise_kernel(egnn_fused, dev, cases=PAIRWISE_CASES):
+    """Kernel vs plain version in ``cases``; returns the timed rows
+    ({"slice": ..., "segno": ..., "ragged": ...} of PAIRWISE_CASES)."""
     rows = {}
-    for label, kw, clip, timed in PAIRWISE_CASES:
-        kw = dict(kw)
-        g, n = kw.pop("g"), kw.pop("n")
-        args = pairwise_inputs(g, n, 64, 2, seed=n, dev=dev, **kw)
+    for label, kw, clip, timed in cases:
+        g, n, h, e, args = case_inputs(kw, kw["n"], dev)
         with torch.no_grad():
             got = egnn_fused.pairwise_message(clip, *args)
             again = egnn_fused.pairwise_message(clip, *args)
@@ -365,8 +410,8 @@ def check_pairwise_kernel(egnn_fused, dev):
             ms = device_ms(lambda: egnn_fused.pairwise_message(clip, *args))
             plain_ms = device_ms(
                 lambda: egnn_fused.pairwise_message_reference(clip, *args))
-        fp32 = pairwise_bound_ms(g, args[4], 64, 2)
-        tc = pairwise_tc_bound_ms(g, args[4], 64, 2)
+        fp32 = pairwise_bound_ms(g, args[4], h, e)
+        tc = pairwise_tc_bound_ms(g, args[4], h, e)
         kept = g * int((args[4] != 0).sum())
         print(f"  {label}: kernel {ms:.4f} ms, plain version {plain_ms:.4f} "
               f"ms (no yardstick), {bounds_text(fp32, tc, ms)}, over the "
@@ -374,6 +419,8 @@ def check_pairwise_kernel(egnn_fused, dev):
               f"{g * n * n - kept} masked-out edge rows; no single PyTorch "
               f"call computes this function"
               + (f"; slice-shape relative error within {SPLIT_TF32_RTOL:g}"
+                 f"; the H=64-only build: "
+                 f"{H64_ONLY_SLICE_MS['egnn_pairwise_fwd']} ms"
                  if timed == "slice" else ""), flush=True)
         rows[timed] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                            library_ms=None, **route_row(ms, fp32, tc))
@@ -417,18 +464,16 @@ def bwd_outputs(out):
                     (dx, dhi, dhj, defea, *dweights)))
 
 
-def check_pairwise_bwd_kernel(egnn_fused, dev):
+def check_pairwise_bwd_kernel(egnn_fused, dev, cases=PAIRWISE_CASES):
     """Backward kernel vs plain version in the forward's cases, each run
     twice and held bitwise equal; returns the timed rows."""
     rows = {}
-    for label, kw, clip, timed in PAIRWISE_CASES:
-        kw = dict(kw)
-        g, n = kw.pop("g"), kw.pop("n")
-        args = pairwise_inputs(g, n, 64, 2, seed=n + 1, dev=dev, **kw)
+    for label, kw, clip, timed in cases:
+        g, n, h, e, args = case_inputs(kw, kw["n"] + 1, dev)
         rng = np.random.RandomState(n)
         cot = tuple(torch.tensor(rng.randn(*shape), dtype=torch.float32,
                                  device=dev)
-                    for shape in ((g, n, 3), (g, n, 64)))
+                    for shape in ((g, n, 3), (g, n, h)))
         got = bwd_outputs(egnn_fused.pairwise_message_bwd(clip, *args, *cot))
         again = bwd_outputs(egnn_fused.pairwise_message_bwd(clip, *args,
                                                             *cot))
@@ -473,13 +518,15 @@ def check_pairwise_bwd_kernel(egnn_fused, dev):
         plain_ms = device_ms(
             lambda: egnn_fused.pairwise_message_bwd_reference(
                 clip, *args, *cot))
-        fp32 = pairwise_bwd_bound_ms(g, args[4], 64, 2)
-        tc = pairwise_tc_bound_ms(g, args[4], 64, 2, backward=True)
+        fp32 = pairwise_bwd_bound_ms(g, args[4], h, e)
+        tc = pairwise_tc_bound_ms(g, args[4], h, e, backward=True)
         print(f"  {label}: backward kernel {ms:.4f} ms (both launches), "
               f"plain version {plain_ms:.4f} ms (no yardstick), "
               f"{bounds_text(fp32, tc, ms)}; no single PyTorch call "
               f"computes this function"
               + (f"; slice-shape relative error within {SPLIT_TF32_RTOL:g}"
+                 f"; the H=64-only build: "
+                 f"{H64_ONLY_SLICE_MS['egnn_pairwise_bwd']} ms"
                  if timed == "slice" else ""), flush=True)
         rows[timed] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                            library_ms=None, **route_row(ms, fp32, tc))
@@ -493,30 +540,39 @@ SEED_AXIS_CASES = [
     ("egno", 2560, False, 1.0),
     ("segno", 256, True, 400.0),
 ]
+# and at H=128: two seeds over the mocap shape's G = 2 x 30, the clip
+# engaged; (..., the shape: K, N, H, E and the skeleton mask)
+MOCAP_SEED_AXIS_CASES = [
+    ("mocap", MOCAP_G // 2, True, 400.0,
+     dict(k=2, n=31, h=128, e=1, skeleton=True)),
+]
 
 
-def seed_axis_inputs(k, b, n, h, e, seed, dev, coord_scale):
+def seed_axis_inputs(k, b, n, h, e, seed, dev, coord_scale, mask=None):
     """Inputs of G = k x b graphs and k stacked weight sets (each as
     pairwise_inputs draws one, from seeds seed .. seed + k - 1)."""
-    x, hi, hj, efea, mask, _ = pairwise_inputs(k * b, n, h, e, seed, dev)
+    x, hi, hj, efea, mask, _ = pairwise_inputs(k * b, n, h, e, seed, dev,
+                                               mask=mask)
     sets = [pairwise_inputs(1, n, h, e, seed + 1 + s, dev,
                             coord_scale=coord_scale)[5] for s in range(k)]
     weights = tuple(torch.stack(ws) for ws in zip(*sets))
     return x, hi, hj, efea, mask, weights, sets
 
 
-def check_seed_axis_kernels(egnn_fused, dev):
-    """#1 and #2 with SEEDS weight sets in one launch, at EGNO's and SEGNO's
-    shapes: bitwise equal to one launch per seed, within KERNEL_RTOL x
-    max(1, max|plain|) of the plain seed-axis version, bitwise repeatable;
-    timed beside the SEEDS single-seed launches, with SEEDS times the
-    single-seed split-TF32 bound. Returns {"egnn_pairwise_fwd": {label:
-    row}, "egnn_pairwise_bwd": {...}}."""
-    k, n, h, e = SEEDS, 5, 64, 2
+def check_seed_axis_kernels(egnn_fused, dev, cases=SEED_AXIS_CASES):
+    """#1 and #2 with K weight sets in one launch (SEEDS at EGNO's and
+    SEGNO's shapes, N=5, H=64, E=2, unless a case gives its shape): bitwise
+    equal to one launch per seed, within KERNEL_RTOL x max(1, max|plain|)
+    of the plain seed-axis version, bitwise repeatable; timed beside the K
+    single-seed launches, with K times the single-seed split-TF32 bound.
+    Returns {"egnn_pairwise_fwd": {label: row}, "egnn_pairwise_bwd": {...}}."""
     rows = {"egnn_pairwise_fwd": {}, "egnn_pairwise_bwd": {}}
-    for label, b, clip, coord_scale in SEED_AXIS_CASES:
+    for label, b, clip, coord_scale, *shape in cases:
+        shape = {"k": SEEDS, "n": 5, "h": 64, "e": 2, **(shape or [{}])[0]}
+        k, n, h, e = (shape[key] for key in "knhe")
+        mask = mocap_mask(dev) if shape.get("skeleton") else None
         x, hi, hj, efea, mask, weights, sets = seed_axis_inputs(
-            k, b, n, h, e, 11, dev, coord_scale)
+            k, b, n, h, e, 11, dev, coord_scale, mask)
         part = lambda t, s: t[s * b:(s + 1) * b]          # noqa: E731
         rng = np.random.RandomState(b)
         cot = tuple(torch.tensor(rng.randn(*shape), dtype=torch.float32,
@@ -1080,18 +1136,24 @@ def run_main_path(nt_main, kernels, data_dir, out_dir, model="egno"):
 
 
 @contextlib.contextmanager
-def phase_breakdown(nt_main, dev):
-    """A PhaseTimer over the parts of a driver run, put in from outside
-    (``main.py`` is not changed): the model and its optimizer (the first
-    Adam a process builds imports torch._dynamo), the datasets (by
+def phase_breakdown(driver, dev, dataset="NBodyDataset", tests=None):
+    """A PhaseTimer over the parts of a run of ``driver`` (``main`` or
+    ``motion_main``), put in from outside (the driver is not changed): the
+    model and its optimizer (the first Adam a process builds imports
+    torch._dynamo), the datasets (the driver's ``dataset`` class, by
     partition), every epoch's draws, each train epoch (numbered), the
-    validation epochs, checkpoint save and load, the test rollout and the
-    artifact write, each closed on ``dev``. Yields the timer; the wrapped
-    names are restored on exit."""
+    validation epochs, checkpoint save and load, the test phase (``tests``:
+    (class, method, label); default the EGNO and SEGNO test rollouts) and
+    the artifact write, each closed on ``dev``. Yields the timer; the
+    wrapped names are restored on exit."""
     from nonode_tpu_torch.train.checkpoint import EarlyStopping
     from nonode_tpu_torch.train.loop import (EGNOExperiment, SEGNOExperiment,
                                              _Experiment)
     from nonode_tpu_torch.utils.profiling import PhaseTimer
+
+    if tests is None:
+        tests = [(EGNOExperiment, "test_rollout", "test rollout"),
+                 (SEGNOExperiment, "test_rollout", "test rollout")]
 
     timer = PhaseTimer()
     on_device = torch.zeros(1, device=dev)     # every phase waits for dev
@@ -1111,17 +1173,16 @@ def phase_breakdown(nt_main, dev):
         return run
 
     parts = [
-        (nt_main, "build_experiment", "model build"),
+        (driver, "build_experiment", "model build"),
         (torch.optim, "Adam", "optimizer build"),
-        (nt_main, "NBodyDataset",
+        (driver, dataset,
          lambda args, kwargs: f"data load {kwargs['partition']}"),
         (_Experiment, "draw_epoch", "epoch draws"),
         (_Experiment, "train_epoch", numbered("train epoch")),
         (_Experiment, "eval_epoch", "validation epoch"),
         (EarlyStopping, "save_checkpoint", "checkpoint save"),
-        (nt_main, "load_params", "checkpoint load"),
-        (EGNOExperiment, "test_rollout", "test rollout"),
-        (SEGNOExperiment, "test_rollout", "test rollout"),
+        (driver, "load_params", "checkpoint load"),
+        *tests,
         (np, "savez", "artifact write"),
     ]
     saved = [(owner, attr, owner.__dict__[attr]) for owner, attr, _ in parts]
@@ -1736,6 +1797,320 @@ def run_report_phase(kernels, outf, report_dir):
     return launches
 
 
+# ---- mocap: a written CMU-style run case (the CMU trials are not in the
+# repository) ----
+
+# CMU's 31-bone skeleton (the subject ASFs of mocap.cs.cmu.edu): name,
+# parent, direction, length, axis (degrees), dof. The root; two legs of 5
+# bones from a hip joint with no dof; a spine of 6 to the head; two arms of
+# 7 from the thorax (clavicle to fingers, the thumb on the wrist). Lengths
+# and directions are of CMU's order, not one subject's.
+CMU_SPINE = [("lowerback", "root"), ("upperback", "lowerback"),
+             ("thorax", "upperback"), ("lowerneck", "thorax"),
+             ("upperneck", "lowerneck"), ("head", "upperneck")]
+
+
+def cmu_bones():
+    """[(name, parent, direction, length, axis, dof)] of the 30 bones, in
+    the order their hierarchy lists them."""
+    bones = []
+    for side, sx in (("l", 1.0), ("r", -1.0)):
+        bones += [
+            (f"{side}hipjoint", "root", (0.6 * sx, -0.6, 0.5), 2.4,
+             (0, 0, 0), ()),
+            (f"{side}femur", f"{side}hipjoint", (0.34 * sx, -0.94, 0), 7.2,
+             (0, 0, 20 * sx), ("rx", "ry", "rz")),
+            (f"{side}tibia", f"{side}femur", (0.34 * sx, -0.94, 0), 7.5,
+             (0, 0, 20 * sx), ("rx",)),
+            (f"{side}foot", f"{side}tibia", (0.1 * sx, -0.2, 0.97), 2.2,
+             (-90, 7 * sx, 20 * sx), ("rx", "rz")),
+            (f"{side}toes", f"{side}foot", (0, 0, 1), 1.1,
+             (-90, 7 * sx, 20 * sx), ("rx",))]
+    bones += [(name, parent, (0, 1, 0), 2.1 if i < 3 else 1.6, (0, 0, 0),
+               ("rx", "ry", "rz")) for i, (name, parent) in
+              enumerate(CMU_SPINE)]
+    for side, sx in (("l", 1.0), ("r", -1.0)):
+        arm = (0, 0, -90 * sx)
+        bones += [
+            (f"{side}clavicle", "thorax", (0.95 * sx, 0.3, 0), 3.5,
+             (0, 0, -20 * sx), ("ry", "rz")),
+            (f"{side}humerus", f"{side}clavicle", (sx, 0, 0), 5.0, arm,
+             ("rx", "ry", "rz")),
+            (f"{side}radius", f"{side}humerus", (sx, 0, 0), 3.4, arm,
+             ("rx",)),
+            (f"{side}wrist", f"{side}radius", (sx, 0, 0), 1.7, arm, ("ry",)),
+            (f"{side}hand", f"{side}wrist", (sx, 0, 0), 0.7, arm,
+             ("rx", "rz")),
+            (f"{side}fingers", f"{side}hand", (sx, 0, 0), 0.55, arm,
+             ("rx",)),
+            (f"{side}thumb", f"{side}wrist", (0.7 * sx, 0, 0.7), 0.8,
+             (-90, 45 * sx, -90 * sx), ("rx", "rz"))]
+    return bones
+
+
+def write_cmu_asf(path):
+    """The skeleton as a CMU ASF file."""
+    lines = [":version 1.10", ":name smoke", ":units", "  mass 1.0",
+             "  length 0.45", "  angle deg", ":documentation",
+             "  CMU's 31-bone layout, written by chip_smoke.py", ":root",
+             "  order TX TY TZ RX RY RZ", "  axis XYZ", "  position 0 0 0",
+             "  orientation 0 0 0", ":bonedata"]
+    children = collections.defaultdict(list)
+    for i, (name, parent, direc, length, axis, dof) in enumerate(
+            cmu_bones()):
+        children[parent].append(name)
+        lines += ["  begin", f"     id {i + 1}", f"     name {name}",
+                  "     direction " + " ".join(f"{v:g}" for v in direc),
+                  f"     length {length:g}",
+                  "     axis " + " ".join(f"{v:g}" for v in axis) + " XYZ"]
+        if dof:
+            lines.append("    dof " + " ".join(dof))
+            lines += [f"    {'limits' if k == 0 else '      '} "
+                      f"(-180.0 180.0)" for k in range(len(dof))]
+        lines.append("  end")
+    lines += [":hierarchy", "  begin"]
+    lines += [f"    {parent} {' '.join(kids)}"
+              for parent, kids in children.items()]
+    lines += ["  end", ""]
+    Path(path).write_text("\n".join(lines))
+
+
+def write_run_amc(path, frames, rng):
+    """A running-like AMC trial of ``frames`` frames: every dof a sinusoid
+    at one stride frequency with its own amplitude and phase, the root
+    moving forward along z with a bounce."""
+    period = rng.uniform(70.0, 90.0)            # frames a stride (120 fps)
+    speed = rng.uniform(0.25, 0.35)
+    chans = [("root", 3)] + [(name, len(dof)) for name, _, _, _, _, dof
+                              in cmu_bones() if dof]
+    amp = {name: rng.uniform(5.0, 35.0, k) for name, k in chans}
+    phase = {name: rng.uniform(0.0, 2 * np.pi, k) for name, k in chans}
+    lines = ["#!OML:ASF smoke.asf", ":FULLY-SPECIFIED", ":DEGREES"]
+    for f in range(frames):
+        w = 2 * np.pi * f / period
+        trans = (0.5 * np.sin(w), 17.0 + 0.6 * np.sin(2 * w), speed * f)
+        root = np.concatenate([trans, 0.2 * amp["root"]
+                               * np.sin(w + phase["root"])])
+        lines.append(str(f + 1))
+        lines.append("root " + " ".join(f"{v:.6f}" for v in root))
+        for name, _ in chans[1:]:
+            vals = amp[name] * np.sin(w + phase[name])
+            lines.append(f"{name} " + " ".join(f"{v:.6f}" for v in vals))
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
+# The written run case: 11 trials (RUN_SPLIT's 0-10), named as CMU subject
+# 9's so that trial 9 (09_10) loses its first 6 frames; 140 frames, so every
+# start frame < 90 keeps its +delta_frame target after that.
+MOCAP_TRIALS, MOCAP_FRAMES = 11, 140
+
+
+def write_mocap_case(data_dir, seed=SEED, trials=MOCAP_TRIALS,
+                     frames=MOCAP_FRAMES):
+    """The ASF and AMC files under ``data_dir/amc``, parsed with the port's
+    data/amc.py into ``data_dir/motion_run.pkl`` ((edges, [X_trial]), the
+    motion pickles' layout). Returns (edges, trials)."""
+    import pickle
+
+    from nonode_tpu_torch.data.amc import trajectories_from_amc
+
+    amc_dir = Path(data_dir) / "amc"
+    amc_dir.mkdir(parents=True, exist_ok=True)
+    write_cmu_asf(amc_dir / "09.asf")
+    rng = np.random.RandomState(seed)
+    amcs = []
+    for i in range(trials):
+        amcs.append(amc_dir / f"09_{i + 1:02d}.amc")
+        write_run_amc(amcs[-1], frames, rng)
+    edges, xs = trajectories_from_amc(amc_dir / "09.asf", amcs)
+    with open(Path(data_dir) / "motion_run.pkl", "wb") as f:
+        pickle.dump((edges, xs), f)
+    return edges, xs
+
+
+def mocap_mask(device):
+    """The [31, 31] skeleton + 2-hop edge mask of the written skeleton, as
+    the port's mocap datasets build it."""
+    from nonode_tpu_torch.data.amc import Skeleton, parse_asf
+    from nonode_tpu_torch.data.motion import build_edge_matrices
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_cmu_asf(Path(tmp) / "09.asf")
+        skel = Skeleton(parse_asf(Path(tmp) / "09.asf"))
+    _, mask = build_edge_matrices(skel.edges(), len(skel.names))
+    return torch.tensor(mask, device=device)
+
+
+# the mocap path at configs/config_mocap_no.json's width, cut to 2 epochs
+MOCAP_ARGS = ("--nf", "128", "--n_layers", "6", "--num_timesteps", "5",
+              "--batch_size", "12")
+
+
+def mocap_split_sizes(data_dir, max_training_samples=200, max_eval=600):
+    """Samples of each partition as the mocap datasets take them from
+    ``split_run.pkl``: the first max_samples // trials starts of each
+    trial (train: --max_training_samples; val and test: 600)."""
+    import pickle
+
+    with open(Path(data_dir) / "split_run.pkl", "rb") as f:
+        split = pickle.load(f)
+    caps = (max_training_samples, max_eval, max_eval)
+    return {part: sum(min(len(v), cap // len(mapping))
+                      for v in mapping.values())
+            for part, mapping, cap in zip(("train", "val", "test"), split,
+                                          caps)}
+
+
+def run_mocap_path(kernels, tmp, dev):
+    """``motion_main`` at configs/config_mocap_no.json's width (nf 128, 6
+    layers, T=5, batch 12) for 2 epochs on the written run case: #1/#2
+    launched as its splits ask (``path_launches``: a forward a layer, one
+    decode a test batch), the results, the artifact's shapes and its
+    test_loss against the MSE of its own preds; its wall by part
+    (``phase_breakdown``); train batch 0's loss and every gradient on the
+    card against the port's CPU; a step's wall and idle share."""
+    from nonode_tpu_torch import motion_main
+    from nonode_tpu_torch.analysis.registry import artifact_stem
+    from nonode_tpu_torch.data.motion import MotionDynamicsDataset
+    from nonode_tpu_torch.runtime import seed_everything
+
+    data = tmp / "mocap"
+    t0 = time.perf_counter()
+    write_mocap_case(data)
+    write_s = time.perf_counter() - t0
+    args = motion_main.get_args([
+        *MOCAP_ARGS, "--epochs", "2", "--test_interval", "1", "--data_dir",
+        str(data), "--outf", str(tmp / "out"), "--device", dev.type])
+    reset_launches(kernels)
+    with phase_breakdown(motion_main, dev, "MotionDynamicsDataset",
+                         [(motion_main.MotionExperiment, "test_pass",
+                           "test pass")]) as timer:
+        t0 = time.perf_counter()
+        _, (best_val, test_loss) = run_echoed(motion_main.main, args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    sizes = mocap_split_sizes(data, args.max_training_samples)
+    b, layers = args.batch_size, args.n_layers
+    batches = {part: n // b for part, n in sizes.items()}
+    launches = read_launches(
+        kernels, path_launches(layers, batches["test"], 1, args.epochs,
+                               batches["train"], 1, batches["val"]),
+        f"mocap path ({args.epochs} epochs x {batches['train']} batches x "
+        f"{layers} layers backward; as many forward plus {batches['val']} "
+        f"validation and {batches['test']} test batches x {layers})")
+    run = tmp / "out" / args.exp_name
+    results = json.loads((run / f"EGNO_motion_run_seed={args.seed}.json")
+                         .read_text())
+    losses = results["train loss"] + results["val loss"]
+    if (len(results["train loss"]) != args.epochs
+            or results["eval epoch"] != [1] or results["val loss"] != [best_val]
+            or results["test loss"] != [test_loss]
+            or not np.isfinite(losses + [test_loss]).all()):
+        raise AssertionError(f"mocap results {results}")
+    stem = artifact_stem("egno", "motion_run", args.seed, 31,
+                         num_timesteps=args.num_timesteps)
+    art = np.load(run / f"{stem}_results.npz")
+    shape = (batches["test"] * b, args.num_timesteps, 31, 3)
+    if art["preds"].shape != shape or art["targets"].shape != shape \
+            or not np.isfinite(art["preds"]).all():
+        raise AssertionError(f"mocap artifact preds {art['preds'].shape}, "
+                             f"targets {art['targets'].shape}, expected "
+                             f"{shape}, finite")
+    mse = float(((art["preds"] - art["targets"]) ** 2).mean())
+    if abs(mse - float(art["test_loss"])) > 1e-5 * abs(mse):
+        raise AssertionError(f"mocap artifact test_loss {art['test_loss']}, "
+                             f"its decode MSE {mse}")
+    print(f"  mocap: run case written and parsed in {write_s:.3f} s "
+          f"({MOCAP_TRIALS} trials, {sizes} samples); motion_main wall "
+          f"{wall:.3f} s; train losses {results['train loss']} val loss "
+          f"{best_val} test_loss {test_loss} (artifact decode MSE {mse}, "
+          f"rtol 1e-5); launches {json.dumps(launches)}", flush=True)
+    print(f"  mocap path by PhaseTimer (s, each part closed on the card): "
+          f"{breakdown_text(timer, wall)}", flush=True)
+
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        exp = motion_main.build_experiment(args, where,
+                                           seed_everything(args.seed))
+        ds = MotionDynamicsDataset(
+            data_dir=data, partition="train",
+            max_samples=args.max_training_samples,
+            delta_frame=args.delta_frame, case=args.case,
+            num_timesteps=args.num_timesteps, device=where)
+        perm, windows = exp.draw_epoch(ds, np.random.RandomState(args.seed),
+                                       b)
+        t0 = time.perf_counter()
+        loss = exp._loss(exp.batch(ds, windows, 0,
+                                   torch.from_numpy(perm[0]).to(where)))[0]
+        loss.backward()
+        grads = {k: p.grad.detach().cpu() for k, p in
+                 exp.model.named_parameters() if p.grad is not None}
+        runs.append((loss.item(), grads, time.perf_counter() - t0,
+                     (exp, ds, windows, perm)))
+    (loss_c, g_c, _, card), (loss_h, g_h, cpu_s, _) = runs
+    if set(g_c) != set(g_h) or not g_c:
+        raise AssertionError(f"mocap: parameters with a gradient differ: "
+                             f"{sorted(set(g_c) ^ set(g_h))}")
+    if abs(loss_c - loss_h) > GRAD_RTOL * max(1.0, abs(loss_h)):
+        raise AssertionError(f"mocap loss on the card {loss_c}, on the CPU "
+                             f"{loss_h}")
+    worst = (0.0, "")
+    for name, gh in g_h.items():
+        err = float((g_c[name] - gh).abs().max())
+        scale = max(1.0, float(gh.abs().max()))
+        if not torch.isfinite(g_c[name]).all() or err > GRAD_RTOL * scale:
+            raise AssertionError(f"mocap gradient of {name}: card vs CPU "
+                                 f"{err} > {GRAD_RTOL} x {scale}")
+        worst = max(worst, (err / scale, name))
+    exp, ds, windows, perm = card
+    step = lambda i: exp.train_epoch(  # noqa: E731
+        ds, windows, perm[i % len(perm)][None])
+    step_ms = median_step_ms(step)
+    trace = traced(lambda: step(0))
+    print(f"  mocap train batch 0: loss card {loss_c!r} CPU {loss_h!r}; "
+          f"{len(g_h)} parameter gradients, worst relative error "
+          f"{worst[0]:.3e} ({worst[1]}; tolerance {GRAD_RTOL:g} x max(1, "
+          f"max|g|) per tensor); CPU step {cpu_s:.1f} s; training step "
+          f"wall (batch {b}, sync-closed) median {step_ms:.3f} ms over steps "
+          f"2-6; traced step: wall {1e3 * trace[0]:.3f} ms, device "
+          f"{trace[1]:.3f} ms over {trace[2]} launches, idle share "
+          f"{trace[3]:.4f}", flush=True)
+    return launches
+
+
+# each kernel's launches on the path that runs it at full width: #1/#2 at
+# H=64 on the N-body train path, the N-body kernels on their runs
+OWN_PATH = {"egnn_pairwise_fwd": "train", "egnn_pairwise_bwd": "train",
+            "nbody_charged_force": "stretch",
+            "nbody_charged_leapfrog": "stretch",
+            "nbody_gravity_accel": "gravity",
+            "nbody_gravity_leapfrog": "gravity"}
+
+
+def kernels_line(kernels, rows, paths, mocap_rows, mocap_launches):
+    """The kernels line's entries: every kernel with its measured ``rows``
+    and its launches on its own path and on every path of ``paths``; after
+    #1 and #2, their H=128 instantiations (``<name>_h128``) with the mocap
+    cases' ``mocap_rows`` and their launches on the mocap path."""
+    out = []
+    for k in kernels:
+        name = k["name"]
+        common = {"route": k["route"], "source": k["source"],
+                  "replaces": k["replaces"], "status": "ported"}
+        out.append({"name": name, **common,
+                    "launches": paths[OWN_PATH[name]][name],
+                    "path": OWN_PATH[name],
+                    "launches_by_path": {p: c[name] for p, c in paths.items()},
+                    **rows[name]})
+        if name in mocap_rows:
+            out.append({"name": f"{name}_h128", **common,
+                        "launches": mocap_launches[name], "path": "mocap",
+                        "launches_by_path": {"mocap": mocap_launches[name]},
+                        **mocap_rows[name]})
+    return out
+
+
 def main():
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1768,9 +2143,20 @@ def main():
                  "egnn_pairwise_bwd": check_pairwise_bwd_kernel(egnn_fused,
                                                                 dev)}
     seed_rows = check_seed_axis_kernels(egnn_fused, dev)
-    rows = {name: dict(r["slice"], segno_shape=r["segno"],
+    rows = {name: dict(r["slice"], width=64, segno_shape=r["segno"],
                        ragged_shape=r["ragged"], seed_axis=seed_rows[name])
             for name, r in pair_rows.items()}
+    mocap_rows = {
+        "egnn_pairwise_fwd": check_pairwise_kernel(egnn_fused, dev,
+                                                   MOCAP_CASES),
+        "egnn_pairwise_bwd": check_pairwise_bwd_kernel(egnn_fused, dev,
+                                                       MOCAP_CASES)}
+    mocap_seed = check_seed_axis_kernels(egnn_fused, dev,
+                                         MOCAP_SEED_AXIS_CASES)
+    mocap_rows = {name: dict(r["mocap"], width=128,
+                             clip_shape=r["mocap clip"],
+                             seed_axis=mocap_seed[name])
+                  for name, r in mocap_rows.items()}
     rows.update(check_nbody_kernels(dev))
     check_fused_frames(dev)
     phase("kernels", t0)
@@ -1849,22 +2235,12 @@ def main():
                                            Path(tmp) / "report")
         phase("report", t0)
 
-    # each kernel's launches on the path that runs it at full width
-    own_path = {"egnn_pairwise_fwd": "train", "egnn_pairwise_bwd": "train",
-                "nbody_charged_force": "stretch",
-                "nbody_charged_leapfrog": "stretch",
-                "nbody_gravity_accel": "gravity",
-                "nbody_gravity_leapfrog": "gravity"}
-    out = []
-    for k in KERNELS:
-        name = k["name"]
-        out.append({"name": name, "route": k["route"],
-                    "source": k["source"], "replaces": k["replaces"],
-                    "status": "ported",
-                    "launches": paths[own_path[name]][name],
-                    "path": own_path[name],
-                    "launches_by_path": {p: c[name] for p, c in paths.items()},
-                    **rows[name]})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mocap_launches = run_mocap_path(KERNELS, Path(tmp), dev)
+    phase("mocap path", t0)
+
+    out = kernels_line(KERNELS, rows, paths, mocap_rows, mocap_launches)
     print(json.dumps({"kernels": out}), flush=True)
     print(f"total: {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,9 +29,9 @@
 //   work (SiLU and its derivative with expf and IEEE division, the clip
 //   gate, the mask), the E <= 4 columns of efea @ We and dpre1 @ We^T and
 //   the vector gradients stay in fp32 on the CUDA cores.
-// - A unit is floor(128 / N^2) whole graphs (at least one; five at N = 5),
-//   walked in tiles of 128 edge rows (a graph of N > 11 spans several; the
-//   block adds each tile's node sums to its outputs). A graph is never split
+// - A unit is floor(R / N^2) whole graphs (at least one; five at N = 5 and
+//   R = 128), walked in tiles of R edge rows (a graph of N > 11 spans
+//   several; the block adds each tile's node sums to its outputs). A graph is never split
 //   across blocks, so the sums over senders j (dhi, the first half of dx) and
 //   over receivers i (dhj, the second half) run inside the block through
 //   shared memory in a fixed order.
@@ -42,12 +42,19 @@
 //   the same way, and writes a1 back over pre1 for dW2. The weight-gradient
 //   products, which sum over all rows, and the node sums follow block
 //   barriers: dWc1 before dpre1 overwrites dcpre, dW2 after a1 is written.
-// - Persistent grid: one block of 256 threads (8 warps) per SM; shared
-//   memory holds W2 and Wc1 as {big, small} pairs (68 KB, staged once per
-//   block with cp.async, overlapped with the first tile's first layer) and
-//   four [128][H + 4] per-edge tiles (139 KB): pre1, then a1; pre2, then msg;
-//   cpre, then dcpre, then dpre1; sigmoid(cpre), then dpre2. 214 KB in all,
-//   so 8 warps an SM: four tiles of 128 rows are live at once.
+// - Persistent grid: one block per SM. At H = 64 a block is 256 threads (8
+//   warps, R = 128 rows a tile); shared memory holds W2 and Wc1 as {big,
+//   small} pairs (68 KB, staged once per block with cp.async, overlapped
+//   with the first tile's first layer) and four [R][H + 4] per-edge tiles
+//   (139 KB): pre1, then a1; pre2, then msg; cpre, then dcpre, then dpre1;
+//   sigmoid(cpre), then dpre2. 214 KB in all, so 8 warps an SM: four tiles
+//   of 128 rows are live at once. At H = 128 the four tiles of 128 rows
+//   would take 270 KB alone: a block is 128 threads (4 warps, R = 64 rows a
+//   tile; the tiles 135 KB, 144 KB in all), and the products read W2 and
+//   Wc1 from global memory and split them as they load (egnn_tf32.cuh). A
+//   warp then owns 32 of dW's m16 x n8 tiles, taken as two m16 rows one
+//   after the other, so that a pass holds 64 accumulators, as a product
+//   does.
 // - The weight gradients need a sum across blocks, which run in no order.
 //   Each tile's dW2 and dWc1 are tensor-core products from zero, added in
 //   fp32 to the block's sums in its own slot of the scratch buffer; the
@@ -65,8 +72,10 @@
 //   gradients. blocks is the persistent grid of one seed's units, so each
 //   seed's units, slots and sums are those of a launch of its B graphs alone:
 //   the same bits. With K > 1 the K * blocks blocks run in waves.
-// Only H = 64, the width of every configuration in model_confs.yaml, is
-// instantiated; the code is templated on H for other widths.
+// Instantiated for H = 64 (every configuration in model_confs.yaml) and
+// H = 128 (mocap's configs/config_mocap_no.json), through egnn_tf32.cuh's
+// with_width, which the scratch size goes through too; another width is
+// refused at the entry points.
 //
 // The TPU kernel's (8,128) padding, its rows=800 VMEM budget and the weight
 // gradients it accumulates across its sequential grid have no counterpart here.
@@ -89,23 +98,34 @@ __host__ __device__ constexpr long long slot_floats(int h, int e) {
   return (partial_floats(h, e) + 31) / 32 * 32;
 }
 
+// A block of width H: its warps, the edge rows of its tiles (16 a warp) and
+// its threads.
+template <int H>
+__host__ __device__ constexpr int warps_of() { return kStaged<H> ? kWarps : 4; }
+template <int H>
+__host__ __device__ constexpr int rows_of() { return 16 * warps_of<H>(); }
+template <int H>
+__host__ __device__ constexpr int threads_of() { return 32 * warps_of<H>(); }
+
+template <int H>
 __host__ __device__ inline int graphs_per_unit(int n) {
-  const int g = kRows / (n * n);
+  const int g = rows_of<H>() / (n * n);
   return g > 0 ? g : 1;
 }
 
 template <int H>
 constexpr size_t smem_floats() {
-  return 4 * H * padded<H>()           // W2, Wc1: big and small
-         + 4 * kRows * padded<H>()     // four per-edge tiles
-         + kRows * (4 + kMaxE + 1 + 3 + 1 + 1 + 2)   // rij r2, efea, dcw, drij,
+  constexpr int R = rows_of<H>();
+  return (kStaged<H> ? 4 * H * padded<H>() : 0)   // W2, Wc1: big and small
+         + 4 * R * padded<H>()         // four per-edge tiles
+         + R * (4 + kMaxE + 1 + 3 + 1 + 1 + 2)   // rij r2, efea, dcw, drij,
                                        // mask, mask / deg, receiver and sender
          + 5 * H + kMaxE * H           // wg, b1, b2, bc1, wc2; we
          + kMaxN;                      // deg
 }
 
 // slot[dW] (+)= A^T B over the first 8 ksteps rows of a tile, in split
-// TF32: A and B are [kRows][LD] per-edge tiles, dW [H][H] row-major in the
+// TF32: A and B are [R][LD] per-edge tiles, dW [H][H] row-major in the
 // block's slot. The warp takes the m16 tile mi of dW's rows and WT n8 tiles
 // from column 8 nb0; first writes, otherwise it adds. The tile's product
 // starts from zero and is added in fp32: a tensor-core accumulator carried
@@ -162,7 +182,7 @@ __device__ __forceinline__ void tile_weight_grad(float* dw, const float* a_tile,
 }
 
 template <int H>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(threads_of<H>(), 1)
 egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ hi,
                          const float* __restrict__ hj, const float* __restrict__ efea,
                          const float* __restrict__ mask, const float* __restrict__ wg,
@@ -180,30 +200,37 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   // stay in the constant bank: no pointer is held in registers)
   const long long seed = blockIdx.y;
   const long long seed_g0 = seed * num_graphs;
+  constexpr int NW = warps_of<H>();
+  constexpr int R = rows_of<H>();                  // edge rows of a tile
+  constexpr int T = threads_of<H>();
   constexpr int LD = padded<H>();
   constexpr int CH = H / 4;                        // 4-column chunks of a row
   constexpr int RPI = 32 / CH;                     // rows a warp covers at once
   constexpr int RPL = 16 / RPI;                    // of its 16 rows, those a lane takes
+  constexpr int RB = RPL < 8 ? RPL : 8;            // of them, those whose loads fly at once
   constexpr int NT8 = H / 8;                       // n8 tiles along a row of dW
-  constexpr int WT = (H / 16) * NT8 / kWarps;      // m16 x n8 tiles of dW a warp owns
+  constexpr int TILES = (H / 16) * NT8 / NW;       // m16 x n8 tiles of dW a warp owns
+  constexpr int WT = TILES < NT8 ? TILES : NT8;    // of them, those a pass takes
+  constexpr int PASSES = TILES / WT;
+  constexpr int WS = kStaged<H> ? H * LD : 0;      // float2 of a staged weight
   static_assert(CH <= 32 && 32 % CH == 0, "a row's chunks fit in a warp");
-  static_assert((H / 16) * NT8 % kWarps == 0 && NT8 % WT == 0 && WT % 2 == 0,
-                "a warp's weight-gradient tiles share one m16 row of tiles");
+  static_assert((H / 16) * NT8 % NW == 0 && TILES % WT == 0 && NT8 % WT == 0 && WT % 2 == 0,
+                "a pass's weight-gradient tiles share one m16 row of tiles");
   extern __shared__ __align__(128) float smem[];
   float2* s_w2 = reinterpret_cast<float2*>(smem);  // [H][LD] {big, small}, [in][out]
-  float2* s_wc1 = s_w2 + H * LD;
-  float* s_p1 = reinterpret_cast<float*>(s_wc1 + H * LD);   // [kRows][LD]: pre1, then a1
-  float* s_p2 = s_p1 + kRows * LD;                 // pre2, then msg
-  float* s_x = s_p2 + kRows * LD;                  // cpre, dcpre, then dpre1
-  float* s_y = s_x + kRows * LD;                   // sigmoid(cpre), then dpre2
-  float* s_rij = s_y + kRows * LD;                 // [kRows][4]: rij, r2
-  float* s_ef = s_rij + kRows * 4;                 // [kRows][kMaxE]
-  float* s_dcw = s_ef + kRows * kMaxE;             // [kRows]
-  float* s_drij = s_dcw + kRows;                   // [kRows][3]
-  float* s_m = s_drij + kRows * 3;                 // [kRows]: mask[i,j]
-  float* s_mw = s_m + kRows;                       // [kRows]: mask[i,j] / deg[i]
-  int2* s_rs = reinterpret_cast<int2*>(s_mw + kRows);   // receiver, sender (-1: padding)
-  float* s_wg = s_mw + 3 * kRows;                  // [H]
+  float2* s_wc1 = s_w2 + WS;
+  float* s_p1 = reinterpret_cast<float*>(s_wc1 + WS);   // [R][LD]: pre1, then a1
+  float* s_p2 = s_p1 + R * LD;                     // pre2, then msg
+  float* s_x = s_p2 + R * LD;                      // cpre, dcpre, then dpre1
+  float* s_y = s_x + R * LD;                       // sigmoid(cpre), then dpre2
+  float* s_rij = s_y + R * LD;                     // [R][4]: rij, r2
+  float* s_ef = s_rij + R * 4;                     // [R][kMaxE]
+  float* s_dcw = s_ef + R * kMaxE;                 // [R]
+  float* s_drij = s_dcw + R;                       // [R][3]
+  float* s_m = s_drij + R * 3;                     // [R]: mask[i,j]
+  float* s_mw = s_m + R;                           // [R]: mask[i,j] / deg[i]
+  int2* s_rs = reinterpret_cast<int2*>(s_mw + R);  // receiver, sender (-1: padding)
+  float* s_wg = s_mw + 3 * R;                      // [H]
   float* s_b1 = s_wg + H;
   float* s_b2 = s_b1 + H;
   float* s_bc1 = s_b2 + H;
@@ -214,30 +241,40 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  stage_weights_async<H>(s_w2, s_wc1, w2 + seed * H * H, wc1 + seed * H * H);
-  for (int k = tid; k < H; k += kThreads) {
+  if constexpr (kStaged<H>)
+    stage_weights_async<H>(s_w2, s_wc1, w2 + seed * H * H, wc1 + seed * H * H);
+  const Weight<H> W2 = weight_of<H>(s_w2, w2 + seed * H * H);
+  const Weight<H> Wc1 = weight_of<H>(s_wc1, wc1 + seed * H * H);
+  for (int k = tid; k < H; k += T) {
     s_wg[k] = wg[seed * H + k];
     s_b1[k] = b1[seed * H + k];
     s_b2[k] = b2[seed * H + k];
     s_bc1[k] = bc1[seed * H + k];
     s_wc2[k] = wc2[seed * H + k];
   }
-  for (int k = tid; k < e * H; k += kThreads) s_we[k] = we[seed * e * H + k];
-  for (int i = tid; i < n; i += kThreads) {
+  for (int k = tid; k < e * H; k += T) s_we[k] = we[seed * e * H + k];
+  for (int i = tid; i < n; i += T) {
     float d = 0.0f;
     for (int j = 0; j < n; ++j) d += __ldg(mask + i * n + j);
     s_deg[i] = fmaxf(d, 1.0f);
   }
   __syncthreads();
 
-  // The warp's part of dW2 and dWc1: the m16 tile mi of their rows and WT n8
-  // tiles from column 8 nb0. Each tile's product is added to the block's sums
+  // The warp's part of dW2 and dWc1: TILES m16 x n8 tiles, WT a pass, each
+  // pass within one m16 row. Each tile's product is added to the block's sums
   // in its own slot of the scratch buffer (the first tile writes them).
   float* part = partial + (seed * gridDim.x + blockIdx.x) * slot_floats(H, e);
-  const int mi = warp * WT / NT8;                  // the warp's m16 tile of dW
-  const int nb0 = warp * WT - mi * NT8;            // and its first n8 tile
   const int g = lane >> 2, t4 = lane & 3;          // the fragments' row and column
   bool first_tile = true;
+  // dw (+)= a_tile^T b_tile over the tile's first 8 ksteps rows
+  auto weight_grad = [&](float* dw, const float* a_tile, const float* b_tile, int ksteps) {
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      const int first_nt = warp * TILES + p * WT;   // m16 tile first_nt / NT8
+      tile_weight_grad<H, WT>(dw, a_tile, b_tile, ksteps, first_nt / NT8, first_nt % NT8,
+                              first_tile);
+    }
+  };
   // the vector gradients: each lane sums its 4 columns over its rows
   float v_wg[4], v_b1[4], v_b2[4], v_bc1[4], v_wc2[4], v_we[kMaxE][4];
   float v_bc2 = 0.0f;
@@ -250,28 +287,28 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
 
   const float bias_c2 = __ldg(bc2 + seed);
   const int nn = n * n;
-  const int gpu = graphs_per_unit(n);
+  const int gpu = graphs_per_unit<H>(n);
   const int r0 = warp * 16;                        // the warp's rows of a tile
   const int ch = lane % CH;                        // a lane's chunk in the column passes
   const int sub = lane / CH;                       // and its first row
   const float4* hi4 = reinterpret_cast<const float4*>(hi);
   const float4* hj4 = reinterpret_cast<const float4*>(hj);
   const float4* gtotm4 = reinterpret_cast<const float4*>(gtotm);
-  bool staged = false;
+  [[maybe_unused]] bool staged = false;
 #define ROW4(buf, r) (*reinterpret_cast<float4*>((buf) + (r) * LD + 4 * ch))
 
   for (long long unit = blockIdx.x; unit < units; unit += gridDim.x) {
     const long long left = num_graphs - unit * gpu;
     const int ng = left < gpu ? (int)left : gpu;
     const int edges = ng * nn;
-    const int tiles = (edges + kRows - 1) / kRows;
+    const int tiles = (edges + R - 1) / R;
     const long long g0 = seed_g0 + unit * gpu;     // the unit's first graph,
     const long long nbase = g0 * n;                // node
     const long long ebase = g0 * nn;               // and edge
 
     for (int t = 0; t < tiles; ++t) {
-      const int t0 = t * kRows;
-      const int cnt = min(kRows, edges - t0);
+      const int t0 = t * R;
+      const int cnt = min(R, edges - t0);
       const bool first = t == 0;
 
       // ---- per row, a lane each: receiver, sender, rij, r2, efea, mask ----
@@ -309,11 +346,12 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
       __syncwarp();
 
       // ---- pre1 = r2 wg + efea @ we + hi + hj + b1 (padding rows: zeros) ----
-      {
-        float4 u[RPL], w[RPL];
 #pragma unroll
-        for (int m = 0; m < RPL; ++m) {            // every row's loads in flight at once
-          const int2 rs = s_rs[r0 + sub + RPI * m];
+      for (int m0 = 0; m0 < RPL; m0 += RB) {
+        float4 u[RB], w[RB];
+#pragma unroll
+        for (int m = 0; m < RB; ++m) {             // RB rows' loads in flight at once
+          const int2 rs = s_rs[r0 + sub + RPI * (m0 + m)];
           u[m] = w[m] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
           if (rs.x >= 0) {
             u[m] = __ldg(hi4 + (nbase + rs.x) * CH + ch);
@@ -323,8 +361,8 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
         const float4 wg4 = reinterpret_cast<const float4*>(s_wg)[ch];
         const float4 b14 = reinterpret_cast<const float4*>(s_b1)[ch];
 #pragma unroll
-        for (int m = 0; m < RPL; ++m) {
-          const int r = r0 + sub + RPI * m;
+        for (int m = 0; m < RB; ++m) {
+          const int r = r0 + sub + RPI * (m0 + m);
           float4 p = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
           if (s_rs[r].x >= 0) {
             const float r2 = s_rij[r * 4 + 3];
@@ -345,15 +383,17 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
           ROW4(s_p1, r) = p;
         }
       }
-      if (!staged) {    // the weights' copy ran under the first layer
-        split_weights<H>(s_w2, s_wc1);
-        staged = true;
+      if constexpr (kStaged<H>) {
+        if (!staged) {  // the weights' copy ran under the first layer
+          split_weights<H>(s_w2, s_wc1);
+          staged = true;
+        }
       }
       __syncwarp();
 
       // ---- pre2 = silu(pre1) @ W2 + b2 ----
       float acc[H / 8][4];
-      rows_times_weight<H, false>(acc, s_p1 + r0 * LD, s_w2, Silu());
+      rows_times_weight<H, false>(acc, s_p1 + r0 * LD, W2, Silu());
 #pragma unroll
       for (int nt = 0; nt < H / 8; ++nt) {
         const float2 bias = *reinterpret_cast<const float2*>(s_b2 + 8 * nt + 2 * t4);
@@ -365,7 +405,7 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
       store_rows<H>(s_p2 + r0 * LD, acc);
 
       // ---- cpre = silu(pre2) @ Wc1 + bc1; cw; the force's gradient ----
-      rows_times_weight<H, false>(acc, s_p2 + r0 * LD, s_wc1, Silu());
+      rows_times_weight<H, false>(acc, s_p2 + r0 * LD, Wc1, Silu());
       {
         // z = cpre -> X and sigmoid(z) -> Y; each lane sums silu(z) wc2 over
         // its columns of rows g and g + 8, the row's quad adds the four sums
@@ -448,19 +488,20 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
       __syncwarp();
 
       // ---- dpre2 = (dcpre @ Wc1^T + gtotm[i] mask[i,j]) silu'(pre2); pre2 -> msg ----
-      rows_times_weight<H, true>(acc, s_x + r0 * LD, s_wc1, Identity());
+      rows_times_weight<H, true>(acc, s_x + r0 * LD, Wc1, Identity());
       store_rows<H>(s_y + r0 * LD, acc);
-      {
-        float4 gm[RPL];
 #pragma unroll
-        for (int m = 0; m < RPL; ++m) {            // every row's loads in flight at once
-          const int li = s_rs[r0 + sub + RPI * m].x;
+      for (int m0 = 0; m0 < RPL; m0 += RB) {
+        float4 gm[RB];
+#pragma unroll
+        for (int m = 0; m < RB; ++m) {             // RB rows' loads in flight at once
+          const int li = s_rs[r0 + sub + RPI * (m0 + m)].x;
           gm[m] = li >= 0 ? __ldg(gtotm4 + (nbase + li) * CH + ch)
                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         }
 #pragma unroll
-        for (int m = 0; m < RPL; ++m) {
-          const int r = r0 + sub + RPI * m;
+        for (int m = 0; m < RB; ++m) {
+          const int r = r0 + sub + RPI * (m0 + m);
           const bool valid = s_rs[r].x >= 0;
           const float mij = s_m[r];
           float4& yv = ROW4(s_y, r);
@@ -485,11 +526,11 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
       __syncthreads();
 
       // ---- dWc1 += msg^T dcpre over the tile's rows (padding rows: dcpre 0) ----
-      tile_weight_grad<H, WT>(part + H * H, s_p2, s_x, (cnt + 7) / 8, mi, nb0, first_tile);
+      weight_grad(part + H * H, s_p2, s_x, (cnt + 7) / 8);
       __syncthreads();
 
       // ---- dpre1 = (dpre2 @ W2^T) silu'(pre1); dwg, db1, dwe ----
-      rows_times_weight<H, true>(acc, s_y + r0 * LD, s_w2, Identity());
+      rows_times_weight<H, true>(acc, s_y + r0 * LD, W2, Identity());
       {
         // dpre1 on the accumulators (pre1 read at their places, a1 written
         // back over it); dr2 = dpre1 . wg and defea = dpre1 @ We^T summed
@@ -569,12 +610,12 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
       __syncthreads();
 
       // ---- dW2 += a1^T dpre2 over the tile's rows (padding rows: dpre2 0) ----
-      tile_weight_grad<H, WT>(part, s_p1, s_y, (cnt + 7) / 8, mi, nb0, first_tile);
+      weight_grad(part, s_p1, s_y, (cnt + 7) / 8);
       first_tile = false;
 
       // ---- node sums: over senders (dhi, dx) and over receivers (dhj, dx) ----
       const int nodes = ng * n;
-      for (int q = tid; q < nodes * CH; q += kThreads) {
+      for (int q = tid; q < nodes * CH; q += T) {
         const int node = q / CH;
         const int c4 = q - node * CH;
         const int gl = node / n;
@@ -610,7 +651,7 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
         *oi = si;
         *oj = sj;
       }
-      for (int q = tid; q < nodes * 3; q += kThreads) {
+      for (int q = tid; q < nodes * 3; q += T) {
         const int node = q / 3;
         const int c = q - node * 3;
         const int gl = node / n;
@@ -636,8 +677,8 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   // each (warp, sub) holds the sums of its rows for every column: its own
   // stretch of s_p1 and s_p2, then a fixed-order sum over them
   constexpr int V = (5 + kMaxE) * H + 1;
-  constexpr int slots = kWarps * RPI;
-  static_assert(slots * V <= 2 * kRows * LD, "the vector sums fit in two tiles");
+  constexpr int slots = NW * RPI;
+  static_assert(slots * V <= 2 * R * LD, "the vector sums fit in two tiles");
   float* vec = s_p1 + (warp * RPI + sub) * V;
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
@@ -653,7 +694,7 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   if (ch == 0) vec[(5 + kMaxE) * H] = v_bc2;
   __syncthreads();
   const int nv = (5 + e) * H + 1;                  // dwg .. dwe, dbc2
-  for (int p = tid; p < nv; p += kThreads) {
+  for (int p = tid; p < nv; p += T) {
     const int at = p < (5 + e) * H ? p : (5 + kMaxE) * H;
     float s = 0.0f;
     for (int w = 0; w < slots; ++w) s += s_p1[w * V + at];
@@ -678,10 +719,35 @@ __global__ void egnn_pairwise_bwd_reduce(const float* __restrict__ partial,
 
 template <int H>
 cudaError_t grid_of(long long g, int n, int* grid, long long* units) {
-  const long long gpu = graphs_per_unit(n);
+  const long long gpu = graphs_per_unit<H>(n);
   *units = (g + gpu - 1) / gpu;
   return persistent_grid(egnn_pairwise_bwd_kernel<H>, sizeof(float) * smem_floats<H>(),
-                         *units, 1, grid);
+                         *units, 1, threads_of<H>(), grid);
+}
+
+template <int H>
+cudaError_t launch(const float* x, const float* hi, const float* hj, const float* efea,
+                   const float* mask, const float* wg, const float* we, const float* b1,
+                   const float* w2, const float* b2, const float* wc1, const float* bc1,
+                   const float* wc2, const float* bc2, const float* gtotf, const float* gtotm,
+                   float* dx, float* dhi, float* dhj, float* defea, float* dweights,
+                   float* scratch, long long g, int n, int e, int k, int clip_edges,
+                   cudaStream_t stream) {
+  const long long b = g / k;                     // one seed's graphs
+  int grid = 0;
+  long long units = 0;
+  cudaError_t err = grid_of<H>(b, n, &grid, &units);
+  if (err != cudaSuccess) return err;
+  egnn_pairwise_bwd_kernel<H>
+      <<<dim3(grid, k), threads_of<H>(), sizeof(float) * smem_floats<H>(), stream>>>(
+          x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1, wc2, bc2, gtotf, gtotm, dx, dhi,
+          dhj, defea, scratch, b, units, n, e, clip_edges);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long np = partial_floats(H, e);
+  egnn_pairwise_bwd_reduce<<<dim3((unsigned)((np + 255) / 256), k), 256, 0, stream>>>(
+      scratch, dweights, grid, slot_floats(H, e), np);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -693,7 +759,10 @@ extern "C" long long egnn_pairwise_bwd_scratch_floats(long long g, int n, int h,
   if (bad_shape(g, n, h, e, k)) return -1;
   int grid = 0;
   long long units = 0;
-  if (grid_of<64>(g / k, n, &grid, &units) != cudaSuccess) return -1;
+  if (with_width(h, [&](auto width) {
+        return grid_of<decltype(width)::value>(g / k, n, &grid, &units);
+      }) != cudaSuccess)
+    return -1;
   return (long long)k * grid * slot_floats(h, e);
 }
 
@@ -712,21 +781,10 @@ extern "C" int egnn_pairwise_bwd(const float* x, const float* hi, const float* h
                                  float* defea, float* dweights, float* scratch, long long g,
                                  int n, int h, int e, int k, int clip_edges, void* stream_ptr) {
   if (bad_shape(g, n, h, e, k)) return (int)cudaErrorInvalidValue;
-  constexpr int H = 64;
-  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  const long long b = g / k;                     // one seed's graphs
-  int grid = 0;
-  long long units = 0;
-  cudaError_t err = grid_of<H>(b, n, &grid, &units);
-  if (err != cudaSuccess) return (int)err;
-  egnn_pairwise_bwd_kernel<H>
-      <<<dim3(grid, k), kThreads, sizeof(float) * smem_floats<H>(), stream>>>(
-          x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1, wc2, bc2, gtotf, gtotm, dx, dhi,
-          dhj, defea, scratch, b, units, n, e, clip_edges);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long np = partial_floats(H, e);
-  egnn_pairwise_bwd_reduce<<<dim3((unsigned)((np + 255) / 256), k), 256, 0, stream>>>(
-      scratch, dweights, grid, slot_floats(H, e), np);
-  return (int)cudaGetLastError();
+  return (int)with_width(h, [&](auto width) {
+    return launch<decltype(width)::value>(
+        x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1, wc2, bc2, gtotf, gtotm, dx, dhi, dhj,
+        defea, dweights, scratch, g, n, e, k, clip_edges,
+        reinterpret_cast<cudaStream_t>(stream_ptr));
+  });
 }

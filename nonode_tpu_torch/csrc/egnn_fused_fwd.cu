@@ -32,11 +32,15 @@
 // - Per-row work (indices, rij, r2, efea, mask) is done once, a lane per
 //   row; the first layer then takes 4 columns of 8 rows a lane, with every
 //   row's loads of hi and hj in flight at once.
-// - Persistent grid: 2 blocks of 256 threads per SM (110 KB of shared memory
-//   each: W2 and Wc1 as {big, small} pairs in padded rows, the 128-row tile
-//   and its per-row data); block b takes tiles b, b + grid, ... W2 and Wc1
-//   are staged once per block with cp.async, overlapped with the first
-//   tile's first layer, and split into big and small once.
+// - Persistent grid: 2 blocks of 256 threads per SM at H = 64 (110 KB of
+//   shared memory each: W2 and Wc1 as {big, small} pairs in padded rows, the
+//   128-row tile and its per-row data); block b takes tiles b, b + grid, ...
+//   W2 and Wc1 are staged once per block with cp.async, overlapped with the
+//   first tile's first layer, and split into big and small once. At H = 128
+//   the products read W2 and Wc1 from global memory and split them as they
+//   load (egnn_tf32.cuh: the staged pairs would not fit); the tile and its
+//   per-row data take 78 KB, and the 64 accumulators a thread holds for a
+//   128-column product leave room for one block of 256 threads an SM.
 // - tot_m is summed over j from shared memory right after msg (one block
 //   barrier), tot_f after the force (another). Both run over j = 0..N-1 in
 //   order: no atomics, and two runs give the same bits. Masked-out rows (the
@@ -49,8 +53,9 @@
 //   graphs alone would cut and assign them. blocks comes from the persistent
 //   grid of one seed's tiles; with K > 1 the K * blocks blocks run in waves.
 //   K = 1 is the single-set launch.
-// Only H = 64, the width of every configuration in model_confs.yaml, is
-// instantiated; the code is templated on H for other widths.
+// Instantiated for H = 64 (every configuration in model_confs.yaml) and
+// H = 128 (mocap's configs/config_mocap_no.json), through egnn_tf32.cuh's
+// with_width; another width is refused at the entry point.
 //
 // The TPU kernel's (8,128) padding and its rows=1600 VMEM budget have no
 // counterpart here; its sequential grid becomes the persistent blocks' loop.
@@ -63,7 +68,7 @@ using namespace egnn_tc;
 
 template <int H>
 constexpr size_t smem_floats() {
-  return 4 * H * padded<H>()      // W2, Wc1: big and small
+  return (kStaged<H> ? 4 * H * padded<H>() : 0)   // W2, Wc1: big and small
          + kRows * padded<H>()    // the tile: a1, then msg
          + kRows * 4              // rij and r2, then the masked force
          + kRows * kMaxE          // efea
@@ -73,7 +78,7 @@ constexpr size_t smem_floats() {
 }
 
 template <int H>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kStaged<H> ? 2 : 1)
 egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ hi,
                          const float* __restrict__ hj, const float* __restrict__ efea,
                          const float* __restrict__ mask, const float* __restrict__ wg,
@@ -93,11 +98,13 @@ egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   constexpr int CH = H / 4;                // 4-column chunks of a row
   constexpr int RPI = 32 / CH;             // rows a warp covers at once
   constexpr int RPL = 16 / RPI;            // of its 16 rows, those a lane takes
+  constexpr int RB = RPL < 8 ? RPL : 8;    // of them, those whose loads fly at once
+  constexpr int WS = kStaged<H> ? H * LD : 0;   // float2 of a staged weight
   static_assert(CH <= 32 && 32 % CH == 0, "a row's chunks fit in a warp");
   extern __shared__ __align__(128) float smem[];
   float2* s_w2 = reinterpret_cast<float2*>(smem);   // [H][LD] {big, small}, [in][out]
-  float2* s_wc1 = s_w2 + H * LD;
-  float* s_act = reinterpret_cast<float*>(s_wc1 + H * LD);   // [kRows][LD]
+  float2* s_wc1 = s_w2 + WS;
+  float* s_act = reinterpret_cast<float*>(s_wc1 + WS);   // [kRows][LD]
   float* s_f = s_act + kRows * LD;         // [kRows][4]: rij, r2; then the force
   float* s_ef = s_f + kRows * 4;           // [kRows][kMaxE]
   float* s_m = s_ef + kRows * kMaxE;       // [kRows]: mask[i,j]
@@ -113,7 +120,10 @@ egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  stage_weights_async<H>(s_w2, s_wc1, w2 + seed * H * H, wc1 + seed * H * H);
+  if constexpr (kStaged<H>)
+    stage_weights_async<H>(s_w2, s_wc1, w2 + seed * H * H, wc1 + seed * H * H);
+  const Weight<H> W2 = weight_of<H>(s_w2, w2 + seed * H * H);
+  const Weight<H> Wc1 = weight_of<H>(s_wc1, wc1 + seed * H * H);
   for (int k = tid; k < H; k += kThreads) {
     s_wg[k] = wg[seed * H + k];
     s_b1[k] = b1[seed * H + k];
@@ -137,7 +147,7 @@ egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   const int sub = lane / CH;               // and its first row
   const float4* hi4 = reinterpret_cast<const float4*>(hi);
   const float4* hj4 = reinterpret_cast<const float4*>(hj);
-  bool staged = false;
+  [[maybe_unused]] bool staged = false;
 
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long left = num_nodes - tile * npt;
@@ -176,11 +186,12 @@ egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ 
     __syncwarp();
 
     // ---- first layer, fp32: a1 = silu(r2 wg + efea @ we + hi + hj + b1) ----
-    {
-      float4 u[RPL], w[RPL];
 #pragma unroll
-      for (int m = 0; m < RPL; ++m) {      // every row's loads in flight at once
-        const int r = r0 + sub + RPI * m;
+    for (int m0 = 0; m0 < RPL; m0 += RB) {
+      float4 u[RB], w[RB];
+#pragma unroll
+      for (int m = 0; m < RB; ++m) {       // RB rows' loads in flight at once
+        const int r = r0 + sub + RPI * (m0 + m);
         u[m] = w[m] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         if (r < rows) {
           const int2 rs = s_rs[r];
@@ -191,8 +202,8 @@ egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ 
       const float4 wg4 = reinterpret_cast<const float4*>(s_wg)[ch];
       const float4 b14 = reinterpret_cast<const float4*>(s_b1)[ch];
 #pragma unroll
-      for (int m = 0; m < RPL; ++m) {
-        const int r = r0 + sub + RPI * m;
+      for (int m = 0; m < RB; ++m) {
+        const int r = r0 + sub + RPI * (m0 + m);
         float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);   // padding rows
         if (r < rows) {
           const float r2 = s_f[r * 4 + 3];
@@ -213,16 +224,18 @@ egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ 
         *reinterpret_cast<float4*>(s_act + r * LD + 4 * ch) = a;
       }
     }
-    if (!staged) {      // the weights' copy ran under the first layer
-      split_weights<H>(s_w2, s_wc1);
-      staged = true;
+    if constexpr (kStaged<H>) {
+      if (!staged) {    // the weights' copy ran under the first layer
+        split_weights<H>(s_w2, s_wc1);
+        staged = true;
+      }
     }
     __syncwarp();
 
     // ---- msg = silu(a1 @ W2 + b2), over the warp's own rows ----
     const int g = lane >> 2, t4 = lane & 3;  // the accumulators' row and column pair
     float acc[H / 8][4];
-    rows_times_weight<H, false>(acc, own, s_w2, Identity());
+    rows_times_weight<H, false>(acc, own, W2, Identity());
 #pragma unroll
     for (int nt = 0; nt < H / 8; ++nt) {
       const float2 bias = *reinterpret_cast<const float2*>(s_b2 + 8 * nt + 2 * t4);
@@ -252,7 +265,7 @@ egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ 
     // (no barrier: the coordinate MLP reads only its warp's rows of msg)
 
     // ---- cw = silu(msg @ Wc1 + bc1) . wc2 + bc2; the masked force ----
-    rows_times_weight<H, false>(acc, own, s_wc1, Identity());
+    rows_times_weight<H, false>(acc, own, Wc1, Identity());
     {
       // each lane sums its columns of rows g and g + 8; then the quad of
       // lanes that holds a row adds its four sums in a fixed butterfly
@@ -311,7 +324,8 @@ cudaError_t launch(const float* x, const float* hi, const float* hj, const float
   const int npt = kRows / n;
   const long long tiles = (num_nodes + npt - 1) / npt;
   int grid = 0;
-  cudaError_t err = persistent_grid(egnn_pairwise_fwd_kernel<H>, smem, tiles, 2, &grid);
+  cudaError_t err =
+      persistent_grid(egnn_pairwise_fwd_kernel<H>, smem, tiles, 2, kThreads, &grid);
   if (err != cudaSuccess) return err;
   egnn_pairwise_fwd_kernel<H><<<dim3(grid, k), kThreads, smem, stream>>>(
       x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1, wc2, bc2, totf, totm, num_nodes,
@@ -335,6 +349,9 @@ extern "C" int egnn_pairwise_fwd(const float* x, const float* hi, const float* h
                                  float* totm, long long g, int n, int h, int e, int k,
                                  int clip_edges, void* stream) {
   if (bad_shape(g, n, h, e, k)) return (int)cudaErrorInvalidValue;
-  return (int)launch<64>(x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1, wc2, bc2, totf,
-                         totm, g, n, e, k, clip_edges, reinterpret_cast<cudaStream_t>(stream));
+  return (int)with_width(h, [&](auto width) {
+    return launch<decltype(width)::value>(x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1,
+                                          wc2, bc2, totf, totm, g, n, e, k, clip_edges,
+                                          reinterpret_cast<cudaStream_t>(stream));
+  });
 }

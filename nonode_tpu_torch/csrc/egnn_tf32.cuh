@@ -1,6 +1,15 @@
 // Pieces shared by the pairwise-chain kernels (egnn_fused_fwd.cu and
 // egnn_fused_bwd.cu): the tile shape, the split ("3x") TF32 products on the
-// tensor cores, the SiLU formulas, the weight staging and the persistent grid.
+// tensor cores, the SiLU formulas, the weight staging, the persistent grid
+// and the one dispatch on the width H.
+//
+// Two widths are instantiated. H = 64 stages W2 and Wc1 in shared memory as
+// {big, small} pairs (68 KB for both). At H = 128 the pairs would take
+// 2 x 128 x 132 float2 = 270 KB, more than a block's 227 KB, so that route
+// reads the raw fp32 matrices (64 KB each, resident in L1 and L2) from
+// global memory and splits each B element into big and small in registers
+// as it is loaded: the same two TF32 values split_weights would store, so
+// the products are the same whichever route a width takes.
 //
 // Split TF32. The JAX package computes the chain's products at
 // Precision.HIGHEST, full fp32. A single TF32 tensor-core pass keeps 10
@@ -27,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace egnn_tc {
 
 constexpr int kWarps = 8;
@@ -40,6 +51,10 @@ constexpr float kClip = 100.0f;
 // by 4 floats: the fragment loads then touch 32 distinct banks.
 template <int H>
 __host__ __device__ constexpr int padded() { return H + 4; }
+
+// Whether width H stages its weights in shared memory (see the top).
+template <int H>
+constexpr bool kStaged = H == 64;
 
 __device__ __forceinline__ float to_tf32(float v) {
   uint32_t r;
@@ -146,14 +161,48 @@ struct Silu {
   __device__ __forceinline__ float operator()(float v) const { return silu(v); }
 };
 
+// The B operand of the products, W [H][H] ([in][out]) as {big, small}
+// pairs at element offset `at`: staged in shared memory in padded rows, or
+// read raw from global memory and split as it is loaded.
+template <int H>
+struct StagedWeight {
+  static constexpr int kLd = padded<H>();
+  const float2* w;
+  __device__ __forceinline__ float2 operator()(int at) const { return w[at]; }
+};
+
+template <int H>
+struct GlobalWeight {
+  static constexpr int kLd = H;
+  const float* w;
+  __device__ __forceinline__ float2 operator()(int at) const {
+    const float v = __ldg(w + at);
+    const float b = to_tf32(v);
+    return make_float2(b, to_tf32(v - b));
+  }
+};
+
+template <int H>
+using Weight = std::conditional_t<kStaged<H>, StagedWeight<H>, GlobalWeight<H>>;
+
+// Width H's operand of one weight: the staged pairs, or the raw matrix.
+template <int H>
+__device__ __forceinline__ Weight<H> weight_of(const float2* staged, const float* raw) {
+  if constexpr (kStaged<H>)
+    return Weight<H>{staged};
+  else
+    return Weight<H>{raw};
+}
+
 // acc = op(act) @ W (or @ W^T) in split TF32 over the warp's 16 rows of act
-// ([16][LD], row-major): acc[nt] is the m16n8 tile of output columns
+// ([16][LD], row-major): acc[nt] is the m16 n8 tile of output columns
 // 8 nt .. 8 nt + 7, in the C layout above. op (Identity or Silu) is applied
 // to each A element as it is loaded.
-template <int H, bool transposed, class Act>
+template <int H, bool transposed, class Act, class W>
 __device__ __forceinline__ void rows_times_weight(float (&acc)[H / 8][4], const float* act,
-                                                  const float2* w, Act op) {
+                                                  W w, Act op) {
   constexpr int LD = padded<H>();
+  constexpr int WLD = W::kLd;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -162,7 +211,7 @@ __device__ __forceinline__ void rows_times_weight(float (&acc)[H / 8][4], const 
   const float* a_lo = act + g * LD + t;
   const float* a_hi = a_lo + 8 * LD;
   // B(k, n) = W[k][n], or W[n][k] for W^T; k = 8 ks + t (+ 4), n = 8 nt + g
-  const float2* wl = w + (transposed ? g * LD + t : t * LD + g);
+  const int wl = transposed ? g * WLD + t : t * WLD + g;
 #pragma unroll 2
   for (int ks = 0; ks < H / 8; ++ks) {
     const float a[4] = {op(a_lo[8 * ks]), op(a_hi[8 * ks]), op(a_lo[8 * ks + 4]),
@@ -171,9 +220,9 @@ __device__ __forceinline__ void rows_times_weight(float (&acc)[H / 8][4], const 
     split4(a, a_big, a_small);
 #pragma unroll
     for (int nt = 0; nt < H / 8; ++nt) {
-      const int o0 = transposed ? 8 * nt * LD + 8 * ks : 8 * ks * LD + 8 * nt;
-      const int o1 = o0 + (transposed ? 4 : 4 * LD);
-      mma3(acc[nt], a_big, a_small, wl[o0], wl[o1]);
+      const int o0 = wl + (transposed ? 8 * nt * WLD + 8 * ks : 8 * ks * WLD + 8 * nt);
+      const int o1 = o0 + (transposed ? 4 : 4 * WLD);
+      mma3(acc[nt], a_big, a_small, w(o0), w(o1));
     }
   }
 }
@@ -194,13 +243,13 @@ __device__ __forceinline__ void store_rows(float* out, const float (&acc)[H / 8]
   __syncwarp();
 }
 
-// Persistent grid: at most max_per_sm resident blocks on each SM, from the
-// SM count and the occupancy query, and never more blocks than units. Block b
-// takes units b, b + grid, ...: a static assignment, so every sum keeps a
-// fixed order from run to run.
+// Persistent grid: at most max_per_sm resident blocks of `threads` threads
+// on each SM, from the SM count and the occupancy query, and never more
+// blocks than units. Block b takes units b, b + grid, ...: a static
+// assignment, so every sum keeps a fixed order from run to run.
 template <class Kernel>
 inline cudaError_t persistent_grid(Kernel kernel, size_t smem, long long units, int max_per_sm,
-                                   int* grid) {
+                                   int threads, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -208,7 +257,7 @@ inline cudaError_t persistent_grid(Kernel kernel, size_t smem, long long units, 
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   if (per_sm > max_per_sm) per_sm = max_per_sm;
@@ -217,11 +266,32 @@ inline cudaError_t persistent_grid(Kernel kernel, size_t smem, long long units, 
   return cudaSuccess;
 }
 
-// The shapes #1 and #2 both take: G = K * B graphs of 1..kMaxN nodes, H = 64,
-// 1..kMaxE edge features, and 1..65535 weight sets (the grid's y extent).
+// The one dispatch on the width: f(std::integral_constant<int, H>()) for an
+// instantiated H, cudaErrorInvalidValue for any other h. Both kernels' entry
+// points and the backward's scratch size go through it, so a launch and the
+// scratch it is given always agree on H.
+template <class F>
+inline cudaError_t with_width(int h, F&& f) {
+  switch (h) {
+    case 64:
+      return f(std::integral_constant<int, 64>());
+    case 128:
+      return f(std::integral_constant<int, 128>());
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+inline bool instantiated(int h) {
+  return with_width(h, [](auto) { return cudaSuccess; }) == cudaSuccess;
+}
+
+// The shapes #1 and #2 both take: G = K * B graphs of 1..kMaxN nodes, an
+// instantiated H, 1..kMaxE edge features, and 1..65535 weight sets (the
+// grid's y extent).
 inline bool bad_shape(long long g, int n, int h, int e, int k) {
-  return g <= 0 || n < 1 || n > kMaxN || h != 64 || e < 1 || e > kMaxE || k < 1 || k > 65535 ||
-         g % k != 0;
+  return g <= 0 || n < 1 || n > kMaxN || !instantiated(h) || e < 1 || e > kMaxE || k < 1 ||
+         k > 65535 || g % k != 0;
 }
 
 }  // namespace egnn_tc

@@ -22,8 +22,11 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
+# --split-compile=0: the optimizer and ptxas split each source's kernels
+# over the CPUs (the two widths of #1/#2 build side by side)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: dict[str, str] = {}   # source -> nvcc's stderr (ptxas register report)

@@ -41,7 +41,7 @@ from .build import load
 SOURCE = "egnn_fused_fwd.cu"
 BWD_SOURCE = "egnn_fused_bwd.cu"
 CLIP = 100.0
-HIDDEN = (64,)            # widths the kernel is instantiated for
+HIDDEN = (64, 128)        # widths the kernels are instantiated for
 MAX_NODES = 64            # N * N <= 4096, as the TPU kernel's gate
 MAX_EDGE_FEATURES = 4     # E the kernels keep in registers
 
@@ -54,8 +54,9 @@ N_WEIGHTS = 9
 def supported(n: int, hidden: int, dtype, act, flat: bool, norm: bool,
               tanh: bool = False) -> bool:
     """Config gate, the TPU kernel's (nonode_tpu/ops/pallas/egnn_fused.py:
-    355-360). It has no width limit: on the card a width the kernel is not
-    instantiated for raises in ``pairwise_message``."""
+    355-360). It has no width limit: on the card a width outside ``HIDDEN``
+    (the widths the kernels are instantiated for) raises in
+    ``pairwise_message``."""
     from ...nn import silu
     return (dtype == torch.float32 and not flat and not norm and not tanh
             and act is silu and n <= MAX_NODES)

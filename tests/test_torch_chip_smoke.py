@@ -1,10 +1,12 @@
 """The parts of chip_smoke.py that run without a GPU: its refusal without
 CUDA, the bounds it reports, the launch counts it expects of each path, the
 artifact shapes it checks, its refusal without the committed splits, the
-sweep phase's schedule, and the instruments it puts around a driver run (the
-PhaseTimer breakdown, the integrator-step count)."""
+sweep phase's schedule, the instruments it puts around a driver run (the
+PhaseTimer breakdown, the integrator-step count), the mocap run case it
+writes, the mocap path's launch count and the kernels line."""
 
 import json
+import pickle
 
 import numpy as np
 import pytest
@@ -303,3 +305,134 @@ def test_counted_integrator_steps_are_the_launches_path_launches_reckons(
     from nonode_tpu_torch.models.segno import SEGNO
     assert SEGNO.integrate.__name__ == "integrate" and \
         SEGNO.__dict__["integrate"].__qualname__ == "SEGNO.integrate"
+
+
+def test_written_skeleton_is_cmus_31_bone_tree(tmp_path):
+    """The mocap run case: CMU's 31 joints as a tree (root first, parents
+    before children), 11 trials with trial 9 (09_10) 6 frames short, and
+    the skeleton + 2-hop mask's degrees from 2 to 8."""
+    from nonode_tpu_torch.data.amc import Skeleton, parse_asf
+
+    edges, trials = chip_smoke.write_mocap_case(tmp_path)
+    skel = Skeleton(parse_asf(tmp_path / "amc" / "09.asf"))
+    assert len(skel.names) == 31 and skel.names[0] == "root"
+    assert edges == skel.edges() and len(edges) == 30
+    assert all(p < c for c, p in edges)
+    with open(tmp_path / "motion_run.pkl", "rb") as f:
+        pkl_edges, pkl_trials = pickle.load(f)
+    assert pkl_edges == edges and len(pkl_trials) == chip_smoke.MOCAP_TRIALS
+    frames = [x.shape[0] for x in pkl_trials]
+    assert frames[9] == chip_smoke.MOCAP_FRAMES - 6
+    assert all(f == chip_smoke.MOCAP_FRAMES for i, f in enumerate(frames)
+               if i != 9)
+    assert all(x.shape[1:] == (31, 3) and np.isfinite(x).all()
+               for x in pkl_trials)
+    mask = chip_smoke.mocap_mask("cpu")
+    deg = mask.sum(1)
+    assert torch.equal(mask, mask.T) and float(mask.diagonal().abs().sum()) \
+        == 0.0
+    assert (int(deg.min()), int(deg.max()), int(mask.sum())) == (2, 8, 130)
+
+
+def test_mocap_cases_take_the_mocap_paths_shape():
+    """#1/#2 at H=128 are held at the mocap path's shape: G = T x B = 5 x 12
+    graphs of 31 joints, E=1, the written skeleton's mask; with and without
+    the clip, and two seeds over G = 2 x 30."""
+    cpu = torch.device("cpu")
+    assert chip_smoke.MOCAP_G == 5 * 12
+    labels = []
+    for label, kw, clip, timed in chip_smoke.MOCAP_CASES:
+        g, n, h, e, args = chip_smoke.case_inputs(kw, kw["n"], cpu)
+        assert (g, n, h, e) == (60, 31, 128, 1)
+        assert torch.equal(args[4], chip_smoke.mocap_mask(cpu))
+        assert args[1].shape == (60, 31, 128) and args[3].shape == \
+            (60, 31, 31, 1)
+        labels.append((timed, clip))
+    assert labels == [("mocap", False), ("mocap clip", True)]
+    (label, b, clip, _, shape), = chip_smoke.MOCAP_SEED_AXIS_CASES
+    assert (shape["k"] * b, shape["n"], shape["h"], shape["e"]) == \
+        (60, 31, 128, 1) and clip
+    # the H=64 cases keep their shapes and inputs
+    g, n, h, e, args = chip_smoke.case_inputs(
+        chip_smoke.PAIRWISE_CASES[0][1], 5, cpu)
+    assert (g, n, h, e) == (2560, 5, 64, 2)
+    plain = chip_smoke.pairwise_inputs(2560, 5, 64, 2, seed=5, dev=cpu)
+    assert all(torch.equal(a, b) for a, b in zip(args[:5], plain[:5]))
+
+
+def test_mocap_path_launches_are_what_its_splits_ask(tmp_path, monkeypatch):
+    """A tiny motion_main run on the CPU: the calls of #1's and #2's
+    wrappers (a forward a layer; one decode a test batch) are
+    path_launches' counts at the split sizes mocap_split_sizes reads, and
+    phase_breakdown times every part of the run."""
+    from nonode_tpu_torch import motion_main
+    from nonode_tpu_torch.ops.kernels import egnn_fused
+
+    data = tmp_path / "mocap"
+    chip_smoke.write_mocap_case(data)
+    calls = {"egnn_pairwise_fwd": 0, "egnn_pairwise_bwd": 0}
+    for name, attr in (("egnn_pairwise_fwd", "pairwise_message_fwd"),
+                       ("egnn_pairwise_bwd", "pairwise_message_bwd")):
+        fn = getattr(egnn_fused, attr)
+
+        def counted(*a, _fn=fn, _name=name):
+            calls[_name] += 1
+            return _fn(*a)
+        monkeypatch.setattr(egnn_fused, attr, counted)
+    args = motion_main.get_args([
+        "--nf", "16", "--n_layers", "2", "--num_timesteps", "4",
+        "--batch_size", "12", "--max_training_samples", "48", "--epochs", "2",
+        "--test_interval", "1", "--data_dir", str(data), "--outf",
+        str(tmp_path / "out"), "--device", "cpu"])
+    with chip_smoke.phase_breakdown(
+            motion_main, torch.device("cpu"), "MotionDynamicsDataset",
+            [(motion_main.MotionExperiment, "test_pass", "test pass")]) \
+            as timer:
+        motion_main.main(args)
+    sizes = chip_smoke.mocap_split_sizes(data, 48)
+    assert sizes == {"train": 45, "val": 240, "test": 240}
+    assert calls == chip_smoke.path_launches(2, 240 // 12, 1, 2, 45 // 12, 1,
+                                             240 // 12)
+    assert calls == {"egnn_pairwise_fwd": 2 * 3 * 2 + 20 * 2 + 20 * 2,
+                     "egnn_pairwise_bwd": 12}
+    assert {name: s["count"] for name, s in timer.summary().items()} == {
+        "model build": 1, "optimizer build": 1, "data load train": 1,
+        "data load val": 1, "data load test": 1, "epoch draws": 3,
+        "train epoch 0": 1, "train epoch 1": 1, "validation epoch": 1,
+        "checkpoint save": 1, "checkpoint load": 1, "test pass": 1,
+        "artifact write": 1}
+    assert motion_main.MotionDynamicsDataset.__name__ == \
+        "MotionDynamicsDataset"
+
+
+def test_kernels_line_names_the_h128_instantiations():
+    """#1 and #2 appear twice: at H=64 with their launches on the N-body
+    paths, and as <name>_h128 with the mocap cases' numbers and their
+    launches on the mocap path; every entry has the contract's keys."""
+    from nonode_tpu_torch.ops.kernels import KERNELS
+
+    keys = {"max_abs_err": 1e-6, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.1,
+            "bound_by": "operations", "library_ms": None}
+    rows = {k["name"]: dict(keys, width=64) for k in KERNELS}
+    paths = {"train": {k["name"]: 7 for k in KERNELS},
+             "stretch": {k["name"]: 1 for k in KERNELS},
+             "gravity": {k["name"]: 2 for k in KERNELS}}
+    mocap_rows = {n: dict(keys, width=128, ms=3.0)
+                  for n in ("egnn_pairwise_fwd", "egnn_pairwise_bwd")}
+    mocap = {"egnn_pairwise_fwd": 432, "egnn_pairwise_bwd": 192}
+    out = chip_smoke.kernels_line(KERNELS, rows, paths, mocap_rows, mocap)
+    assert [e["name"] for e in out] == [
+        "egnn_pairwise_fwd", "egnn_pairwise_fwd_h128", "egnn_pairwise_bwd",
+        "egnn_pairwise_bwd_h128", "nbody_charged_force",
+        "nbody_gravity_accel", "nbody_charged_leapfrog",
+        "nbody_gravity_leapfrog"]
+    contract = {"name", "route", "source", "replaces", "launches", *keys}
+    assert all(contract <= set(e) for e in out)
+    h128 = {e["name"]: e for e in out if e["name"].endswith("_h128")}
+    assert h128["egnn_pairwise_fwd_h128"]["launches"] == 432
+    assert h128["egnn_pairwise_bwd_h128"]["launches_by_path"] == {
+        "mocap": 192}
+    assert h128["egnn_pairwise_fwd_h128"]["width"] == 128 and \
+        h128["egnn_pairwise_fwd_h128"]["ms"] == 3.0
+    assert out[0]["launches"] == 7 and out[0]["width"] == 64
+    json.dumps({"kernels": out})

@@ -11,8 +11,11 @@ runs on the card's machine, which has neither:
 
 Tolerance: max|kernel - plain| <= 1e-4 x max(1, max|plain|); both are fp32
 (the EGNO kernels' products in split TF32, fp32-class), with sums of up to
-64 products (the N-body kernels: up to N pair terms, and up to 100
-micro-steps) taken in another order.
+128 products (the N-body kernels: up to N pair terms, and up to 100
+micro-steps) taken in another order. #1/#2 are held at both widths they
+are built for, H=64 and H=128 (mocap's, on the skeleton mask of
+chip_smoke.py's written CMU skeleton); H=64 also to the bits of the build
+that had H=64 alone.
 """
 
 from pathlib import Path
@@ -29,6 +32,9 @@ from nonode_tpu_torch.sim.simulators import ChargedSim, GravitySim
 from nonode_tpu_torch.train.loop import SEGNOExperiment
 
 RTOL = 1e-4
+# sha256 of the H=64 outputs of #1 and #2 (scripts/time_pairwise_kernels.py:
+# h64_digest) from the build that instantiated H=64 alone, on an H100 SXM
+H64_DIGEST = "33fb1907313fbc658085584579d82703bc32911819bb4164c0b6efeb622d09c4"
 
 
 @pytest.fixture
@@ -46,7 +52,10 @@ def _inputs(g, n, h, e, seed, dev, coord_scale=1.0, isolated=None):
                             device=dev)
 
     mask = 1.0 - torch.eye(n, device=dev)
-    if isolated is not None:
+    if isolated == "skeleton":            # mocap's skeleton + 2-hop mask
+        import chip_smoke
+        mask = chip_smoke.mocap_mask(dev)
+    elif isolated is not None:
         adj = torch.tensor(rng.rand(n, n) < 0.4, dtype=torch.float32,
                            device=dev)
         adj = torch.maximum(adj, adj.T)
@@ -126,12 +135,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
                                         weights, gtotf, gtotm[:2])
 
 
-def _bwd_inputs(g, n, e, clip, isolated, dev):
-    args = _inputs(g, n, 64, e, seed=n + 7, dev=dev,
+def _bwd_inputs(g, n, e, clip, isolated, dev, h=64):
+    args = _inputs(g, n, h, e, seed=n + 7, dev=dev,
                    coord_scale=400.0 if clip else 1.0, isolated=isolated)
     rng = np.random.RandomState(n)
     cot = tuple(torch.tensor(rng.randn(*s), dtype=torch.float32, device=dev)
-                for s in ((g, n, 3), (g, n, 64)))
+                for s in ((g, n, 3), (g, n, h)))
     return args, cot
 
 
@@ -206,6 +215,89 @@ def test_split_tf32_kernels_on_the_persistent_grid(dev, case):
                                                            *cot))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     _assert_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n,e,clip,isolated,scale", [
+    (60, 31, 1, False, "skeleton", 1.0),   # mocap: G = T x B, E=1
+    (60, 31, 1, True, "skeleton", 1.0),    # the same with the clip
+    (7, 5, 2, False, None, 1.0),           # ragged tiles, 5 graphs a unit
+    (9, 64, 3, True, 10, 1.0),             # N at the gate's limit, E=3
+    (60, 31, 1, False, "skeleton", 200.0),   # activations of order 10^2
+])
+def test_h128_kernels_match_plain_versions(dev, g, n, e, clip, isolated,
+                                           scale):
+    """#1 and #2 at H=128 (weights read from global memory and split as
+    they load; #2 on 64-row tiles of 4 warps): within RTOL of the plain
+    versions, two runs bitwise equal, one launch each."""
+    (x, hi, hj, efea, mask, weights), cot = _bwd_inputs(
+        g, n, e, clip, isolated, dev, h=128)
+    args = (x, hi * scale, hj * scale, efea, mask, weights)
+    before = (egnn_fused.pairwise_message.launches,
+              egnn_fused.pairwise_message_bwd.launches)
+    with torch.no_grad():
+        got = egnn_fused.pairwise_message(clip, *args)
+        again = egnn_fused.pairwise_message(clip, *args)
+    bgot = _flat(egnn_fused.pairwise_message_bwd(clip, *args, *cot))
+    bagain = _flat(egnn_fused.pairwise_message_bwd(clip, *args, *cot))
+    torch.cuda.synchronize()
+    assert (egnn_fused.pairwise_message.launches,
+            egnn_fused.pairwise_message_bwd.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(bgot, bagain))
+    with torch.no_grad():
+        _assert_close(got, egnn_fused.pairwise_message_reference(clip, *args))
+    want = _flat(egnn_fused.pairwise_message_bwd_reference(clip, *args, *cot))
+    assert [a.shape for a in bgot] == [b.shape for b in want]
+    _assert_close(bgot, want)
+
+
+@pytest.mark.cuda
+def test_widths_not_instantiated_raise_on_the_card(dev):
+    """H=96: the wrappers raise before a launch, and the entry points
+    themselves refuse it (cudaErrorInvalidValue, and no scratch size), the
+    one dispatch on the width that both kernels and the scratch share."""
+    (x, hi, hj, efea, mask, weights), cot = _bwd_inputs(4, 5, 2, False, None,
+                                                        dev, h=96)
+    before = (egnn_fused.pairwise_message.launches,
+              egnn_fused.pairwise_message_bwd.launches)
+    with torch.no_grad(), pytest.raises(ValueError, match="unsupported shape"):
+        egnn_fused.pairwise_message(False, x, hi, hj, efea, mask, weights)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        egnn_fused.pairwise_message_bwd(False, x, hi, hj, efea, mask,
+                                        weights, *cot)
+    assert (egnn_fused.pairwise_message.launches,
+            egnn_fused.pairwise_message_bwd.launches) == before
+    invalid = 1                                  # cudaErrorInvalidValue
+    shape = [4, 5, 96, 2, 1, 0, None]            # g, n, h, e, k, clip, stream
+    assert egnn_fused._bind_fwd()(*([None] * 16 + shape)) == invalid
+    bwd, scratch = egnn_fused._bind_bwd()
+    assert bwd(*([None] * 22 + shape)) == invalid
+    assert scratch(4, 5, 96, 2, 1) == -1
+    assert scratch(4, 5, 128, 2, 1) > 0 and scratch(4, 5, 64, 2, 1) > 0
+
+
+@pytest.mark.cuda
+def test_h64_kernels_keep_the_bits_of_the_h64_only_build(dev):
+    """The H=64 outputs of #1 and #2 (scripts/time_pairwise_kernels.py's
+    digest: the slice and SEGNO shapes, N=31 with E=1, two stacked weight
+    sets) are the bits of the build that instantiated H=64 alone, recorded
+    on an H100 SXM (132 SMs: the persistent grid, and with it #2's sum of
+    its per-block weight gradients, depends on the SM count)."""
+    import importlib.util
+
+    import chip_smoke
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if sms != 132:
+        pytest.skip(f"the digest was recorded on 132 SMs; this card has "
+                    f"{sms}")
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "time_pairwise_kernels.py"
+    spec = importlib.util.spec_from_file_location("time_pairwise", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    assert script.h64_digest(chip_smoke, egnn_fused, dev) == H64_DIGEST
 
 
 @pytest.mark.cuda
@@ -325,33 +417,37 @@ def test_segno_rollout_matches_the_cpu(dev):
     assert err <= 1e-3 * max(1.0, float(outs[1].abs().max())), err
 
 
-def _seed_axis(k, b, n, e, clip, dev):
-    """G = k x b graphs and k weight sets, stacked and one by one."""
-    x, hi, hj, efea, mask, _ = _inputs(k * b, n, 64, e, seed=n, dev=dev)
-    sets = [_inputs(1, n, 64, e, seed=n + 1 + s, dev=dev,
+def _seed_axis(k, b, n, e, clip, dev, h=64):
+    """G = k x b graphs and k weight sets, stacked and one by one; N=31 on
+    mocap's skeleton mask."""
+    x, hi, hj, efea, mask, _ = _inputs(
+        k * b, n, h, e, seed=n, dev=dev,
+        isolated="skeleton" if n == 31 else None)
+    sets = [_inputs(1, n, h, e, seed=n + 1 + s, dev=dev,
                     coord_scale=400.0 if clip else 1.0)[5]
             for s in range(k)]
     rng = np.random.RandomState(k)
     cot = tuple(torch.tensor(rng.randn(*s), dtype=torch.float32, device=dev)
-                for s in ((k * b, n, 3), (k * b, n, 64)))
+                for s in ((k * b, n, 3), (k * b, n, h)))
     return (x, hi, hj, efea, mask), sets, cot
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,b,n,e,clip", [
-    (5, 2560, 5, 2, False),      # EGNO's fleet shape
-    (5, 256, 5, 2, True),        # SEGNO's, with the clip
-    (3, 7, 5, 2, True),          # a ragged tile per seed
-    (2, 3, 64, 3, False),        # graphs over several tiles, E=3
-    (1, 9, 5, 2, False),         # one stacked set
+@pytest.mark.parametrize("k,b,n,e,clip,h", [
+    (5, 2560, 5, 2, False, 64),      # EGNO's fleet shape
+    (5, 256, 5, 2, True, 64),        # SEGNO's, with the clip
+    (3, 7, 5, 2, True, 64),          # a ragged tile per seed
+    (2, 3, 64, 3, False, 64),        # graphs over several tiles, E=3
+    (1, 9, 5, 2, False, 64),         # one stacked set
+    (2, 30, 31, 1, True, 128),       # mocap's width and shape, two seeds
 ])
 def test_seed_axis_kernels_give_the_bits_of_single_seed_launches(
-        dev, k, b, n, e, clip):
+        dev, k, b, n, e, clip, h):
     """#1 and #2 with k stacked weight sets over G = k x b graphs in one
     launch each: every output bitwise equal to one launch per seed (the
     weight-gradient slots keep each seed's block order), and within 1e-4 x
     max(1, max|plain|) of the plain seed-axis version."""
-    nodes, sets, cot = _seed_axis(k, b, n, e, clip, dev)
+    nodes, sets, cot = _seed_axis(k, b, n, e, clip, dev, h)
     stacked = tuple(torch.stack(ws) for ws in zip(*sets))
     part = lambda t, s: t[s * b:(s + 1) * b]                    # noqa: E731
     before = (egnn_fused.pairwise_message.launches,

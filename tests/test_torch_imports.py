@@ -6,8 +6,9 @@ Every module of nonode_tpu_torch, chip_smoke.py and the port's profiling
 scripts are scanned: no jax, no
 module of the JAX package nonode_tpu, and flax, optax, yaml, wandb and
 matplotlib only inside a function (imported lazily, when asked for). Then
-the entry point is imported, and the sweep and report CLIs print their
-help, in a fresh interpreter with those packages blocked.
+the entry points and the mocap modules are imported, and the sweep, report
+and mocap CLIs print their help, in a fresh interpreter with those
+packages blocked.
 """
 
 import ast
@@ -60,6 +61,8 @@ def test_main_imports_with_jax_and_friends_blocked():
             f"for m in {blocked!r}:\n"
             "    sys.modules[m] = None\n"
             "import nonode_tpu_torch.main\n"
+            "import nonode_tpu_torch.motion_main\n"
+            "import nonode_tpu_torch.data.amc\n"
             "import nonode_tpu_torch.ops.kernels\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -69,7 +72,8 @@ def test_main_imports_with_jax_and_friends_blocked():
 
 
 @pytest.mark.parametrize("module", ["nonode_tpu_torch.parallel.sweep",
-                                    "nonode_tpu_torch.analysis.registry"])
+                                    "nonode_tpu_torch.analysis.registry",
+                                    "nonode_tpu_torch.motion_main"])
 def test_cli_help_runs_with_jax_and_friends_blocked(module):
     blocked = ["jax", "jaxlib", "flax", "optax", "yaml", "wandb",
                "matplotlib", "nonode_tpu"]
