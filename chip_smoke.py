@@ -28,7 +28,14 @@ Phases, each timed on its own line:
    memory) at the mocap path's shape: G=60, N=31, E=1 on the written
    skeleton's skeleton + 2-hop mask, without and with the clip, and K=2
    weight sets over G = 2 x 30; each against its plain version, twice
-   bitwise equal, timed beside its bound;
+   bitwise equal, timed beside its bound. #1 and #2 on receiver slices
+   (the particle axis over --space): N=10 in two slices of 5 receivers at
+   G=50 (with and without the clip) and G=500; the whole-graph launch,
+   (0, N), bitwise the H=64-only build (a sha256 of its outputs, on 132
+   SMs) and the launch without a slice; the slices' tot_f, tot_m, dhi and
+   defea side by side bitwise the whole launch's, their dx, dhj and weight
+   gradients summed within 1e-5 of it; each slice against its plain
+   version and timed beside its bound;
 4. main path: ``nonode_tpu_torch.main --model egno --only_test true`` on the
    committed charged-5 test split at the canonical EGNO width (4 layers,
    hidden 64, T=10, batch 256, traj_len 20), weights from --seed 42. Checks
@@ -102,13 +109,25 @@ Phases, each timed on its own line:
    splits ask, the artifact's preds [240, 5, 31, 3] and its test_loss the
    MSE of its own preds within rtol 1e-5, the run's wall by PhaseTimer;
    train batch 0's loss and every gradient on the card within 1e-3 x
-   max(1, max|.|) of the port's CPU; a step's wall and idle share.
+   max(1, max|.|) of the port's CPU; a step's wall and idle share;
+20. multi-rank path: a training step through the mesh's code path in a
+   one-rank NCCL group, bitwise the step without a group; then gloo ranks
+   sharing the card (parallel/mesh.py's backend rule): train batch 0's
+   loss and gradients through ``--dp 2`` (EGNO and SEGNO, committed
+   splits) and ``--dp 2 --space 2`` (EGNO on charged-10 splits that the
+   port's sim.generate writes here) within 1e-4 x max(1, max|g|) of one
+   process's, with rank 0's traced steps; then ``main`` at those flags
+   (batch 100, 1000 training samples, 2 epochs, 2 test windows) against
+   one process of the same arguments: every loss within rtol 2e-4, each
+   rank's launches those of one process; the placement line, the walls
+   and the launches summed over the ranks.
 
 Every kernel's time is its device time alone (CUDA events around one call,
 the stream held busy while the host enqueues it), median of repeats. Then it
 prints the kernels line (each kernel's launches on its own path, and on
-every path; #1 and #2 also as their H=128 instantiations, with the mocap
-path's launches) and, last, one JSON line with the device. It exits non-zero,
+every path, the multi-rank paths' summed over their ranks; #1 and #2 with
+their receiver-slice cases, and as their H=128 instantiations, with the
+mocap path's launches) and, last, one JSON line with the device. It exits non-zero,
 with no result, without CUDA, outside the repository, or when the checkout
 lacks the committed splits.
 """
@@ -259,15 +278,19 @@ def pairwise_flops_per_edge(h, e):
     return 2 * (2 * h * h + h + e * h + h) + 12 * h
 
 
-def pairwise_bytes(g, n, h, e, backward=False):
+def pairwise_bytes(g, n, h, e, backward=False, ni=None):
     """Bytes the chain (or its backward) must move: each input read once,
-    each output written once."""
+    each output written once. ``ni``: the receivers of a slice (x, hj, dx
+    and dhj stay N a graph; default: the whole graph)."""
+    ni = n if ni is None else ni
     weights = 2 * h * h + 5 * h + e * h + 1
-    inputs = g * n * 3 + 2 * g * n * h + g * n * n * e + n * n + weights
-    outputs = g * n * 3 + g * n * h
+    inputs = (g * n * 3 + g * ni * h + g * n * h + g * ni * n * e + ni * n
+              + weights)
+    outputs = g * ni * 3 + g * ni * h
     if backward:
-        inputs += g * n * 3 + g * n * h                   # the cotangents
-        outputs = g * n * 3 + 2 * g * n * h + g * n * n * e + weights
+        inputs += g * ni * 3 + g * ni * h                 # the cotangents
+        outputs = (g * n * 3 + g * ni * h + g * n * h + g * ni * n * e
+                   + weights)
     return 4 * (inputs + outputs)
 
 
@@ -277,10 +300,10 @@ def pairwise_bound_ms(g, mask, h, e):
     output written once) over the HBM rate. The operations are those of the
     edges the [N, N] mask keeps, the only ones the outputs depend on
     (pairwise_flops_per_edge each)."""
-    n = mask.shape[-1]
+    ni, n = mask.shape
     edges = g * int((mask != 0).sum())
     t_ops = edges * pairwise_flops_per_edge(h, e) / PEAK_FP32_FLOPS
-    t_bytes = pairwise_bytes(g, n, h, e) / PEAK_BYTES
+    t_bytes = pairwise_bytes(g, n, h, e, ni=ni) / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -295,7 +318,7 @@ def pairwise_tc_bound_ms(g, mask, h, e, backward=False):
     special-function units; the bytes as in the fp32 bound. The pipes work
     side by side, so the bound is the longest of the four. Returns (ms, the
     pipe that sets it)."""
-    n = mask.shape[-1]
+    ni, n = mask.shape
     edges = g * int((mask != 0).sum())
     products = (6 if backward else 2) * 2 * h * h
     total = (pairwise_bwd_flops_per_edge(h, e) if backward
@@ -303,7 +326,7 @@ def pairwise_tc_bound_ms(g, mask, h, e, backward=False):
     times = {"tensor cores": edges * 3 * products / PEAK_TF32_FLOPS,
              "CUDA cores": edges * (total - products) / PEAK_FP32_FLOPS,
              "special-function units": edges * 3 * h * 2 / PEAK_RSQRT,
-             "bytes": pairwise_bytes(g, n, h, e, backward) / PEAK_BYTES}
+             "bytes": pairwise_bytes(g, n, h, e, backward, ni) / PEAK_BYTES}
     pipe = max(times, key=times.get)
     return 1e3 * times[pipe], pipe
 
@@ -449,10 +472,10 @@ def pairwise_bwd_bound_ms(g, mask, h, e):
     zero) over the fp32 peak and its bytes (the forward's inputs and the two
     cotangents read once; dx, dhi, dhj, defea and the weight gradients
     written once) over the HBM rate."""
-    n = mask.shape[-1]
+    ni, n = mask.shape
     edges = g * int((mask != 0).sum())
     t_ops = edges * pairwise_bwd_flops_per_edge(h, e) / PEAK_FP32_FLOPS
-    t_bytes = pairwise_bytes(g, n, h, e, backward=True) / PEAK_BYTES
+    t_bytes = pairwise_bytes(g, n, h, e, backward=True, ni=ni) / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -664,6 +687,181 @@ def check_seed_axis_kernels(egnn_fused, dev, cases=SEED_AXIS_CASES):
                 seeds=k, graphs_per_seed=b, max_rel_err=max(errs[which]),
                 ms=ms, single_seed_launches_ms=k_ms, plain_ms=plain_ms,
                 library_ms=None, **route_row(ms, fp32, tc))
+    return rows
+
+
+# #1/#2 on receiver slices, the particle axis over ``--space`` ranks: the
+# --dp 2 --space 2 shape of the multi-rank path, N=10 split in two slices
+# of ni=5 receivers; G = 50 (a rank's batch of 50 graphs) with and without
+# the clip, and G = 500 (EGNO's T x 50). (label, G, clip_edges,
+# coord_scale)
+SLICE_N, SLICE_SPACE = 10, 2
+SLICE_CASES = [
+    ("slice G=50 N=10 ni=5", 50, False, 1.0),
+    ("slice G=50 N=10 ni=5 clip_edges=True", 50, True, 400.0),
+    ("slice G=500 N=10 ni=5 (EGNO, T x 50)", 500, False, 1.0),
+]
+# a sender-side gradient (dx, dhj) and the weight gradients summed over the
+# slices against the whole-graph launch: the same per-edge terms, summed
+# over the receivers in two parts instead of one (about 1e-6 relative)
+SLICE_RTOL = 1e-5
+# sha256 of #1's and #2's H=64 outputs (scripts/time_pairwise_kernels.py:
+# h64_digest) from the build that instantiated H=64 alone, on an H100 SXM
+# with 132 SMs (tests/test_torch_cuda.py holds the same): the whole-graph
+# launch, (0, N), keeps those bits
+H64_DIGEST = "33fb1907313fbc658085584579d82703bc32911819bb4164c0b6efeb622d09c4"
+
+
+def h64_digest_check(egnn_fused, dev):
+    """The whole-graph launches' digest against the H=64-only build's, on
+    a card of 132 SMs (the persistent grids depend on the SM count)."""
+    import importlib.util
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if sms != 132:
+        print(f"  (0, N) digest: not checked, the card has {sms} SMs",
+              flush=True)
+        return
+    spec = importlib.util.spec_from_file_location(
+        "time_pairwise_kernels", ROOT / "scripts" / "time_pairwise_kernels.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    digest = script.h64_digest(sys.modules[__name__], egnn_fused, dev)
+    if digest != H64_DIGEST:
+        raise AssertionError(f"#1/#2 at (0, N) lost the bits of the "
+                             f"H=64-only build: digest {digest}")
+    print(f"  (0, N): #1 and #2 outputs bitwise those of the H=64-only "
+          f"build (sha256 {digest[:16]}...)", flush=True)
+
+
+def check_slice_kernels(egnn_fused, dev, cases=SLICE_CASES):
+    """#1 and #2 on SLICE_SPACE receiver slices of N=SLICE_N against the
+    whole-graph launch of the same inputs: the (0, N) slice bitwise the
+    launch without a slice; the slices' tot_f, tot_m, dhi and defea put
+    side by side bitwise the whole launch's (each row sums over j in the
+    same order; for dhi, #2's tiles hold a graph's rows whole at N = 10);
+    dx, dhj and the weight gradients summed over the slices
+    within SLICE_RTOL x max(1, max|whole|); each slice within KERNEL_RTOL
+    of its plain version and bitwise over two runs. The second slice (i0 =
+    ni) timed beside its plain version and its bound. Returns {kernel:
+    {label: row}}."""
+    rows = {"egnn_pairwise_fwd": {}, "egnn_pairwise_bwd": {}}
+    n, ni, h, e = SLICE_N, SLICE_N // SLICE_SPACE, 64, 2
+    for label, g, clip, scale in cases:
+        x, hi, hj, efea, mask, w = pairwise_inputs(g, n, h, e, seed=g,
+                                                   dev=dev, coord_scale=scale)
+        rng = np.random.RandomState(g + 1)
+        cot = tuple(torch.tensor(rng.randn(*shape), dtype=torch.float32,
+                                 device=dev)
+                    for shape in ((g, n, 3), (g, n, h)))
+
+        def part(s):
+            cut = lambda t, dim=1: t.narrow(  # noqa: E731
+                dim, s * ni, ni).contiguous()
+            return ((x, cut(hi), hj, cut(efea), cut(mask, 0), w),
+                    tuple(cut(c) for c in cot), s * ni)
+
+        parts = [part(s) for s in range(SLICE_SPACE)]
+        with torch.no_grad():
+            whole = egnn_fused.pairwise_message(clip, x, hi, hj, efea, mask, w)
+            at0 = egnn_fused.pairwise_message(clip, x, hi, hj, efea, mask, w,
+                                              i0=0)
+            fwd = [egnn_fused.pairwise_message(clip, *a, i0=i0)
+                   for a, _, i0 in parts]
+            again = egnn_fused.pairwise_message(clip, *parts[1][0],
+                                                i0=parts[1][2])
+        bwhole = bwd_outputs(egnn_fused.pairwise_message_bwd(
+            clip, x, hi, hj, efea, mask, w, *cot))
+        bwd = [bwd_outputs(egnn_fused.pairwise_message_bwd(clip, *a, *c,
+                                                           i0=i0))
+               for a, c, i0 in parts]
+        bagain = bwd_outputs(egnn_fused.pairwise_message_bwd(
+            clip, *parts[1][0], *parts[1][1], i0=parts[1][2]))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(at0, whole)):
+            raise AssertionError(f"{label}: the (0, N) slice differs from "
+                                 f"the launch without a slice")
+        if not all(torch.equal(a, b) for a, b in zip(again, fwd[1])) or \
+                not all(torch.equal(v, bwd[1][k]) for k, v in bagain.items()):
+            raise AssertionError(f"{label}: a slice differs between two "
+                                 f"runs of the kernel")
+        for k, name in enumerate(("tot_f", "tot_m")):
+            if not torch.equal(torch.cat([f[k] for f in fwd], 1), whole[k]):
+                raise AssertionError(f"{label}: the slices' {name} side by "
+                                     f"side differ from the whole launch's")
+        for name in ("dhi", "defea"):
+            if not torch.equal(torch.cat([b[name] for b in bwd], 1),
+                               bwhole[name]):
+                raise AssertionError(f"{label}: the slices' {name} side by "
+                                     f"side differ from the whole launch's")
+        summed = {}
+        for name, want in bwhole.items():
+            if name in ("dhi", "defea"):
+                continue
+            got = sum(b[name] for b in bwd)
+            rel = float((got - want).abs().max()) / max(
+                1.0, float(want.abs().max()))
+            if not torch.isfinite(got).all() or rel > SLICE_RTOL:
+                raise AssertionError(f"{label}: {name} summed over the "
+                                     f"slices is {rel:.3e} relative from the "
+                                     f"whole launch's (> {SLICE_RTOL})")
+            summed[name] = rel
+        errs = {"egnn_pairwise_fwd": 0.0, "egnn_pairwise_bwd": 0.0}
+        for a, c, i0 in parts:
+            want = egnn_fused.pairwise_message_reference(clip, *a, i0=i0)
+            bwant = bwd_outputs(egnn_fused.pairwise_message_bwd_reference(
+                clip, *a, *c, i0=i0))
+            got = fwd[i0 // ni]
+            for which, pairs in (
+                    ("egnn_pairwise_fwd", zip(got, want)),
+                    ("egnn_pairwise_bwd", ((bwd[i0 // ni][k], v)
+                                           for k, v in bwant.items()))):
+                for kern, plain in pairs:
+                    err = float((kern - plain).abs().max())
+                    scale_ = max(1.0, float(plain.abs().max()))
+                    if err > KERNEL_RTOL * scale_:
+                        raise AssertionError(
+                            f"{label} slice i0={i0}: {which} disagrees with "
+                            f"the plain version: {err} > {KERNEL_RTOL} x "
+                            f"{scale_}")
+                    errs[which] = max(errs[which], err)
+        worst = max(summed, key=summed.get)
+        print(f"  {label}: (0, N) bitwise the launch without a slice; "
+              f"{SLICE_SPACE} slices' tot_f, tot_m, dhi, defea side by side "
+              f"bitwise the whole launch's; summed dx, dhj and weight "
+              f"gradients within {summed[worst]:.3e} relative ({worst}; "
+              f"tolerance {SLICE_RTOL:g}); each slice within "
+              f"{errs['egnn_pairwise_fwd']:.3e} (forward) and "
+              f"{errs['egnn_pairwise_bwd']:.3e} (backward) of its plain "
+              f"version (tolerance {KERNEL_RTOL:g} x max(1, max|plain|)); "
+              f"two runs bitwise equal", flush=True)
+        (a, c, i0) = parts[1]
+        smask = a[4]
+        timing = {
+            "egnn_pairwise_fwd": (
+                lambda: egnn_fused.pairwise_message(clip, *a, i0=i0),
+                lambda: egnn_fused.pairwise_message_reference(clip, *a,
+                                                              i0=i0),
+                pairwise_bound_ms(g, smask, h, e),
+                pairwise_tc_bound_ms(g, smask, h, e)),
+            "egnn_pairwise_bwd": (
+                lambda: egnn_fused.pairwise_message_bwd(clip, *a, *c, i0=i0),
+                lambda: egnn_fused.pairwise_message_bwd_reference(
+                    clip, *a, *c, i0=i0),
+                pairwise_bwd_bound_ms(g, smask, h, e),
+                pairwise_tc_bound_ms(g, smask, h, e, backward=True))}
+        for which, (fn, fn_plain, fp32, tc) in timing.items():
+            with torch.no_grad():
+                ms, plain_ms = device_ms(fn), device_ms(fn_plain)
+            print(f"  {label} i0={i0}: {which} kernel {ms:.4f} ms, plain "
+                  f"version {plain_ms:.4f} ms (no yardstick), "
+                  f"{bounds_text(fp32, tc, ms)}; no single PyTorch call "
+                  f"computes this function", flush=True)
+            rows[which][label] = dict(
+                graphs=g, nodes=n, receivers=ni, i0=i0, clip_edges=clip,
+                max_abs_err=errs[which], summed_rel_err=summed[worst]
+                if which == "egnn_pairwise_bwd" else 0.0, ms=ms,
+                plain_ms=plain_ms, library_ms=None, **route_row(ms, fp32, tc))
     return rows
 
 
@@ -1648,9 +1846,9 @@ def counted_integrator_steps():
     original = SEGNO.__dict__["integrate"]
     steps = {"recorded": 0, "not recorded": 0}
 
-    def integrate(self, h, x, v, edge_attr, n):
+    def integrate(self, h, x, v, edge_attr, n, rows=None):
         steps["recorded" if torch.is_grad_enabled() else "not recorded"] += n
-        return original(self, h, x, v, edge_attr, n)
+        return original(self, h, x, v, edge_attr, n, rows)
     SEGNO.integrate = integrate
     try:
         yield steps
@@ -2079,6 +2277,252 @@ def run_mocap_path(kernels, tmp, dev):
     return launches
 
 
+# the multi-rank path: ``main --dp/--space`` against the single process of
+# the same arguments. Losses within JAX's own bound for its mesh runs
+# (tests/test_driver.py:119-132: rtol 2e-4); a step's gradients within
+# MESH_GRAD_RTOL x max(1, max|g|): the same fp32 terms, summed over ranks
+# in another order
+MESH_LOSS_RTOL = 2e-4
+MESH_GRAD_RTOL = 1e-4
+# the multi-rank runs: batch 100 (the reference's presets), two epochs,
+# 1000 of the committed training samples and two test windows (cut to fit
+# the ranks that share the card in the call)
+MESH_BATCH, MESH_SAMPLES, MESH_TRAJ = 100, 1000, 2
+# the charged-10 splits that the phase writes (sim.generate on the card)
+MESH_N10 = {"train": 200, "valid": 100, "test": 100}
+
+
+def one_rank_nccl_step(nt_main, kernels, data_dir, dev, tmp):
+    """A training step of the seed-42 EGNO on train batch 0 through the
+    mesh's code path in a one-rank NCCL group (the batch cut, the loss's
+    share, the gradients' all-reduce in one buffer, the reported losses'
+    all-reduce): the loss and every parameter after the step bitwise those
+    of the step without a group."""
+    import torch.distributed as dist
+    from nonode_tpu_torch.parallel import mesh as meshes
+
+    plain, _, plain_step = train_batch0(nt_main, "egno", dev, data_dir)
+    exp, _, step = train_batch0(nt_main, "egno", dev, data_dir)
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'nccl'}",
+                            rank=0, world_size=1)
+    try:
+        meshes.apply_mesh(exp, meshes.make_mesh(1, 1, 0, dev, "nccl"))
+        want = plain_step(0)
+        reset_launches(kernels)
+        got = step(0)
+        torch.cuda.synchronize()
+        launches = read_launches(
+            kernels, {"egnn_pairwise_fwd": LAYERS,
+                      "egnn_pairwise_bwd": LAYERS},
+            f"one-rank NCCL step ({LAYERS} layers, forward and backward)")
+    finally:
+        dist.destroy_process_group()
+    same = all(torch.equal(a, b) for a, b in zip(got, want)) and all(
+        torch.equal(a, b) for a, b in zip(exp.model.parameters(),
+                                          plain.model.parameters()))
+    if not same:
+        raise AssertionError("the one-rank NCCL step differs from the step "
+                             "without a group")
+    print(f"  one-rank NCCL group (backend {dist.Backend.NCCL}): a training "
+          f"step's loss {float(got[0][0])!r} and all "
+          f"{len(list(exp.model.parameters()))} parameters after it bitwise "
+          f"those of the step without a group; launches "
+          f"{json.dumps(launches)}", flush=True)
+    return launches
+
+
+def write_charged10(tmp):
+    """Small charged-10 splits (60 frames) from the port's dataset writer
+    on the card, for the particle axis over two ranks."""
+    from nonode_tpu_torch.sim import generate
+
+    data = tmp / "charged10"
+    args = generate.get_args([
+        "--simulation", "charged", "--num-train", str(MESH_N10["train"]),
+        "--num-valid", str(MESH_N10["valid"]), "--num-test",
+        str(MESH_N10["test"]), "--length", "6000", "--length_test", "6000",
+        "--n_balls", "10", "--suffix", "small", "--chunk", "200",
+        "--seed", str(SEED), "--outdir", str(data)])
+    t0 = time.perf_counter()
+    run_echoed(generate.main, args)
+    torch.cuda.synchronize()
+    print(f"  charged-10 splits {MESH_N10} written on the card in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return data
+
+
+def batch0_grads(model, where, data_dir, extra, mesh=None):
+    """The seed-42 weights' loss and gradients on train batch 0 of the
+    driver's first epoch (the driver flags ``extra``), through ``mesh``'s
+    code path when given (the loss and the gradients summed over its
+    world); then two training steps on that batch under torch.profiler.
+    Returns (loss, {name: gradient on the CPU}, traced)."""
+    from nonode_tpu_torch import main as nt_main
+    from nonode_tpu_torch.data.nbody import NBodyDataset
+    from nonode_tpu_torch.parallel.mesh import apply_mesh
+
+    args = nt_main.get_args(["--model", model, *extra])
+    exp = seed_experiment(nt_main, model, where, extra=extra)
+    if mesh is not None:
+        apply_mesh(exp, mesh)
+    ds = NBodyDataset(data_dir, partition="train", n_balls=args.n_balls,
+                      max_samples=args.max_samples, device=where)
+    perm, windows = exp.draw_epoch(ds, np.random.RandomState(SEED),
+                                   args.batch_size)
+    batch = exp.batch(ds, windows, 0, torch.from_numpy(perm[0]).to(where))
+    loss, _ = exp._loss(exp.shard(batch))
+    loss.backward()
+    loss = loss.detach().clone()
+    if mesh is not None:
+        mesh.all_reduce_grads(exp.model.parameters())
+        mesh.all_reduce(loss)
+    grads = {k: p.grad.detach().cpu() for k, p in
+             exp.model.named_parameters() if p.grad is not None}
+    exp.optimizer
+    trace = traced(lambda: [exp.step(batch), exp.step(batch)])
+    return float(loss), grads, trace
+
+
+def mesh_grads_on_rank(mesh, configs):
+    """``batch0_grads`` of each (label, model, data_dir, flags) of
+    ``configs`` on the calling rank of ``mesh``."""
+    return {label: batch0_grads(model, mesh.device, data_dir, extra, mesh)
+            for label, model, data_dir, extra in configs}
+
+
+def check_mesh_grads(configs, dp, space, dev):
+    """Train batch 0's loss and gradients of every config through dp x
+    space ranks (rank 0's, summed over the world) against the single
+    process's; each within MESH_GRAD_RTOL. Prints rank 0's traced steps."""
+    from nonode_tpu_torch.parallel import mesh as meshes
+
+    t0 = time.perf_counter()
+    got = meshes.launch(mesh_grads_on_rank, (configs,), dp, space, dev)
+    wall = time.perf_counter() - t0
+    for label, model, data_dir, extra in configs:
+        loss, grads, (twall, tdev, tlaunches, idle) = got[label]
+        want_loss, want, _ = batch0_grads(model, dev, data_dir, extra)
+        if set(grads) != set(want) or abs(loss - want_loss) > \
+                MESH_GRAD_RTOL * max(1.0, abs(want_loss)):
+            raise AssertionError(f"{label}: loss {loss} against {want_loss}, "
+                                 f"or other parameters with a gradient")
+        worst = (0.0, "")
+        for name, g in want.items():
+            err = float((grads[name] - g).abs().max())
+            scale = max(1.0, float(g.abs().max()))
+            if not torch.isfinite(grads[name]).all() \
+                    or err > MESH_GRAD_RTOL * scale:
+                raise AssertionError(f"{label}: gradient of {name} through "
+                                     f"the ranks vs one process {err} > "
+                                     f"{MESH_GRAD_RTOL} x {scale}")
+            worst = max(worst, (err / scale, name))
+        print(f"  {label} train batch 0 ({dp} x {space} ranks): loss "
+              f"{loss!r} against one process's {want_loss!r}; {len(want)} "
+              f"gradients, worst relative error {worst[0]:.3e} ({worst[1]}; "
+              f"tolerance {MESH_GRAD_RTOL:g} x max(1, max|g|)); rank 0 "
+              f"traced over 2 steps: wall {1e3 * twall:.3f} ms, device "
+              f"{tdev:.3f} ms over {tlaunches} launches, idle share "
+              f"{idle:.4f}; the launch's wall {wall:.3f} s", flush=True)
+
+
+def run_mesh_main(nt_main, kernels, label, argv, dp, space, want, n_balls,
+                  tmp):
+    """``main`` with ``argv`` alone and at ``--dp dp --space space``: the
+    single run launches #1/#2 as ``want`` says, and so does every rank;
+    the mesh run's train, validation and test losses within MESH_LOSS_RTOL
+    of the single run's, its artifact of the same shapes. Returns the
+    launches summed over the ranks."""
+    from nonode_tpu_torch.analysis.registry import artifact_stem
+    from nonode_tpu_torch.parallel import mesh as meshes
+
+    model = argv[argv.index("--model") + 1]
+    stem = artifact_stem(model, "charged", SEED, n_balls)
+    runs = {}
+    for name, extra in (("single", []),
+                        ("mesh", ["--dp", str(dp), "--space", str(space)])):
+        out = tmp / label.replace(" ", "_") / name
+        args = nt_main.get_args([*argv, "--outf", str(out), *extra])
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        lines, _ = run_echoed(nt_main.main, args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(kernels, want if name == "single" else {},
+                                 f"{label} {name} run in this process")
+        run = out / args.exp_name
+        runs[name] = (json.loads((run / f"{stem}.json").read_text()),
+                      np.load(run / f"{stem}_results.npz"), wall, lines)
+    ranks = meshes.launch.rank_launches
+    expect = {k["name"]: want.get(k["name"], 0) for k in kernels}
+    if len(ranks) != dp * space or any(r != expect for r in ranks):
+        raise AssertionError(f"{label}: the ranks launched {ranks}, each "
+                             f"expected {expect}")
+    (res, art, wall, _), (mres, mart, mwall, mlines) = runs["single"], \
+        runs["mesh"]
+    for key in ("train loss", "val loss", "test loss"):
+        if len(res[key]) != len(mres[key]) or not np.allclose(
+                mres[key], res[key], rtol=MESH_LOSS_RTOL, atol=0,
+                equal_nan=True) or not np.isfinite(res[key]).all():
+            raise AssertionError(f"{label}: {key} {mres[key]} through the "
+                                 f"ranks, {res[key]} alone (rtol "
+                                 f"{MESH_LOSS_RTOL})")
+    for key in ("targets", "preds", "energy_conservation"):
+        if mart[key].shape != art[key].shape:
+            raise AssertionError(f"{label}: artifact {key} has shape "
+                                 f"{mart[key].shape}, alone "
+                                 f"{art[key].shape}")
+    summed = {k: sum(r[k] for r in ranks) for k in expect}
+    worst = max(abs(a - b) / abs(b) for key in ("train loss", "val loss",
+                                                "test loss")
+                for a, b in zip(mres[key], res[key]))
+    placement = [line for line in mlines if line.startswith("mesh: ")]
+    print(f"  {label}: {placement[0] if placement else 'no placement line'}"
+          f"; losses {mres['train loss']} {mres['val loss']} "
+          f"{mres['test loss']} against one process's {res['train loss']} "
+          f"{res['val loss']} {res['test loss']}, worst relative difference "
+          f"{worst:.3e} (tolerance {MESH_LOSS_RTOL:g}); wall {mwall:.3f} s "
+          f"against one process's {wall:.3f} s; each rank's launches those "
+          f"of one process, summed over {dp * space} ranks "
+          f"{json.dumps(summed)}", flush=True)
+    return summed
+
+
+def run_multi_rank_path(nt_main, kernels, data_dir, tmp, dev):
+    """The mesh's code path in a one-rank NCCL group, then ``main --dp 2``
+    (EGNO and SEGNO on the committed splits) and ``main --n_balls 10 --dp 2
+    --space 2`` (EGNO on charged-10 splits written here) as gloo ranks
+    sharing the card, each against one process: a step's gradients, then
+    the two-epoch driver runs. Returns the multi-rank paths' launches
+    summed over their ranks."""
+    paths = {"one-rank nccl": one_rank_nccl_step(nt_main, kernels, data_dir,
+                                                 dev, tmp)}
+    d10 = write_charged10(tmp)
+    flags = ["--batch_size", str(MESH_BATCH), "--max_samples",
+             str(MESH_SAMPLES)]
+    runs = [("dp2 egno", "egno", data_dir, 5, 2, 1),
+            ("dp2 segno", "segno", data_dir, 5, 2, 1),
+            ("dp2 space2 egno", "egno", d10, 10, 2, 2)]
+    for dp, space in ((2, 1), (2, 2)):
+        check_mesh_grads(
+            [(label, model, d, flags + ["--n_balls", str(n)])
+             for label, model, d, n, dp_, space_ in runs
+             if (dp_, space_) == (dp, space)], dp, space, dev)
+    for label, model, d, n, dp, space in runs:
+        sizes = ({s: split_size(d, s) for s in SPLITS} if n == 5
+                 else MESH_N10)
+        want = path_launches(
+            EXPECT[model]["per_forward"], sizes["test"] // MESH_BATCH,
+            MESH_TRAJ, 2, min(MESH_SAMPLES, sizes["train"]) // MESH_BATCH,
+            1, sizes["valid"] // MESH_BATCH)
+        argv = ["--model", model, "--only_test", "false", "--device", "cuda",
+                "--data_dir", str(d), "--n_balls", str(n), "--epochs", "2",
+                "--test_interval", "1", "--traj_len", str(MESH_TRAJ),
+                "--seed", str(SEED), *flags]
+        paths[label] = run_mesh_main(nt_main, kernels, label, argv, dp,
+                                     space, want, n, tmp)
+    return paths
+
+
 # each kernel's launches on the path that runs it at full width: #1/#2 at
 # H=64 on the N-body train path, the N-body kernels on their runs
 OWN_PATH = {"egnn_pairwise_fwd": "train", "egnn_pairwise_bwd": "train",
@@ -2143,8 +2587,11 @@ def main():
                  "egnn_pairwise_bwd": check_pairwise_bwd_kernel(egnn_fused,
                                                                 dev)}
     seed_rows = check_seed_axis_kernels(egnn_fused, dev)
+    h64_digest_check(egnn_fused, dev)
+    slice_rows = check_slice_kernels(egnn_fused, dev)
     rows = {name: dict(r["slice"], width=64, segno_shape=r["segno"],
-                       ragged_shape=r["ragged"], seed_axis=seed_rows[name])
+                       ragged_shape=r["ragged"], seed_axis=seed_rows[name],
+                       receiver_slice=slice_rows[name])
             for name, r in pair_rows.items()}
     mocap_rows = {
         "egnn_pairwise_fwd": check_pairwise_kernel(egnn_fused, dev,
@@ -2239,6 +2686,12 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         mocap_launches = run_mocap_path(KERNELS, Path(tmp), dev)
     phase("mocap path", t0)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(run_multi_rank_path(nt_main, KERNELS, data_dir,
+                                         Path(tmp), dev))
+    phase("multi-rank path", t0)
 
     out = kernels_line(KERNELS, rows, paths, mocap_rows, mocap_launches)
     print(json.dumps({"kernels": out}), flush=True)

@@ -16,6 +16,11 @@
 //   dhi[i] = sum_j dpre1[i,j];  dhj[j] = sum_i dpre1[i,j]
 //   defea[i,j] = dpre1[i,j] @ We^T
 // and the nine weight gradients summed over every edge of every graph.
+// A launch takes the receivers i in [i0, i0 + ni) of every graph against all
+// N senders (a receiver slice: hi, efea, mask, gtotf, gtotm, dhi and defea
+// hold the slice's rows; x, hj, dx and dhj all N). dx and dhj then hold this
+// slice's contributions to every node, the sender sums over i in the slice
+// only; the sums over slices are the full launch's. (0, N) is the whole graph.
 //
 // What bounds it on an H100: six HxH products per edge (12 H^2 FLOP, 49
 // kFLOP at H = 64) against node-level tensors in and out, so operations, not
@@ -29,8 +34,8 @@
 //   work (SiLU and its derivative with expf and IEEE division, the clip
 //   gate, the mask), the E <= 4 columns of efea @ We and dpre1 @ We^T and
 //   the vector gradients stay in fp32 on the CUDA cores.
-// - A unit is floor(R / N^2) whole graphs (at least one; five at N = 5 and
-//   R = 128), walked in tiles of R edge rows (a graph of N > 11 spans
+// - A unit is floor(R / (ni N)) whole graphs' slices (at least one; five at
+//   N = 5 and R = 128), walked in tiles of R edge rows (a graph of N > 11 spans
 //   several; the block adds each tile's node sums to its outputs). A graph is never split
 //   across blocks, so the sums over senders j (dhi, the first half of dx) and
 //   over receivers i (dhj, the second half) run inside the block through
@@ -108,8 +113,8 @@ template <int H>
 __host__ __device__ constexpr int threads_of() { return 32 * warps_of<H>(); }
 
 template <int H>
-__host__ __device__ inline int graphs_per_unit(int n) {
-  const int g = rows_of<H>() / (n * n);
+__host__ __device__ inline int graphs_per_unit(int edges) {   // a graph's edges
+  const int g = rows_of<H>() / edges;
   return g > 0 ? g : 1;
 }
 
@@ -194,7 +199,7 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
                          float* __restrict__ dx, float* __restrict__ dhi,
                          float* __restrict__ dhj, float* __restrict__ defea,
                          float* __restrict__ partial, long long num_graphs, long long units,
-                         int n, int e, int clip_edges) {
+                         int n, int e, int clip_edges, int ni, int first_row) {
   // this block's seed: the first of its graphs (num_graphs and units count
   // one seed's) and its weight set, read only while staging (the parameters
   // stay in the constant bank: no pointer is held in registers)
@@ -253,7 +258,7 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
     s_wc2[k] = wc2[seed * H + k];
   }
   for (int k = tid; k < e * H; k += T) s_we[k] = we[seed * e * H + k];
-  for (int i = tid; i < n; i += T) {
+  for (int i = tid; i < ni; i += T) {
     float d = 0.0f;
     for (int j = 0; j < n; ++j) d += __ldg(mask + i * n + j);
     s_deg[i] = fmaxf(d, 1.0f);
@@ -286,8 +291,8 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   }
 
   const float bias_c2 = __ldg(bc2 + seed);
-  const int nn = n * n;
-  const int gpu = graphs_per_unit<H>(n);
+  const int nn = ni * n;                           // a graph's edges in the slice
+  const int gpu = graphs_per_unit<H>(nn);
   const int r0 = warp * 16;                        // the warp's rows of a tile
   const int ch = lane % CH;                        // a lane's chunk in the column passes
   const int sub = lane / CH;                       // and its first row
@@ -303,7 +308,8 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
     const int edges = ng * nn;
     const int tiles = (edges + R - 1) / R;
     const long long g0 = seed_g0 + unit * gpu;     // the unit's first graph,
-    const long long nbase = g0 * n;                // node
+    const long long nbase = g0 * n;                // node (x, hj, dx, dhj),
+    const long long qbase = g0 * ni;               // receiver (hi, gtot*, dhi)
     const long long ebase = g0 * nn;               // and edge
 
     for (int t = 0; t < tiles; ++t) {
@@ -316,15 +322,15 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
         const int r = r0 + lane;
         const int ge = t0 + r;
         float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, mij = 0.0f, mw = 0.0f;
-        int li = -1, lj = 0;                       // from nbase; -1 marks padding
+        int li = -1, lj = 0;                       // from qbase and nbase; -1: padding
         if (ge < edges) {
           const int gl = ge / nn;
           const int w = ge - gl * nn;
-          const int i = w / n;
+          const int i = w / n;                     // the receiver's slice row
           const int j = w - i * n;
-          li = gl * n + i;
+          li = gl * ni + i;
           lj = gl * n + j;
-          const float* xi = x + (nbase + li) * 3;
+          const float* xi = x + (nbase + gl * n + first_row + i) * 3;
           const float* xj = x + (nbase + lj) * 3;
           d0 = __ldg(xi + 0) - __ldg(xj + 0);
           d1 = __ldg(xi + 1) - __ldg(xj + 1);
@@ -354,7 +360,7 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
           const int2 rs = s_rs[r0 + sub + RPI * (m0 + m)];
           u[m] = w[m] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
           if (rs.x >= 0) {
-            u[m] = __ldg(hi4 + (nbase + rs.x) * CH + ch);
+            u[m] = __ldg(hi4 + (qbase + rs.x) * CH + ch);
             w[m] = __ldg(hj4 + (nbase + rs.y) * CH + ch);
           }
         }
@@ -440,9 +446,9 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
           if (li >= 0) {
             const float mw = s_mw[r];
             const float d0 = s_rij[r * 4 + 0], d1 = s_rij[r * 4 + 1], d2 = s_rij[r * 4 + 2];
-            float gf0 = __ldg(gtotf + (nbase + li) * 3 + 0) * mw;
-            float gf1 = __ldg(gtotf + (nbase + li) * 3 + 1) * mw;
-            float gf2 = __ldg(gtotf + (nbase + li) * 3 + 2) * mw;
+            float gf0 = __ldg(gtotf + (qbase + li) * 3 + 0) * mw;
+            float gf1 = __ldg(gtotf + (qbase + li) * 3 + 1) * mw;
+            float gf2 = __ldg(gtotf + (qbase + li) * 3 + 2) * mw;
             if (clip_edges) {   // d clip / d f: 1 inside +-100, 0 outside (and for NaN)
               gf0 *= fabsf(d0 * cw) <= kClip ? 1.0f : 0.0f;
               gf1 *= fabsf(d1 * cw) <= kClip ? 1.0f : 0.0f;
@@ -496,7 +502,7 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
 #pragma unroll
         for (int m = 0; m < RB; ++m) {             // RB rows' loads in flight at once
           const int li = s_rs[r0 + sub + RPI * (m0 + m)].x;
-          gm[m] = li >= 0 ? __ldg(gtotm4 + (nbase + li) * CH + ch)
+          gm[m] = li >= 0 ? __ldg(gtotm4 + (qbase + li) * CH + ch)
                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         }
 #pragma unroll
@@ -613,17 +619,20 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
       weight_grad(part, s_p1, s_y, (cnt + 7) / 8);
       first_tile = false;
 
-      // ---- node sums: over senders (dhi, dx) and over receivers (dhj, dx) ----
+      // ---- node sums: over senders (dhi, dx) of a receiver of the slice,
+      // and over the slice's receivers (dhj, dx) of every node ----
       const int nodes = ng * n;
       for (int q = tid; q < nodes * CH; q += T) {
         const int node = q / CH;
         const int c4 = q - node * CH;
         const int gl = node / n;
         const int a = node - gl * n;
-        const int base_i = gl * nn + a * n - t0;   // edge (a, k) at base_i + k
+        const int ia = a - first_row;              // a's slice row, if it has one
+        const bool recv = ia >= 0 && ia < ni;
+        const int base_i = gl * nn + ia * n - t0;  // edge (a, k) at base_i + k
         const int base_j = gl * nn + a - t0;       // edge (k, a) at base_j + k n
         float4 si = make_float4(0.0f, 0.0f, 0.0f, 0.0f), sj = si;
-        for (int k = 0; k < n; ++k) {
+        for (int k = 0; recv && k < n; ++k) {
           const int ei = base_i + k;
           if (ei >= 0 && ei < cnt) {
             const float4 v = *reinterpret_cast<const float4*>(s_x + ei * LD + 4 * c4);
@@ -632,6 +641,8 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
             si.z += v.z;
             si.w += v.w;
           }
+        }
+        for (int k = 0; k < ni; ++k) {
           const int ej = base_j + k * n;
           if (ej >= 0 && ej < cnt) {
             const float4 v = *reinterpret_cast<const float4*>(s_x + ej * LD + 4 * c4);
@@ -641,27 +652,36 @@ egnn_pairwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
             sj.w += v.w;
           }
         }
-        float4* oi = reinterpret_cast<float4*>(dhi + (nbase + node) * H) + c4;
         float4* oj = reinterpret_cast<float4*>(dhj + (nbase + node) * H) + c4;
         if (!first) {
-          const float4 pi = *oi, pj = *oj;
-          si = make_float4(pi.x + si.x, pi.y + si.y, pi.z + si.z, pi.w + si.w);
+          const float4 pj = *oj;
           sj = make_float4(pj.x + sj.x, pj.y + sj.y, pj.z + sj.z, pj.w + sj.w);
         }
-        *oi = si;
         *oj = sj;
+        if (recv) {
+          float4* oi = reinterpret_cast<float4*>(dhi + (qbase + gl * ni + ia) * H) + c4;
+          if (!first) {
+            const float4 pi = *oi;
+            si = make_float4(pi.x + si.x, pi.y + si.y, pi.z + si.z, pi.w + si.w);
+          }
+          *oi = si;
+        }
       }
       for (int q = tid; q < nodes * 3; q += T) {
         const int node = q / 3;
         const int c = q - node * 3;
         const int gl = node / n;
         const int a = node - gl * n;
-        const int base_i = gl * nn + a * n - t0;
+        const int ia = a - first_row;
+        const bool recv = ia >= 0 && ia < ni;
+        const int base_i = gl * nn + ia * n - t0;
         const int base_j = gl * nn + a - t0;
         float si = 0.0f, sj = 0.0f;
-        for (int k = 0; k < n; ++k) {
+        for (int k = 0; recv && k < n; ++k) {
           const int ei = base_i + k;
           if (ei >= 0 && ei < cnt) si += s_drij[ei * 3 + c];
+        }
+        for (int k = 0; k < ni; ++k) {
           const int ej = base_j + k * n;
           if (ej >= 0 && ej < cnt) sj += s_drij[ej * 3 + c];
         }
@@ -718,8 +738,8 @@ __global__ void egnn_pairwise_bwd_reduce(const float* __restrict__ partial,
 }
 
 template <int H>
-cudaError_t grid_of(long long g, int n, int* grid, long long* units) {
-  const long long gpu = graphs_per_unit<H>(n);
+cudaError_t grid_of(long long g, int n, int ni, int* grid, long long* units) {
+  const long long gpu = graphs_per_unit<H>(ni * n);
   *units = (g + gpu - 1) / gpu;
   return persistent_grid(egnn_pairwise_bwd_kernel<H>, sizeof(float) * smem_floats<H>(),
                          *units, 1, threads_of<H>(), grid);
@@ -731,17 +751,17 @@ cudaError_t launch(const float* x, const float* hi, const float* hj, const float
                    const float* w2, const float* b2, const float* wc1, const float* bc1,
                    const float* wc2, const float* bc2, const float* gtotf, const float* gtotm,
                    float* dx, float* dhi, float* dhj, float* defea, float* dweights,
-                   float* scratch, long long g, int n, int e, int k, int clip_edges,
-                   cudaStream_t stream) {
+                   float* scratch, long long g, int n, int e, int k, int clip_edges, int ni,
+                   int first_row, cudaStream_t stream) {
   const long long b = g / k;                     // one seed's graphs
   int grid = 0;
   long long units = 0;
-  cudaError_t err = grid_of<H>(b, n, &grid, &units);
+  cudaError_t err = grid_of<H>(b, n, ni, &grid, &units);
   if (err != cudaSuccess) return err;
   egnn_pairwise_bwd_kernel<H>
       <<<dim3(grid, k), threads_of<H>(), sizeof(float) * smem_floats<H>(), stream>>>(
           x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1, wc2, bc2, gtotf, gtotm, dx, dhi,
-          dhj, defea, scratch, b, units, n, e, clip_edges);
+          dhj, defea, scratch, b, units, n, e, clip_edges, ni, first_row);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long np = partial_floats(H, e);
@@ -754,13 +774,15 @@ cudaError_t launch(const float* x, const float* hi, const float* hj, const float
 
 // Floats of scratch the wrapper allocates for one call on the current device:
 // one slot of partial weight gradients per block of the launch's grid, for
-// each of the K seeds of G = K * B graphs. -1 if the grid cannot be found.
-extern "C" long long egnn_pairwise_bwd_scratch_floats(long long g, int n, int h, int e, int k) {
-  if (bad_shape(g, n, h, e, k)) return -1;
+// each of the K seeds of G = K * B graphs, on receiver slices of ni rows. -1 if
+// the grid cannot be found.
+extern "C" long long egnn_pairwise_bwd_scratch_floats(long long g, int n, int h, int e, int k,
+                                                      int ni) {
+  if (bad_shape(g, n, h, e, k) || bad_slice(n, ni, 0, k)) return -1;
   int grid = 0;
   long long units = 0;
   if (with_width(h, [&](auto width) {
-        return grid_of<decltype(width)::value>(g / k, n, &grid, &units);
+        return grid_of<decltype(width)::value>(g / k, n, ni, &grid, &units);
       }) != cudaSuccess)
     return -1;
   return (long long)k * grid * slot_floats(h, e);
@@ -768,10 +790,11 @@ extern "C" long long egnn_pairwise_bwd_scratch_floats(long long g, int n, int h,
 
 // Plain C entry point, loaded with ctypes. Returns a cudaError_t (0 = both
 // kernels launched). Inputs as egnn_pairwise_fwd (K weight sets over G = K * B
-// graphs) plus gtotf [G,N,3] and gtotm [G,N,H]; outputs dx [G,N,3], dhi/dhj
-// [G,N,H], defea [G,N,N,E] and dweights [K] x the flat [2H^2 + 5H + EH + 1]
-// layout above; scratch holds egnn_pairwise_bwd_scratch_floats floats (256-byte
-// aligned). All fp32, contiguous, on the current device.
+// graphs; the receiver slice [i0, i0 + ni)) plus gtotf [G,ni,3] and gtotm
+// [G,ni,H]; outputs dx [G,N,3], dhi [G,ni,H], dhj [G,N,H], defea [G,ni,N,E] and
+// dweights [K] x the flat [2H^2 + 5H + EH + 1] layout above; scratch holds
+// egnn_pairwise_bwd_scratch_floats floats (256-byte aligned). All fp32,
+// contiguous, on the current device.
 extern "C" int egnn_pairwise_bwd(const float* x, const float* hi, const float* hj,
                                  const float* efea, const float* mask, const float* wg,
                                  const float* we, const float* b1, const float* w2,
@@ -779,12 +802,13 @@ extern "C" int egnn_pairwise_bwd(const float* x, const float* hi, const float* h
                                  const float* wc2, const float* bc2, const float* gtotf,
                                  const float* gtotm, float* dx, float* dhi, float* dhj,
                                  float* defea, float* dweights, float* scratch, long long g,
-                                 int n, int h, int e, int k, int clip_edges, void* stream_ptr) {
-  if (bad_shape(g, n, h, e, k)) return (int)cudaErrorInvalidValue;
+                                 int n, int h, int e, int k, int clip_edges, int ni, int i0,
+                                 void* stream_ptr) {
+  if (bad_shape(g, n, h, e, k) || bad_slice(n, ni, i0, k)) return (int)cudaErrorInvalidValue;
   return (int)with_width(h, [&](auto width) {
     return launch<decltype(width)::value>(
         x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1, wc2, bc2, gtotf, gtotm, dx, dhi, dhj,
-        defea, dweights, scratch, g, n, e, k, clip_edges,
+        defea, dweights, scratch, g, n, e, k, clip_edges, ni, i0,
         reinterpret_cast<cudaStream_t>(stream_ptr));
   });
 }

@@ -10,6 +10,10 @@
 // and for every node i:
 //   tot_f[i] = sum_j mask[i,j] f[i,j] / max(sum_j mask[i,j], 1)
 //   tot_m[i] = sum_j mask[i,j] msg[i,j]
+// A launch takes the receivers i in [i0, i0 + ni) of every graph against all
+// N senders (a receiver slice, for the particle axis sharded over ranks; hi,
+// efea, mask and the outputs hold the slice's rows, x and hj all N); (0, N)
+// is the whole graph.
 //
 // What bounds it on an H100: two HxH products per edge (4 H^2 = 16 kFLOP at
 // H = 64) against only node-level tensors in and out (about 170 bytes per
@@ -53,6 +57,11 @@
 //   graphs alone would cut and assign them. blocks comes from the persistent
 //   grid of one seed's tiles; with K > 1 the K * blocks blocks run in waves.
 //   K = 1 is the single-set launch.
+// - Receiver slice: a tile is npt receivers of the slice (counted over the
+//   G * ni receivers) with all N senders, so a slice changes how rows are
+//   counted and indexed, not the tile; each row's sums run over j in the
+//   same order, so slices put side by side give the full launch's rows bit
+//   for bit, and (0, N) is the full launch.
 // Instantiated for H = 64 (every configuration in model_confs.yaml) and
 // H = 128 (mocap's configs/config_mocap_no.json), through egnn_tf32.cuh's
 // with_width; another width is refused at the entry point.
@@ -88,10 +97,11 @@ egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ 
                          const float* __restrict__ wc2, const float* __restrict__ bc2,
                          float* __restrict__ totf, float* __restrict__ totm,
                          long long num_nodes, long long tiles, int n, int e,
-                         int clip_edges) {
-  // this block's seed: the first of its graphs' nodes (num_nodes and tiles
-  // count one seed's) and its weight set, read only while staging (the
-  // parameters stay in the constant bank: no pointer is held in registers)
+                         int clip_edges, int ni, int first_row) {
+  // this block's seed: the first of its graphs' receivers (num_nodes and
+  // tiles count one seed's receivers of the slice) and its weight set, read
+  // only while staging (the parameters stay in the constant bank: no pointer
+  // is held in registers)
   const long long seed = blockIdx.y;
   const long long seed_node0 = seed * num_nodes;
   constexpr int LD = padded<H>();
@@ -132,7 +142,7 @@ egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ 
     s_wc2[k] = wc2[seed * H + k];
   }
   for (int k = tid; k < e * H; k += kThreads) s_we[k] = we[seed * e * H + k];
-  for (int i = tid; i < n; i += kThreads) {
+  for (int i = tid; i < ni; i += kThreads) {
     float d = 0.0f;
     for (int j = 0; j < n; ++j) d += __ldg(mask + i * n + j);
     s_deg[i] = fmaxf(d, 1.0f);
@@ -151,24 +161,26 @@ egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ 
 
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long left = num_nodes - tile * npt;
-    const long long node0 = seed_node0 + tile * npt;   // from the first graph
+    const long long node0 = seed_node0 + tile * npt;   // receiver: hi, efea, outputs
     const int nodes = left < npt ? (int)left : npt;
     const int rows = nodes * n;
-    const int i0 = (int)(node0 % n);       // receiver index of the tile's first node
-                                           // (a seed's nodes start at a graph)
+    const long long graph0 = node0 / ni;   // the graph of the tile's first receiver
+    const long long xbase = graph0 * n;    // its node 0: rows of x and hj
+    const int q0 = (int)(node0 - graph0 * ni);   // the first receiver's slice row
 
     // ---- per row, a lane each: receiver, sender, rij, r2, efea, mask ----
     if (lane < 16) {
       const int r = r0 + lane;
       float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, mij = 0.0f;
-      int rl = 0, sl = 0;                  // receiver and sender, from node0
+      int rl = 0, sl = 0;                  // receiver from node0, sender from xbase
       if (r < rows) {
         rl = r / n;
         const int j = r - rl * n;
-        const int i = (i0 + rl) % n;
-        sl = rl - i + j;
-        const float* xi = x + (node0 + rl) * 3;
-        const float* xj = x + (node0 + sl) * 3;
+        const int i = (q0 + rl) % ni;      // slice row of the receiver
+        const int gl = (q0 + rl) / ni;     // its graph, from graph0
+        sl = gl * n + j;
+        const float* xi = x + (xbase + gl * n + first_row + i) * 3;
+        const float* xj = x + (xbase + sl) * 3;
         d0 = __ldg(xi + 0) - __ldg(xj + 0);
         d1 = __ldg(xi + 1) - __ldg(xj + 1);
         d2 = __ldg(xi + 2) - __ldg(xj + 2);
@@ -196,7 +208,7 @@ egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ 
         if (r < rows) {
           const int2 rs = s_rs[r];
           u[m] = __ldg(hi4 + (node0 + rs.x) * CH + ch);
-          w[m] = __ldg(hj4 + (node0 + rs.y) * CH + ch);
+          w[m] = __ldg(hj4 + (xbase + rs.y) * CH + ch);
         }
       }
       const float4 wg4 = reinterpret_cast<const float4*>(s_wg)[ch];
@@ -307,7 +319,7 @@ egnn_pairwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ 
       const int c = q - rl * 3;
       float s = 0.0f;
       for (int j = 0; j < n; ++j) s += s_f[(rl * n + j) * 4 + c];
-      totf[(node0 + rl) * 3 + c] = s / s_deg[(i0 + rl) % n];
+      totf[(node0 + rl) * 3 + c] = s / s_deg[(q0 + rl) % ni];
     }
     __syncthreads();   // the next tile rewrites s_act and s_f
   }
@@ -318,9 +330,10 @@ cudaError_t launch(const float* x, const float* hi, const float* hj, const float
                    const float* mask, const float* wg, const float* we, const float* b1,
                    const float* w2, const float* b2, const float* wc1, const float* bc1,
                    const float* wc2, const float* bc2, float* totf, float* totm,
-                   long long g, int n, int e, int k, int clip_edges, cudaStream_t stream) {
+                   long long g, int n, int e, int k, int clip_edges, int ni, int first_row,
+                   cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<H>();
-  const long long num_nodes = g / k * n;     // one seed's
+  const long long num_nodes = g / k * ni;    // one seed's receivers
   const int npt = kRows / n;
   const long long tiles = (num_nodes + npt - 1) / npt;
   int grid = 0;
@@ -329,29 +342,30 @@ cudaError_t launch(const float* x, const float* hi, const float* hj, const float
   if (err != cudaSuccess) return err;
   egnn_pairwise_fwd_kernel<H><<<dim3(grid, k), kThreads, smem, stream>>>(
       x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1, wc2, bc2, totf, totm, num_nodes,
-      tiles, n, e, clip_edges);
+      tiles, n, e, clip_edges, ni, first_row);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Returns a cudaError_t (0 = launched).
-// Shapes: x [G,N,3], hi/hj [G,N,H], efea [G,N,N,E], mask [N,N], wg/b1/b2/bc1/wc2
-// [K,H], we [K,E,H], w2/wc1 [K,H,H] in [in,out] layout (16-byte aligned), bc2
-// [K]: K weight sets, G = K * B graphs, graph g on set g / B (K = 1: one set);
-// outputs totf [G,N,3], totm [G,N,H]. All fp32, contiguous, on the current
-// device.
+// Shapes: x [G,N,3], hj [G,N,H]; the receiver slice [i0, i0 + ni): hi
+// [G,ni,H], efea [G,ni,N,E], mask [ni,N] (its rows of the [N,N] mask);
+// wg/b1/b2/bc1/wc2 [K,H], we [K,E,H], w2/wc1 [K,H,H] in [in,out] layout
+// (16-byte aligned), bc2 [K]: K weight sets, G = K * B graphs, graph g on set
+// g / B (K = 1: one set; K > 1 takes the whole graph, ni = N); outputs totf
+// [G,ni,3], totm [G,ni,H]. All fp32, contiguous, on the current device.
 extern "C" int egnn_pairwise_fwd(const float* x, const float* hi, const float* hj,
                                  const float* efea, const float* mask, const float* wg,
                                  const float* we, const float* b1, const float* w2,
                                  const float* b2, const float* wc1, const float* bc1,
                                  const float* wc2, const float* bc2, float* totf,
                                  float* totm, long long g, int n, int h, int e, int k,
-                                 int clip_edges, void* stream) {
-  if (bad_shape(g, n, h, e, k)) return (int)cudaErrorInvalidValue;
+                                 int clip_edges, int ni, int i0, void* stream) {
+  if (bad_shape(g, n, h, e, k) || bad_slice(n, ni, i0, k)) return (int)cudaErrorInvalidValue;
   return (int)with_width(h, [&](auto width) {
     return launch<decltype(width)::value>(x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1,
-                                          wc2, bc2, totf, totm, g, n, e, k, clip_edges,
+                                          wc2, bc2, totf, totm, g, n, e, k, clip_edges, ni, i0,
                                           reinterpret_cast<cudaStream_t>(stream));
   });
 }

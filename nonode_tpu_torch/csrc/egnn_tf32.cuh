@@ -294,4 +294,11 @@ inline bool bad_shape(long long g, int n, int h, int e, int k) {
          k > 65535 || g % k != 0;
 }
 
+// The receiver slices both take: rows [i0, i0 + ni) of a graph's n
+// receivers, against all n senders. A slice other than (0, n) takes one
+// weight set (no path runs a seed fleet over sharded particles).
+inline bool bad_slice(int n, int ni, int i0, int k) {
+  return ni < 1 || i0 < 0 || i0 + ni > n || (k > 1 && ni != n);
+}
+
 }  // namespace egnn_tc

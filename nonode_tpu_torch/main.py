@@ -19,8 +19,10 @@ are nonode_tpu.main's, plus ``--device``; ``--config`` defaults to the
 built-in model_confs.yaml values; ``--config_by_file`` merges a JSON preset
 over the arguments and the model config.
 
-What the port does not run yet raises NotImplementedError, naming the
-ROADMAP.md item that brings it.
+``--dp D --space S`` runs D x S ranks (parallel/mesh.py: new processes, or
+the group ``torchrun`` made): each batch over D, each graph's particles over
+S, the results the single process's. Only rank 0 prints, logs, saves the
+checkpoint and writes the results; main returns rank 0's values.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from .config import apply_preset, load_model_config, overlay
 from .data.nbody import NBodyDataset
 from .models.egno import EGNO
 from .models.segno import SEGNO
+from .parallel import mesh as meshes
 from .runtime import resolve_device, seed_everything
 from .train.checkpoint import EarlyStopping, load_params
 from .train.loop import EGNOExperiment, SEGNOExperiment
@@ -102,20 +105,20 @@ def get_args(argv=None):
     return args
 
 
-def _refuse_unported(args):
-    todo = [
-        (args.dp * args.space > 1, "--dp/--space > 1", "Multi-GPU"),
-    ]
-    for hit, what, item in todo:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP.md Queue 1 '{item}'")
+def _check_args(args):
     if args.model == "egno" and args.traj_len <= 0:
         # as nonode_tpu/main.py:336-340: the EGNO test window is empty there
         raise ValueError(
             "EGNO requires --traj_len >= 1: at traj_len=0 the test dataset's "
             "out window is empty (the reference crashes on this config too, "
             "main_simulation_simple_no.py:274-287)")
+    # nonode_tpu/main.py:209-214 asserts these
+    if args.batch_size % args.dp:
+        raise ValueError(f"batch_size {args.batch_size} not divisible by "
+                         f"dp={args.dp}")
+    if args.n_balls % args.space:
+        raise ValueError(f"n_balls {args.n_balls} not divisible by "
+                         f"space={args.space}")
 
 
 def build_experiment(args, device, generator):
@@ -154,8 +157,21 @@ def build_experiment(args, device, generator):
 
 
 def main(args):
-    _refuse_unported(args)
+    """Train and test as the arguments say; (best validation loss, test
+    loss, best epoch). With ``--dp``/``--space`` the ranks run
+    ``_main_on_rank`` and rank 0's values come back."""
+    _check_args(args)
     device = resolve_device(args.device)
+    if args.dp * args.space > 1:
+        return meshes.launch(_main_on_rank, (args,), args.dp, args.space,
+                             device)
+    return _main_on_rank(None, args)
+
+
+def _main_on_rank(mesh, args):
+    """``main`` on one rank of ``mesh`` (None: the single process)."""
+    lead = mesh is None or mesh.rank == 0
+    device = resolve_device(args.device if mesh is None else mesh.device)
     print(args)
     seed = args.seed
     generator = seed_everything(seed)
@@ -171,7 +187,7 @@ def main(args):
     model_save_path.parent.mkdir(parents=True, exist_ok=True)
     print(f"Model saved to {model_save_path}")
     early_stopping = EarlyStopping(patience=15, verbose=True,
-                                   path=model_save_path)
+                                   path=model_save_path, saves=lead)
     results = {"eval epoch": [], "val loss": [], "test loss": [],
                "train loss": []}
     best_val_loss = 1e8
@@ -197,13 +213,16 @@ def main(args):
           f"device: {device}")
 
     logger = RunLogger(args.outf / args.exp_name, model_save_path.stem,
-                       config=vars(args), use_wandb=args.use_wb)
+                       config=vars(args), use_wandb=args.use_wb,
+                       active=lead)
 
     if args.load_checkpoint and model_save_path.exists():
         print(f"Loading model from {model_save_path}")
         load_params(model_save_path, model)
     elif not args.only_test:
         print("Training from scratch.")
+    if mesh is not None:
+        meshes.apply_mesh(exp, mesh)
     if not args.only_test:
         # the optimizer exists before the clock starts, as the JAX driver's
         # exp.init does (its first construction imports torch._dynamo)
@@ -261,7 +280,10 @@ def main(args):
         print(f"training wall-clock: {time.time() - t_start:.1f}s")
 
     # as nonode_tpu/main.py:323-324, the test rollout evaluates the
-    # checkpoint at the save path whenever it exists
+    # checkpoint at the save path whenever it exists (every rank, once rank
+    # 0 has written it)
+    if mesh is not None:
+        mesh.barrier()
     if model_save_path.exists():
         print(f"Loading model from {model_save_path}")
         load_params(model_save_path, model)
@@ -287,6 +309,8 @@ def main(args):
     results["test loss"].append(test_loss)
     logger.log({"test_loss": test_loss, "avg_num_steps": avg_num_steps,
                 "finite_fraction": artifact.get("finite_fraction", 1.0)})
+    if not lead:
+        return best_val_loss, test_loss, best_epoch
 
     with open(model_save_path.with_suffix(".json"), "w") as f:
         f.write(json.dumps(results, indent=4))

@@ -67,13 +67,17 @@ class EGNO(nn.Module):
                 TimeConvX(2, modes, **kw) for _ in range(n_layers)])
 
     def forward(self, loc, vel, nodes, edge_attr, loc_mean,
-                timesteps_out=None, timesteps_in=None, edge_mask=None):
+                timesteps_out=None, timesteps_in=None, edge_mask=None,
+                rows=None):
         """Decode ``num_timesteps`` frames.
 
         Single input: loc, vel, loc_mean [B, N, 3]; nodes [B, N, F];
         edge_attr [B, N, N, E]. Several inputs: a leading L = num_inputs
         axis on all of these. timesteps_out: [B, T] (default arange(T));
-        timesteps_in: [B, L] (default arange(-L+1, 1)).
+        timesteps_in: [B, L] (default arange(-L+1, 1)). ``rows``
+        (ops.dense_graph.ReceiverRows): the node tensors hold the receivers
+        [i0, i0 + ni), edge_attr [.., ni, N, E], and loc_mean is the mean
+        over all N; every other operation is per node.
 
         Returns x, v, h with shape [T, B, N, .].
         """
@@ -123,5 +127,6 @@ class EGNO(nn.Module):
                 out = self.time_conv_x_modules[i](stacked)
                 x = out[..., 0] + x_mean
                 v = out[..., 1]
-            x, v, h = self.layers[i](x, h, e_fea, v=v, edge_mask=edge_mask)
+            x, v, h = self.layers[i](x, h, e_fea, v=v, edge_mask=edge_mask,
+                                     rows=rows)
         return x, v, h

@@ -65,7 +65,7 @@ class SEGNO(nn.Module):
             self.enc_attn_net = InvariantTemporalAttention(hidden_nf,
                                                            hidden_nf, **kw)
 
-    def integrate(self, h, x, v, edge_attr, steps: int):
+    def integrate(self, h, x, v, edge_attr, steps: int, rows=None):
         """forward_step (model.py:95-102): ``steps`` GCL steps of 1/steps.
         Under a lower compute dtype the step is rounded to it first, as
         JAX's weak-typed ``1.0 / steps`` adopts a bf16 carry's dtype."""
@@ -73,7 +73,7 @@ class SEGNO(nn.Module):
         if x.dtype != torch.float32:
             inv = torch.tensor(inv).to(x.dtype).item()
         for _ in range(steps):
-            h, x, v = self.module(h, x, v, edge_attr, inv)
+            h, x, v = self.module(h, x, v, edge_attr, inv, rows=rows)
         return h, x, v
 
     def fuse(self, obs, pred):
@@ -89,25 +89,29 @@ class SEGNO(nn.Module):
             return (w * hs).sum(0), (w * xs).sum(0), (w * vs).sum(0)
         raise ValueError(f"Invalid multiple_agg: {self.multiple_agg}")
 
-    def _segments(self, his, x, v, edge_attr, steps):
+    def _segments(self, his, x, v, edge_attr, steps, rows):
         """Integrate ``steps[i]`` steps from snapshot 0, fusing with snapshot
         i + 1 after each segment but the last. his/x/v: [L, B, N, .]."""
         h = self.embedding(his)                          # [L, B, N, H]
         h_, x_, v_ = h[0], x[0], v[0]
         last = len(steps) - 1
         for i, step in enumerate(steps):
-            state = self.integrate(h_, x_, v_, edge_attr, step)
+            state = self.integrate(h_, x_, v_, edge_attr, step, rows)
             h_, x_, v_ = (state if i == last else
                           self.fuse((h[i + 1], x[i + 1], v[i + 1]), state))
         return x_, h_, v_
 
-    def forward(self, his, x, v, edge_attr, T: int = 10, in_steps=None):
+    def forward(self, his, x, v, edge_attr, T: int = 10, in_steps=None,
+                rows=None):
         """Predict the state T integrator steps ahead.
 
         Single input: his [B, N, F]; x, v [B, N, 3]; edge_attr [B, N, N, E].
         Several inputs: a leading L axis on his/x/v, and ``in_steps`` the
         input frame offsets; segment lengths are diff(in_steps) + [T]
-        (model.py:71). Returns (x, h, v), each [B, N, .].
+        (model.py:71). ``rows`` (ops.dense_graph.ReceiverRows): the node
+        tensors hold the receivers [i0, i0 + ni) and edge_attr [.., ni, N,
+        E]; the fusion of inputs is per node. Returns (x, h, v), each
+        [B, N, .].
         """
         if x.dim() == 4:                                 # [L, B, N, 3]
             if in_steps is None:
@@ -117,7 +121,7 @@ class SEGNO(nn.Module):
         else:
             his, x, v = his[None], x[None], v[None]
             steps = [T]
-        return self._segments(his, x, v, edge_attr, steps)
+        return self._segments(his, x, v, edge_attr, steps, rows)
 
     def forward_dynamic(self, his, x, v, edge_attr, seg_lens, T: int = 10):
         """Several inputs with per-batch segment lengths: his/x/v
@@ -128,4 +132,4 @@ class SEGNO(nn.Module):
                              f"{x.shape[0] - 1} segment lengths, got "
                              f"{len(seg_lens)}")
         steps = [int(s) for s in seg_lens] + [T]
-        return self._segments(his, x, v, edge_attr, steps)
+        return self._segments(his, x, v, edge_attr, steps, None)

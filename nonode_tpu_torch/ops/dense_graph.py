@@ -4,10 +4,16 @@ nonode_tpu/ops/dense_graph.py:32-365).
 Fully connected graphs are dense ``[..., N, N, .]`` tensors with an
 off-diagonal mask; edge (i, j) carries the message node i receives from
 node j. Aggregation is a masked sum or mean over j.
+
+With the particle axis sharded (``ReceiverRows``), a layer holds the
+receivers [i0, i0 + ni) of each graph: its node tensors are [..., ni, .],
+its edge tensors [..., ni, N, .] against all N senders, whose positions and
+features come through ``rows.gather``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
@@ -17,14 +23,41 @@ from ..nn import MLP, Act, Linear, silu, xavier_uniform
 from .kernels import egnn_fused
 
 
-def offdiag_mask(n: int, dtype=torch.float32, device=None):
-    """[N, N] mask that zeroes self-edges (the diagonal)."""
-    return 1.0 - torch.eye(n, dtype=dtype, device=device)
+@dataclasses.dataclass(frozen=True)
+class ReceiverRows:
+    """The receiver rows [i0, i0 + ni) of a graph's ``n`` nodes that a rank
+    holds (parallel/mesh.py). ``gather`` makes a [..., ni, F] node tensor
+    the [..., n, F] one of all senders; its backward sums the gradient over
+    the ranks that share the graph and keeps the rows. ``node_sum`` sums a
+    tensor over those ranks (a reduction over the particle axis)."""
+
+    i0: int
+    n: int
+    gather: Callable
+    node_sum: Callable
 
 
-def pairwise_diff(x):
-    """x: [..., N, D] -> r[..., i, j, :] = x_i - x_j."""
-    return x[..., :, None, :] - x[..., None, :, :]
+def offdiag_mask(n: int, dtype=torch.float32, device=None, i0: int = 0,
+                 ni: int | None = None):
+    """[ni, N] mask that zeroes self-edges: rows [i0, i0 + ni) of the [N, N]
+    one (all of them by default), the diagonal at column i0 + i."""
+    mask = 1.0 - torch.eye(n, dtype=dtype, device=device)
+    return mask if ni is None else mask[i0:i0 + ni]
+
+
+def sender_view(x, h, rows: ReceiverRows | None):
+    """(senders' x, senders' h, N, i0) of a layer's receivers x, h: the
+    tensors themselves on a whole graph, gathered on a receiver slice."""
+    if rows is None:
+        return x, h, x.shape[-2], 0
+    return rows.gather(x), rows.gather(h), rows.n, rows.i0
+
+
+def pairwise_diff(x, xs=None):
+    """x: [..., N, D] -> r[..., i, j, :] = x_i - x_j; with the senders
+    ``xs`` [..., N, D], x holds receivers [..., ni, D] -> [..., ni, N, D]."""
+    xs = x if xs is None else xs
+    return x[..., :, None, :] - xs[..., None, :, :]
 
 
 def masked_sum_j(m, mask):
@@ -78,7 +111,7 @@ def first_edge_linear(lin: Linear, segments):
 
 
 def fused_chain(clip_edges, x, h, edge_fea, mask, l1, l2, c1, c2,
-                radial_col, hi_col):
+                radial_col, hi_col, xs=None, hs=None, i0=0):
     """(tot_f, tot_m) of a layer's pairwise chain through the fused kernels
     (ops.kernels.egnn_fused). ``l1``, ``l2`` are the edge MLP's Linears and
     ``c1``, ``c2`` the coordinate head's; the first edge Linear's columns
@@ -87,28 +120,31 @@ def fused_chain(clip_edges, x, h, edge_fea, mask, l1, l2, c1, c2,
     the h_i / h_j column slices are projected per node here (as
     first_edge_linear does). The nine weights are slices, transposes and row
     views of the Linear parameters, so the backward's weight gradients reach
-    them through autograd."""
+    them through autograd. ``xs``, ``hs``: all N senders' positions and
+    features when x, h hold the receivers [i0, i0 + ni) (default: x, h)."""
+    xs = x if xs is None else xs
+    hs = h if hs is None else hs
     hdim = l1.weight.shape[0]
     e = edge_fea.shape[-1]
     lead = x.shape[:-2]
-    n = x.shape[-2]
+    ni, n = x.shape[-2], xs.shape[-2]
     g = 1
     for d in lead:
         g *= d
     w1 = l1.weight
     hi = h @ w1[:, hi_col:hi_col + hdim].T
-    hj = h @ w1[:, hi_col + hdim:hi_col + 2 * hdim].T
+    hj = hs @ w1[:, hi_col + hdim:hi_col + 2 * hdim].T
     weights = (w1[:, radial_col:radial_col + 1].T, w1[:, w1.shape[1] - e:].T,
                l1.bias[None, :], l2.weight.T, l2.bias[None, :],
                c1.weight.T, c1.bias[None, :],
                c2.weight.T, c2.bias[None, :])            # wc2 [H,1], bc2 [1,1]
-    ef = edge_fea.expand(*lead, n, n, e)
+    ef = edge_fea.expand(*lead, ni, n, e)
     tot_f, tot_m = egnn_fused.pairwise_message(
         clip_edges,
-        x.reshape(g, n, 3).contiguous(), hi.reshape(g, n, hdim).contiguous(),
+        xs.reshape(g, n, 3).contiguous(), hi.reshape(g, ni, hdim).contiguous(),
         hj.reshape(g, n, hdim).contiguous(),
-        ef.reshape(g, n, n, e).contiguous(), mask.contiguous(), weights)
-    return tot_f.reshape(*lead, n, 3), tot_m.reshape(*lead, n, hdim)
+        ef.reshape(g, ni, n, e).contiguous(), mask.contiguous(), weights, i0)
+    return tot_f.reshape(*lead, ni, 3), tot_m.reshape(*lead, ni, hdim)
 
 
 class _ScalarNet(nn.Module):
@@ -161,35 +197,42 @@ class EGNNLayer(nn.Module):
     def edge_net(self) -> MLP:
         return self.edge_message_net.scalar_net
 
-    def _use_fused(self, x, edge_mask) -> bool:
+    def _use_fused(self, x, edge_mask, n=None) -> bool:
+        """Whether the fused chain takes the layer's graphs of ``n`` nodes
+        (default: x's)."""
+        n = x.shape[-2] if n is None else n
         return (self.fused and self.in_edge_nf >= 1
                 and (edge_mask is None or edge_mask.dim() == 2)
-                and egnn_fused.supported(x.shape[-2], self.hidden_nf, x.dtype,
+                and egnn_fused.supported(n, self.hidden_nf, x.dtype,
                                          self.act, self.flat, self.norm))
 
-    def forward(self, x, h, edge_fea, v=None, edge_mask=None):
+    def forward(self, x, h, edge_fea, v=None, edge_mask=None, rows=None):
         """x: [..., N, 3]; h: [..., N, H]; edge_fea: [..., N, N, E].
 
         edge_mask: optional [..., N, N] 0/1 mask restricting the graph;
-        defaults to the complete graph."""
-        n = x.shape[-2]
-        mask = offdiag_mask(n, x.dtype, x.device)
+        defaults to the complete graph. ``rows`` (ReceiverRows): x, h hold
+        the receivers [i0, i0 + ni) and edge_fea [..., ni, N, E]."""
+        ni = x.shape[-2]
+        xs, hs, n, i0 = sender_view(x, h, rows)
+        mask = offdiag_mask(n, x.dtype, x.device, i0,
+                            None if rows is None else ni)
         if edge_mask is not None:
-            mask = mask * edge_mask
+            mask = mask * edge_mask[..., i0:i0 + ni, :]
 
-        if self._use_fused(x, edge_mask):
+        if self._use_fused(x, edge_mask, n):
             # the edge MLP's input order: [||r_ij||^2, h_i, h_j, edge_fea]
             tot_f, tot_message = fused_chain(
                 False, x, h, edge_fea, mask, self.edge_net.mlp[0],
                 self.edge_net.mlp[2], self.coord_net.mlp[0],
-                self.coord_net.mlp[2], radial_col=0, hi_col=1)
+                self.coord_net.mlp[2], radial_col=0, hi_col=1, xs=xs, hs=hs,
+                i0=i0)
         else:
-            rij = pairwise_diff(x)
+            rij = pairwise_diff(x, xs)
             r2 = (rij * rij).sum(dim=-1, keepdim=True)
             gram = _l2_normalize(r2) if self.norm else r2
             pre = first_edge_linear(
                 self.edge_net.mlp[0],
-                [(gram, "pair"), (h, "i"), (h, "j"), (edge_fea, "pair")])
+                [(gram, "pair"), (h, "i"), (hs, "j"), (edge_fea, "pair")])
             message = self.edge_net.from_preact(pre)
             coord_w = self.coord_net(message)
             tot_f = masked_mean_j(rij * coord_w, mask)
@@ -261,27 +304,33 @@ class SEGNOGCL(nn.Module):
             y = torch.tanh(y) * self.COORDS_RANGE
         return y
 
-    def _use_fused(self, x, edge_attr) -> bool:
+    def _use_fused(self, x, edge_attr, n=None) -> bool:
+        """As EGNNLayer._use_fused."""
+        n = x.shape[-2] if n is None else n
         return (self.fused and self.in_edge_nf >= 1 and edge_attr is not None
-                and egnn_fused.supported(x.shape[-2], self.hidden_nf, x.dtype,
+                and egnn_fused.supported(n, self.hidden_nf, x.dtype,
                                          self.act, False, False,
                                          tanh=self.tanh))
 
-    def forward(self, h, x, v, edge_attr, inv_steps: float):
+    def forward(self, h, x, v, edge_attr, inv_steps: float, rows=None):
         """One integrator step on the complete graph; inv_steps = 1/T.
         h: [..., N, H]; x, v: [..., N, 3]; edge_attr: [..., N, N, E] or None.
-        Returns (h, x, v)."""
-        mask = offdiag_mask(x.shape[-2], x.dtype, x.device)
-        if self._use_fused(x, edge_attr):
+        ``rows`` (ReceiverRows): h, x, v hold the receivers [i0, i0 + ni)
+        and edge_attr [..., ni, N, E]. Returns (h, x, v)."""
+        ni = x.shape[-2]
+        xs, hs, n, i0 = sender_view(x, h, rows)
+        mask = offdiag_mask(n, x.dtype, x.device, i0,
+                            None if rows is None else ni)
+        if self._use_fused(x, edge_attr, n):
             tot_trans, msg = fused_chain(
                 True, x, h, edge_attr, mask, self.edge_mlp[0],
                 self.edge_mlp[2], self.coord_mlp[0], self.coord_mlp[2],
-                radial_col=2 * self.hidden_nf, hi_col=0)
+                radial_col=2 * self.hidden_nf, hi_col=0, xs=xs, hs=hs, i0=i0)
             agg = tot_trans * self.coords_weight
         else:
-            rij = pairwise_diff(x)
+            rij = pairwise_diff(x, xs)
             radial = (rij * rij).sum(dim=-1, keepdim=True)
-            segs = [(h, "i"), (h, "j"), (radial, "pair")]
+            segs = [(h, "i"), (hs, "j"), (radial, "pair")]
             if edge_attr is not None and self.in_edge_nf:
                 segs.append((edge_attr, "pair"))
             pre = first_edge_linear(self.edge_mlp[0], segs)

@@ -20,13 +20,22 @@ nine weights; the mask gets none. Both directions take the plain version
 for CPU tensors only. For CUDA tensors they launch the kernel or raise; they
 never fall back.
 
+Receiver slice. A call may take the receivers [i0, i0 + ni) of every graph
+against all N senders: x and hj hold all N nodes, hi, efea and the mask the
+slice's rows (``i0`` given, ``ni`` from hi), and the outputs are the slice's
+rows. The backward's dx and dhj then hold the slice's contributions to
+every node, which the slices' ranks sum (parallel/mesh.py: the particle axis
+sharded over ``--space``, as the JAX package shards the receiver axis of the
+dense tensors). ``i0 = 0`` with ni = N is the whole graph.
+
 Seed axis. The weights may also come as K stacked sets ([K, ...] each) over
 G = K * B graphs: graph g reads set g // B, and the mask stays shared. One
 launch of each kernel then serves K seeds, which is what ``jax.vmap`` of the
 custom-VJP op computes in nonode_tpu's seed fleet. Under ``torch.vmap`` the
 op's vmap rule folds the vmapped axis into that seed axis, so a fleet that
 vmaps the ordinary modules over stacked parameters (parallel/fleet.py)
-launches each kernel once per call for all its seeds.
+launches each kernel once per call for all its seeds. A slice other than the
+whole graph takes one weight set.
 """
 
 from __future__ import annotations
@@ -62,10 +71,13 @@ def supported(n: int, hidden: int, dtype, act, flat: bool, norm: bool,
             and act is silu and n <= MAX_NODES)
 
 
-def pairwise_message_reference(clip_edges, x, hi, hj, efea, mask, weights):
-    """Plain PyTorch version of the chain on dense [G, N, N, H] tensors."""
+def pairwise_message_reference(clip_edges, x, hi, hj, efea, mask, weights,
+                               i0=0):
+    """Plain PyTorch version of the chain on dense [G, ni, N, H] tensors:
+    the receivers [i0, i0 + ni) against all N senders."""
     wg, we, b1, w2, b2, wc1, bc1, wc2, bc2 = weights
-    rij = x[:, :, None, :] - x[:, None, :, :]                 # [G,N,N,3]
+    xr = x[:, i0:i0 + hi.shape[1]]
+    rij = xr[:, :, None, :] - x[:, None, :, :]                # [G,ni,N,3]
     r2 = (rij * rij).sum(-1, keepdim=True)                    # [G,N,N,1]
     pre1 = r2 * wg + efea @ we
     pre1 = pre1 + hi[:, :, None, :] + hj[:, None, :, :] + b1
@@ -75,7 +87,7 @@ def pairwise_message_reference(clip_edges, x, hi, hj, efea, mask, weights):
     if clip_edges:
         f = f.clamp(-CLIP, CLIP)
     m = mask[..., None]
-    deg = mask.sum(-1, keepdim=True).clamp(min=1.0)           # [N,1]
+    deg = mask.sum(-1, keepdim=True).clamp(min=1.0)           # [ni,1]
     return (f * m).sum(-2) / deg, (msg * m).sum(-2)
 
 
@@ -85,14 +97,17 @@ def _dsilu(z):
 
 
 def pairwise_message_bwd_reference(clip_edges, x, hi, hj, efea, mask, weights,
-                                   gtotf, gtotm):
+                                   gtotf, gtotm, i0=0):
     """Plain PyTorch version of the chain's backward (``_bwd_kernel``,
     nonode_tpu/ops/pallas/egnn_fused.py:147-216): recomputes the chain and
     returns (dx, dhi, dhj, defea, dweights) in the primal layouts, dwc2 as
     [H,1]. With clip_edges, edges whose force left the clip (or is NaN) pass
-    no gradient through it."""
+    no gradient through it. On a receiver slice, dx and dhj hold the slice's
+    contributions to all N nodes."""
     wg, we, b1, w2, b2, wc1, bc1, wc2, bc2 = weights
-    rij = x[:, :, None, :] - x[:, None, :, :]                 # [G,N,N,3]
+    ni = hi.shape[1]
+    xr = x[:, i0:i0 + ni]
+    rij = xr[:, :, None, :] - x[:, None, :, :]                # [G,ni,N,3]
     r2 = (rij * rij).sum(-1, keepdim=True)                    # [G,N,N,1]
     pre1 = r2 * wg + efea @ we
     pre1 = pre1 + hi[:, :, None, :] + hj[:, None, :, :] + b1
@@ -103,8 +118,8 @@ def pairwise_message_bwd_reference(clip_edges, x, hi, hj, efea, mask, weights,
     ca = F.silu(cpre)
     cw = ca @ wc2 + bc2                                       # [G,N,N,1]
     f = rij * cw
-    deg = mask.sum(-1, keepdim=True).clamp(min=1.0)           # [N,1]
-    gf = gtotf[:, :, None, :] * (mask / deg)[..., None]       # [G,N,N,3]
+    deg = mask.sum(-1, keepdim=True).clamp(min=1.0)           # [ni,1]
+    gf = gtotf[:, :, None, :] * (mask / deg)[..., None]       # [G,ni,N,3]
     if clip_edges:
         gf = gf * (f.abs() <= CLIP).to(f.dtype)
     dcw = (gf * rij).sum(-1, keepdim=True)                    # [G,N,N,1]
@@ -114,7 +129,8 @@ def pairwise_message_bwd_reference(clip_edges, x, hi, hj, efea, mask, weights,
     dpre2 = dmsg * _dsilu(pre2)
     dpre1 = (dpre2 @ w2.T) * _dsilu(pre1)
     drij = drij + 2.0 * rij * (dpre1 @ wg.T)
-    dx = drij.sum(2) - drij.sum(1)
+    dx = -drij.sum(1)                                         # senders
+    dx[:, i0:i0 + ni] += drij.sum(2)                          # receivers
     rows = lambda t: t.reshape(-1, t.shape[-1])               # noqa: E731
     dweights = (
         (rows(r2) * rows(dpre1)).sum(0, keepdim=True),        # dwg  [1,H]
@@ -150,12 +166,26 @@ def seeds_of(weights) -> int | None:
     return weights[0].shape[0] if weights[0].dim() == 3 else None
 
 
-def _checked_inputs(x, hi, hj, efea, mask, weights):
-    """The launch's shapes (g, n, h, e, k) and contiguous weights, after
-    checking every input; k = 1 for one weight set. Raises on what the
-    kernels do not take."""
+def receiver_slice(x, hi, i0, weights) -> int:
+    """ni, the receivers of a call's slice [i0, i0 + ni) of the N in x;
+    raises on a slice out of range, or with stacked weights on a slice that
+    is not the whole graph."""
+    n, ni = x.shape[1], hi.shape[1]
+    if not (0 <= i0 and 1 <= ni and i0 + ni <= n):
+        raise ValueError(f"receiver slice [{i0}, {i0 + ni}) out of N={n}")
+    if ni != n and seeds_of(weights) is not None:
+        raise ValueError("a receiver slice takes one weight set, not stacked "
+                         "weights")
+    return ni
+
+
+def _checked_inputs(x, hi, hj, efea, mask, weights, i0):
+    """The launch's shapes (g, n, h, e, k, ni) and contiguous weights,
+    after checking every input; k = 1 for one weight set, ni the receiver
+    slice's rows. Raises on what the kernels do not take."""
     if len(weights) != N_WEIGHTS:
         raise ValueError(f"expected {N_WEIGHTS} weights, got {len(weights)}")
+    ni = receiver_slice(x, hi, i0, weights)
     g, n, _ = x.shape
     h = hi.shape[-1]
     e = efea.shape[-1]
@@ -171,12 +201,12 @@ def _checked_inputs(x, hi, hj, efea, mask, weights):
     weights = tuple(w.contiguous() for w in weights)
     dev = x.device
     for name, t, shape in (
-            ("x", x, (g, n, 3)), ("hi", hi, (g, n, h)), ("hj", hj, (g, n, h)),
-            ("efea", efea, (g, n, n, e)), ("mask", mask, (n, n)),
+            ("x", x, (g, n, 3)), ("hi", hi, (g, ni, h)), ("hj", hj, (g, n, h)),
+            ("efea", efea, (g, ni, n, e)), ("mask", mask, (ni, n)),
             *zip(("wg", "we", "b1", "w2", "b2", "wc1", "bc1", "wc2", "bc2"),
                  weights, (lead + s for s in _weight_shapes(h, e)))):
         _check(name, t, shape, dev)
-    return (g, n, h, e, k or 1), weights
+    return (g, n, h, e, k or 1, ni), weights
 
 
 def _weight_shapes(h, e):
@@ -219,7 +249,7 @@ def pairwise_message_bwd_seeds_reference(clip_edges, x, hi, hj, efea, mask,
 def _bind_fwd():
     fn = load(SOURCE).egnn_pairwise_fwd
     fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -228,10 +258,10 @@ def _bind_bwd():
     lib = load(BWD_SOURCE)
     fn = lib.egnn_pairwise_bwd
     fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     scratch = lib.egnn_pairwise_bwd_scratch_floats
-    scratch.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 4
+    scratch.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 5
     scratch.restype = ctypes.c_longlong
     return fn, scratch
 
@@ -240,27 +270,31 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def pairwise_message_fwd(clip_edges, x, hi, hj, efea, mask, weights):
+def pairwise_message_fwd(clip_edges, x, hi, hj, efea, mask, weights, i0=0):
     """(tot_f, tot_m) without autograd: the forward kernel for CUDA tensors,
-    the plain version for CPU tensors. ``weights``: one set or K stacked."""
+    the plain version for CPU tensors. ``weights``: one set or K stacked;
+    the receivers [i0, i0 + ni) of each graph (ni from hi)."""
     if x.device.type == "cpu":
-        ref = pairwise_message_reference if seeds_of(weights) is None \
-            else pairwise_message_seeds_reference
-        return ref(clip_edges, x, hi, hj, efea, mask, weights)
+        receiver_slice(x, hi, i0, weights)
+        if seeds_of(weights) is not None:
+            return pairwise_message_seeds_reference(clip_edges, x, hi, hj,
+                                                    efea, mask, weights)
+        return pairwise_message_reference(clip_edges, x, hi, hj, efea, mask,
+                                          weights, i0)
     if x.device.type != "cuda":
         raise ValueError(f"pairwise_message: unsupported device {x.device}")
-    (g, n, h, e, k), weights = _checked_inputs(x, hi, hj, efea, mask,
-                                               weights)
+    (g, n, h, e, k, ni), weights = _checked_inputs(x, hi, hj, efea, mask,
+                                                   weights, i0)
     dev = x.device
-    totf = torch.empty((g, n, 3), dtype=torch.float32, device=dev)
-    totm = torch.empty((g, n, h), dtype=torch.float32, device=dev)
+    totf = torch.empty((g, ni, 3), dtype=torch.float32, device=dev)
+    totm = torch.empty((g, ni, h), dtype=torch.float32, device=dev)
     if g == 0:
         return totf, totm
     fn = _bind_fwd()
     with torch.cuda.device(dev):
         err = fn(*(t.data_ptr() for t in (x, hi, hj, efea, mask, *weights,
                                           totf, totm)),
-                 g, n, h, e, k, int(bool(clip_edges)), _stream(dev))
+                 g, n, h, e, k, int(bool(clip_edges)), ni, i0, _stream(dev))
     if err != 0:
         raise RuntimeError(f"egnn_pairwise_fwd launch failed: cudaError {err}")
     pairwise_message.launches += 1
@@ -268,28 +302,33 @@ def pairwise_message_fwd(clip_edges, x, hi, hj, efea, mask, weights):
 
 
 def pairwise_message_bwd(clip_edges, x, hi, hj, efea, mask, weights, gtotf,
-                         gtotm):
+                         gtotm, i0=0):
     """(dx, dhi, dhj, defea, dweights) of the chain for the cotangents
     (gtotf, gtotm): the backward kernel for CUDA tensors (its two launches,
     the persistent blocks' pass and the fixed-order sum of their partial
     weight gradients, count as one), the plain version for CPU tensors.
-    With K stacked weight sets the weight gradients come stacked too."""
+    With K stacked weight sets the weight gradients come stacked too. On a
+    receiver slice [i0, i0 + ni), dx and dhj hold the slice's contributions
+    to all N nodes."""
     if x.device.type == "cpu":
-        ref = pairwise_message_bwd_reference if seeds_of(weights) is None \
-            else pairwise_message_bwd_seeds_reference
-        return ref(clip_edges, x, hi, hj, efea, mask, weights, gtotf, gtotm)
+        receiver_slice(x, hi, i0, weights)
+        if seeds_of(weights) is not None:
+            return pairwise_message_bwd_seeds_reference(
+                clip_edges, x, hi, hj, efea, mask, weights, gtotf, gtotm)
+        return pairwise_message_bwd_reference(
+            clip_edges, x, hi, hj, efea, mask, weights, gtotf, gtotm, i0)
     if x.device.type != "cuda":
         raise ValueError(f"pairwise_message: unsupported device {x.device}")
     stacked = seeds_of(weights) is not None
-    (g, n, h, e, k), weights = _checked_inputs(x, hi, hj, efea, mask,
-                                               weights)
+    (g, n, h, e, k, ni), weights = _checked_inputs(x, hi, hj, efea, mask,
+                                                   weights, i0)
     dev = x.device
-    _check("gtotf", gtotf, (g, n, 3), dev)
-    _check("gtotm", gtotm, (g, n, h), dev)
+    _check("gtotf", gtotf, (g, ni, 3), dev)
+    _check("gtotm", gtotm, (g, ni, h), dev)
     dx = torch.empty((g, n, 3), dtype=torch.float32, device=dev)
-    dhi = torch.empty((g, n, h), dtype=torch.float32, device=dev)
+    dhi = torch.empty((g, ni, h), dtype=torch.float32, device=dev)
     dhj = torch.empty((g, n, h), dtype=torch.float32, device=dev)
-    defea = torch.empty((g, n, n, e), dtype=torch.float32, device=dev)
+    defea = torch.empty((g, ni, n, e), dtype=torch.float32, device=dev)
     shapes = _weight_shapes(h, e)
     # the kernel's flat layout: dw2, dwc1, dwg, db1, db2, dbc1, dwc2, dwe, dbc2
     order = (3, 5, 0, 2, 4, 6, 7, 1, 8)
@@ -299,7 +338,7 @@ def pairwise_message_bwd(clip_edges, x, hi, hj, efea, mask, weights, gtotf,
         fn, scratch_floats = _bind_bwd()
         with torch.cuda.device(dev):
             # one slot per block of the launch's grid on this device
-            size = scratch_floats(g, n, h, e, k)
+            size = scratch_floats(g, n, h, e, k, ni)
             if size < 0:
                 raise RuntimeError("egnn_pairwise_bwd: no launch grid for "
                                    f"N={n}, H={h}, E={e} on {dev}")
@@ -307,7 +346,7 @@ def pairwise_message_bwd(clip_edges, x, hi, hj, efea, mask, weights, gtotf,
             err = fn(*(t.data_ptr() for t in (
                 x, hi, hj, efea, mask, *weights, gtotf, gtotm, dx, dhi, dhj,
                 defea, flat, scratch)),
-                g, n, h, e, k, int(bool(clip_edges)), _stream(dev))
+                g, n, h, e, k, int(bool(clip_edges)), ni, i0, _stream(dev))
         if err != 0:
             raise RuntimeError(
                 f"egnn_pairwise_bwd launch failed: cudaError {err}")
@@ -326,7 +365,8 @@ class _PairwiseMessage(torch.autograd.Function):
     """The custom-VJP op (``_pm_fwd`` / ``_pm_bwd``): the forward keeps only
     the inputs as residuals, the backward recomputes the chain. The nine
     weights are separate arguments, so that autograd tracks each one; they
-    are one set, or K stacked sets over G = K * B graphs.
+    are one set, or K stacked sets over G = K * B graphs. ``i0`` is the
+    receiver slice's first row.
 
     Its vmap rule (``torch.vmap``, as ``jax.vmap`` of the Pallas op) folds
     the vmapped axis into the seed axis: every vmapped input moves it first,
@@ -334,14 +374,15 @@ class _PairwiseMessage(torch.autograd.Function):
     the seed-axis op launches each kernel once for the whole vmap."""
 
     @staticmethod
-    def forward(clip_edges, x, hi, hj, efea, mask, *weights):
+    def forward(clip_edges, i0, x, hi, hj, efea, mask, *weights):
         return pairwise_message_fwd(clip_edges, x, hi, hj, efea, mask,
-                                    weights)
+                                    weights, i0)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        clip_edges, *tensors = inputs
+        clip_edges, i0, *tensors = inputs
         ctx.clip_edges = clip_edges
+        ctx.i0 = i0
         ctx.save_for_backward(*tensors)
 
     @staticmethod
@@ -349,13 +390,14 @@ class _PairwiseMessage(torch.autograd.Function):
         x, hi, hj, efea, mask, *weights = ctx.saved_tensors
         dx, dhi, dhj, defea, dweights = pairwise_message_bwd(
             ctx.clip_edges, x, hi, hj, efea, mask, tuple(weights),
-            gtotf.contiguous(), gtotm.contiguous())
+            gtotf.contiguous(), gtotm.contiguous(), ctx.i0)
         grads = (dx, dhi, dhj, defea, None, *dweights)
-        return (None, *(gr if need else None for gr, need in
-                        zip(grads, ctx.needs_input_grad[1:])))
+        return (None, None, *(gr if need else None for gr, need in
+                              zip(grads, ctx.needs_input_grad[2:])))
 
     @staticmethod
-    def vmap(info, in_dims, clip_edges, x, hi, hj, efea, mask, *weights):
+    def vmap(info, in_dims, clip_edges, i0, x, hi, hj, efea, mask, *weights):
+        in_dims = in_dims[1:]        # x at 1, the mask at 5, the weights from 6
         if in_dims[5] is not None:
             raise ValueError("pairwise_message: the mask is shared by every "
                              "seed; it cannot be vmapped")
@@ -370,24 +412,27 @@ class _PairwiseMessage(torch.autograd.Function):
         g = nodes[0].shape[1]
         flat = [t.reshape(k * g, *t.shape[2:]).contiguous() for t in nodes]
         ws = [seeds(w, d).contiguous() for w, d in zip(weights, in_dims[6:])]
-        totf, totm = _PairwiseMessage.apply(clip_edges, *flat, mask, *ws)
+        totf, totm = _PairwiseMessage.apply(clip_edges, i0, *flat, mask, *ws)
         return (totf.view(k, g, *totf.shape[1:]),
                 totm.view(k, g, *totm.shape[1:])), (0, 0)
 
 
-def pairwise_message(clip_edges, x, hi, hj, efea, mask, weights):
-    """(tot_f, tot_m) of the fused pairwise chain, differentiable in every
-    input but the mask.
+def pairwise_message(clip_edges, x, hi, hj, efea, mask, weights, i0=0):
+    """(tot_f, tot_m) [G,ni,.] of the fused pairwise chain on the
+    receivers [i0, i0 + ni) of each graph, differentiable in every input but
+    the mask.
 
-    x [G,N,3]; hi/hj [G,N,H] (node features projected by the Wi/Wj column
-    slices of the first edge-MLP Linear); efea [G,N,N,E]; mask [N,N] 0/1 with
-    zero diagonal; weights: the 9-tuple above in [in,out] layout, or K such
-    sets stacked [K, ...] over G = K * B graphs (graph g on set g // B).
+    x [G,N,3]; hi [G,ni,H], hj [G,N,H] (node features projected by the Wi/Wj
+    column slices of the first edge-MLP Linear); efea [G,ni,N,E]; mask
+    [ni,N] 0/1, the slice's rows of an [N,N] mask with zero diagonal;
+    weights: the 9-tuple above in [in,out] layout, or K such sets stacked
+    [K, ...] over G = K * B graphs (graph g on set g // B, the whole graph
+    only). ni = N, i0 = 0: the whole graph.
     """
     if len(weights) != N_WEIGHTS:
         raise ValueError(f"expected {N_WEIGHTS} weights, got {len(weights)}")
-    return _PairwiseMessage.apply(bool(clip_edges), x, hi, hj, efea, mask,
-                                  *weights)
+    return _PairwiseMessage.apply(bool(clip_edges), int(i0), x, hi, hj, efea,
+                                  mask, *weights)
 
 
 pairwise_message.launches = 0

@@ -30,10 +30,11 @@ def load_params(path, module: nn.Module) -> nn.Module:
 class EarlyStopping:
     """The reference EarlyStopping (EGNO/utils.py:229-278): save the model on
     every val-loss improvement by more than ``delta``, stop after
-    ``patience`` evaluations without one."""
+    ``patience`` evaluations without one. ``saves=False`` (the ranks but
+    rank 0 of a mesh) decides the same and writes nothing."""
 
     def __init__(self, patience=7, verbose=False, delta=0.0,
-                 path="checkpoint.ckpt", trace_func=print):
+                 path="checkpoint.ckpt", trace_func=print, saves=True):
         self.patience = patience
         self.verbose = verbose
         self.counter = 0
@@ -43,6 +44,7 @@ class EarlyStopping:
         self.delta = delta
         self.path = path
         self.trace_func = trace_func
+        self.saves = saves
 
     def __call__(self, val_loss, module: nn.Module):
         score = -val_loss
@@ -65,5 +67,6 @@ class EarlyStopping:
             self.trace_func(
                 f"Validation loss decreased ({self.val_loss_min:.6f} --> "
                 f"{val_loss:.6f}).  Saving model ...")
-        save_params(self.path, module)
+        if self.saves:
+            save_params(self.path, module)
         self.val_loss_min = val_loss

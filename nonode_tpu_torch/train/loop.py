@@ -19,6 +19,15 @@ reductions and pointwise ops in fp32 where JAX runs them in bf16. Only
 ``_loss`` also takes the parameters as an argument (a name -> tensor dict,
 through ``torch.func.functional_call``), so that a seed fleet can vmap it
 over stacked per-seed parameters (parallel/fleet.py).
+
+With a mesh (``--dp``/``--space``, parallel/mesh.py) the experiment's
+batches are global, as one process builds them, and ``shard`` cuts each to
+the rank's rows and particles. ``_loss`` returns the rank's share of the
+global mean (its sum over the global count; one formula with or without a
+mesh), the gradients and the reported losses are summed over the world,
+and the rollouts gather the predictions of every rank, so that the
+energies, the correlation and the artifact are computed on the global state
+in the single process's batch and particle order.
 """
 
 from __future__ import annotations
@@ -43,22 +52,29 @@ def make_perm(rng: np.random.RandomState, n: int, batch_size: int,
     return idx[: nb * batch_size].reshape(nb, batch_size).astype(np.int64)
 
 
-def prepare_inputs(loc, vel, edge_w, charges=None):
+def prepare_inputs(loc, vel, edge_w, charges=None, rows=None):
     """Feature construction (main_simulation_simple_no.py:311-339).
 
     loc, vel: [..., N, 3]; edge_w: [..., N, N, 1]; charges: [B, N, 1] or None.
     Returns (nodes [..., N, F], edge_attr [..., N, N, 2], loc_mean [..., N, 3]).
+    ``rows`` (ops.dense_graph.ReceiverRows): loc, vel, charges hold the
+    receivers [i0, i0 + ni) and edge_w [..., ni, N, 1]; the distances take
+    the gathered senders, loc_mean the mean over all N.
     """
     speed = torch.sqrt((vel ** 2).sum(-1, keepdim=True))
     if charges is not None:
         nodes = torch.cat([speed, charges.expand(speed.shape)], dim=-1)
     else:
         nodes = speed
-    diff = loc[..., :, None, :] - loc[..., None, :, :]
+    senders = loc if rows is None else rows.gather(loc)
+    diff = loc[..., :, None, :] - senders[..., None, :, :]
     dist = (diff ** 2).sum(-1, keepdim=True)
     edge_attr = torch.cat([edge_w.expand(dist.shape), dist], dim=-1)
-    loc_mean = loc.mean(dim=-2, keepdim=True).expand(loc.shape)
-    return nodes, edge_attr, loc_mean
+    if rows is None:
+        loc_mean = loc.mean(dim=-2, keepdim=True)
+    else:
+        loc_mean = rows.node_sum(loc.sum(dim=-2, keepdim=True)) / rows.n
+    return nodes, edge_attr, loc_mean.expand(loc.shape)
 
 
 def _gather_window(arr, idx, frames):
@@ -92,7 +108,11 @@ class _Experiment:
     Every model answers the same calls: ``draw_epoch`` (the permutation and
     the model's input ``windows``), ``batch``, ``train_epoch`` and
     ``eval_epoch``, ``rollout`` and ``test_rollout``. How a model draws its
-    windows and steps its forward stays behind them."""
+    windows and steps its forward stays behind them.
+
+    ``mesh`` (parallel/mesh.py ``apply_mesh``): the batches are cut to the
+    rank's share (``_shard``, per model) and the losses and gradients
+    summed over the world."""
 
     def __init__(self, model, lr: float, weight_decay: float,
                  compute_dtype: torch.dtype | None = None):
@@ -101,6 +121,7 @@ class _Experiment:
         self.lr = lr
         self.weight_decay = weight_decay
         self.compute_dtype = compute_dtype
+        self.mesh = None
 
     @functools.cached_property
     def optimizer(self) -> torch.optim.Adam:
@@ -115,7 +136,48 @@ class _Experiment:
     def _adam_step(self, loss):
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            self.mesh.all_reduce_grads(self.model.parameters())
         self.optimizer.step()
+
+    # ---------- the mesh ----------
+
+    def shard(self, batch):
+        """The rank's share of a global batch (the batch itself without a
+        mesh)."""
+        return batch if self.mesh is None else self._shard(batch)
+
+    def _shards(self) -> int:
+        """The ranks a global batch is cut over: a rank's count times this
+        is the global count."""
+        return 1 if self.mesh is None else self.mesh.world
+
+    def _rows(self, ni: int):
+        """The receiver rows of a rank holding ``ni`` particles (None: the
+        whole graph)."""
+        return None if self.mesh is None else self.mesh.rows(ni)
+
+    def _summed(self, *tensors):
+        """Per-rank shares summed over the world, in one reduction (as
+        they are without a mesh)."""
+        if self.mesh is None:
+            return tensors
+        flat = self.mesh.all_reduce(torch.stack(tensors))
+        return tuple(flat)
+
+    def _gathered(self, t, batch_dim, node_dim):
+        """Every rank's share of a global [.., B, .., N, ..] tensor (itself
+        without a mesh)."""
+        if self.mesh is None:
+            return t
+        return self.mesh.gather_batch(t, batch_dim, node_dim)
+
+    def step(self, batch):
+        """One Adam-L2 step on a global batch: (loss, per-frame losses),
+        this rank's shares, detached."""
+        loss, per_frame = self._loss(self.shard(batch))
+        self._adam_step(loss)
+        return loss.detach(), per_frame.detach()
 
     def draw_epoch(self, ds: NBodyDataset, rng: np.random.RandomState,
                    batch_size: int, shuffle: bool = True):
@@ -127,24 +189,25 @@ class _Experiment:
     def train_epoch(self, ds: NBodyDataset, windows, perm):
         """One Adam step per row of ``perm`` [NB, B] on ``windows``. Returns
         the per-batch (loss, reported loss: the last predicted frame's) as
-        device tensors; nothing is synced to the host."""
+        device tensors; nothing is synced to the host. With a mesh, both
+        are summed over the world once, at the end."""
         losses, last = [], []
         for b, idx in enumerate(self._perm(perm)):
-            loss, per_frame = self._loss(self.batch(ds, windows, b, idx))
-            self._adam_step(loss)
-            losses.append(loss.detach())
-            last.append(per_frame[-1].detach())
-        return torch.stack(losses), torch.stack(last)
+            loss, per_frame = self.step(self.batch(ds, windows, b, idx))
+            losses.append(loss)
+            last.append(per_frame[-1])
+        return self._summed(torch.stack(losses), torch.stack(last))
 
     @torch.no_grad()
     def eval_epoch(self, ds: NBodyDataset, windows, perm):
         """``train_epoch``'s per-batch losses without updates."""
         losses, last = [], []
         for b, idx in enumerate(self._perm(perm)):
-            loss, per_frame = self._loss(self.batch(ds, windows, b, idx))
+            loss, per_frame = self._loss(self.shard(
+                self.batch(ds, windows, b, idx)))
             losses.append(loss)
             last.append(per_frame[-1])
-        return torch.stack(losses), torch.stack(last)
+        return self._summed(torch.stack(losses), torch.stack(last))
 
     def _perm(self, perm):
         return torch.from_numpy(np.asarray(perm, np.int64)).to(self.device)
@@ -226,26 +289,37 @@ class EGNOExperiment(_Experiment):
         corr = (last - last.max()).to(torch.float32)       # [B, 1] <= 0
         return (loc_in, vel_in, charges, w, loc_out, t_in + corr, t_out + corr)
 
+    def _shard(self, batch):
+        loc_in, vel_in, charges, w, loc_out, t_in, t_out = batch
+        cut = self.mesh.cut
+        return (cut(loc_in, 0, 2), cut(vel_in, 0, 2), cut(charges, 0, 1),
+                cut(w, 0, 1), cut(loc_out, 0, 2), cut(t_in, 0), cut(t_out, 0))
+
     def _forward(self, loc_in, vel_in, charges, w, t_in, t_out,
                  params=None):
+        rows = self._rows(loc_in.shape[2])
         if self.model.num_inputs > 1:
             loc = loc_in.transpose(0, 1)                   # [L, B, N, 3]
             vel = vel_in.transpose(0, 1)
             nodes, edge_attr, loc_mean = prepare_inputs(
-                loc, vel, w[None], charges[None])
+                loc, vel, w[None], charges[None], rows)
             return self._call(params, loc, vel, nodes, edge_attr, loc_mean,
-                              timesteps_out=t_out, timesteps_in=t_in)
+                              timesteps_out=t_out, timesteps_in=t_in,
+                              rows=rows)
         loc = loc_in[:, 0]
         vel = vel_in[:, 0]
-        nodes, edge_attr, loc_mean = prepare_inputs(loc, vel, w, charges)
+        nodes, edge_attr, loc_mean = prepare_inputs(loc, vel, w, charges,
+                                                    rows)
         return self._call(params, loc, vel, nodes, edge_attr, loc_mean,
-                          timesteps_out=t_out)
+                          timesteps_out=t_out, rows=rows)
 
     def _loss(self, batch, params=None):
         """(mean over timesteps, per-timestep losses [T]); the mean is the
         backprop target, the last timestep's loss the reported epoch loss
         (main_simulation_simple_no.py:287). ``params``: a name -> tensor
-        dict to run the model on (None: its own parameters)."""
+        dict to run the model on (None: its own parameters). Each frame's
+        loss is the batch's squared error summed over the global count
+        (the rank's share of the mean)."""
         loc_in, vel_in, charges, w, loc_out, t_in, t_out = batch
         t_model = self.model.num_timesteps
         params, (loc_in, vel_in, charges, w) = self._cast(
@@ -254,7 +328,9 @@ class EGNOExperiment(_Experiment):
                                 t_out[:, :t_model], params)
         pred = x.to(torch.float32).transpose(0, 1)         # [B, T, N, 3]
         target = loc_out[:, :t_model]
-        losses = ((pred - target) ** 2).mean(dim=(0, 2, 3))   # [T]
+        sq = (pred - target) ** 2
+        count = sq[:, 0].numel() * self._shards()
+        losses = sq.sum(dim=(0, 2, 3)) / count             # [T]
         return losses.mean(), losses
 
     @torch.no_grad()
@@ -263,25 +339,27 @@ class EGNOExperiment(_Experiment):
 
         Feeds the decoded frames at the input-offset positions back as the
         next window's inputs and evaluates the energy oracle per decoded
-        frame. Returns (locs_pred [traj_len*T, B, N, 3],
-        energies [traj_len*T, B, 1]).
+        frame. ``batch`` is global; with a mesh each rank rolls out its
+        share and the frames are gathered. Returns (locs_pred
+        [traj_len*T, B, N, 3], energies [traj_len*T, B, 1]).
         """
-        loc, vel, charges, w, _, t_in, t_out_all = batch
+        loc, vel, charges, w, _, t_in, t_out_all = self.shard(batch)
         t_model = self.model.num_timesteps
         # feedback frames at timesteps_in - 1 (negative => from the end)
         fb = (t_in.to(torch.int64) - 1) % t_model          # [B, L]
         rows = torch.arange(fb.shape[0], device=fb.device)[:, None]
-        xs, es = [], []
+        xs, vs = [], []
         for i in range(traj_len):
             # per-window output timesteps, shifted back by i*T
             t_out = t_out_all[:, i * t_model:(i + 1) * t_model] - i * t_model
             x, v, _ = self._forward(loc, vel, charges, w, t_in, t_out)
-            es.append(conserved_energy(dataset_kind, x, v, charges))  # [T, B]
             xs.append(x)
+            vs.append(v)
             loc, vel = x[fb, rows], v[fb, rows]            # [B, L, N, 3]
-        locs_pred = torch.cat(xs)
-        energies = torch.cat(es)[..., None]
-        return locs_pred, energies
+        locs_pred = self._gathered(torch.cat(xs), 1, 2)
+        vels = self._gathered(torch.cat(vs), 1, 2)
+        energies = conserved_energy(dataset_kind, locs_pred, vels, batch[2])
+        return locs_pred, energies[..., None]
 
     @torch.no_grad()
     def test_rollout(self, ds: NBodyDataset, batch_size: int,
@@ -400,13 +478,15 @@ class SEGNOExperiment(_Experiment):
 
     # ---------- batches, forward, loss ----------
 
-    def _features(self, loc, vel, charges, w):
+    def _features(self, loc, vel, charges, w, rows=None):
         """h = |v|; edge_attr = [q_i q_j, ||x_i - x_j||^2] from the LAST
         input frame's positions, held over the whole integration
-        (train_nbody.py:115-123)."""
+        (train_nbody.py:115-123). ``rows``: the receivers' rows against
+        the gathered senders."""
         speed = torch.sqrt((vel ** 2).sum(-1, keepdim=True))
         loc_last = loc[-1] if loc.dim() == 4 else loc
-        diff = loc_last[..., :, None, :] - loc_last[..., None, :, :]
+        senders = loc_last if rows is None else rows.gather(loc_last)
+        diff = loc_last[..., :, None, :] - senders[..., None, :, :]
         dist = (diff ** 2).sum(-1, keepdim=True)
         return speed, torch.cat([w.expand(dist.shape), dist], dim=-1)
 
@@ -430,17 +510,29 @@ class SEGNOExperiment(_Experiment):
         return (loc_in, vel_in, ds.charges[idx], ds.edge_weights[idx],
                 loc[idx, end], in_steps)
 
+    def _shard(self, batch):
+        loc_in, vel_in, charges, w, loc_end, in_steps = batch
+        cut = self.mesh.cut
+        b = loc_in.dim() - 3                   # [L, B, N, 3] or [B, N, 3]
+        return (cut(loc_in, b, b + 1), cut(vel_in, b, b + 1),
+                cut(charges, 0, 1), cut(w, 0, 1), cut(loc_end, 0, 1),
+                in_steps)
+
     def _loss(self, batch, params=None):
         """(mean squared error of the position T steps ahead, the per-frame
         losses [1]: SEGNO predicts one frame). ``params`` as
-        EGNOExperiment._loss."""
+        EGNOExperiment._loss; the squared error summed over the global
+        count, as there."""
         loc_in, vel_in, charges, w, loc_end, in_steps = batch
         params, (loc_in, vel_in, charges, w) = self._cast(
             params, (loc_in, vel_in, charges, w))
-        his, edge_attr = self._features(loc_in, vel_in, charges, w)
+        rows = self._rows(loc_end.shape[1])
+        his, edge_attr = self._features(loc_in, vel_in, charges, w, rows)
         x, _, _ = self._call(params, his, loc_in, vel_in, edge_attr,
-                             T=self.num_timesteps, in_steps=in_steps)
-        loss = ((x.to(torch.float32) - loc_end) ** 2).mean()
+                             T=self.num_timesteps, in_steps=in_steps,
+                             rows=rows)
+        sq = (x.to(torch.float32) - loc_end) ** 2
+        loss = sq.sum() / (sq.numel() * self._shards())
         return loss, loss[None]
 
     # ---------- rollout ----------
@@ -450,24 +542,29 @@ class SEGNOExperiment(_Experiment):
         """Autoregressive rollout (train_nbody.py:200-236): each window's
         prediction is fed back; with several inputs the last L states slide,
         and the batch's ``in_steps`` shift by T a window until they reach
-        their fixed point (-(L-1)T, ..., -T, 0). Returns (locs_pred
-        [traj_len, B, N, 3], energies [traj_len, B, 1])."""
-        loc, vel, charges, w, _, in_steps = batch
+        their fixed point (-(L-1)T, ..., -T, 0). ``batch`` is global, as
+        EGNOExperiment.rollout's. Returns (locs_pred [traj_len, B, N, 3],
+        energies [traj_len, B, 1])."""
+        loc, vel, charges, w, loc_end, in_steps = self.shard(batch)
+        rows = self._rows(loc_end.shape[1])
         t = self.num_timesteps
-        xs, es = [], []
+        xs, vs = [], []
         for _ in range(traj_len):
-            his, edge_attr = self._features(loc, vel, charges, w)
+            his, edge_attr = self._features(loc, vel, charges, w, rows)
             x, _, v = self.model(his, loc, vel, edge_attr, T=t,
-                                 in_steps=in_steps)
-            es.append(conserved_energy(dataset_kind, x, v, charges))
+                                 in_steps=in_steps, rows=rows)
             xs.append(x)
+            vs.append(v)
             if in_steps:
                 loc = torch.cat([loc[1:], x[None]])
                 vel = torch.cat([vel[1:], v[None]])
                 in_steps = tuple(s - t for s in (*in_steps[1:], t))
             else:
                 loc, vel = x, v
-        return torch.stack(xs), torch.stack(es)[..., None]
+        locs_pred = self._gathered(torch.stack(xs), 1, 2)
+        vels = self._gathered(torch.stack(vs), 1, 2)
+        energies = conserved_energy(dataset_kind, locs_pred, vels, batch[2])
+        return locs_pred, energies[..., None]
 
     @torch.no_grad()
     def test_rollout(self, ds: NBodyDataset, batch_size: int,

@@ -37,6 +37,34 @@ def test_pairwise_bound_counts_operations_and_bytes():
     assert chip_smoke.pairwise_bound_ms(2560, off, 1, 64)[1] == "bytes"
 
 
+def test_slice_bounds_count_the_slice_rows():
+    """A receiver slice's bounds: the operations of its rows' kept edges,
+    the bytes of its rows (hi, efea, the mask, the outputs, the cotangents,
+    dhi, defea) and of all N senders (x, hj; dx and dhj written whole)."""
+    g, n, ni, h, e = 50, 10, 5, 64, 2
+    off = 1.0 - torch.eye(n)
+    assert chip_smoke.pairwise_bytes(g, n, h, e, ni=n) == \
+        chip_smoke.pairwise_bytes(g, n, h, e)
+    w = 2 * h * h + 5 * h + e * h + 1
+    assert chip_smoke.pairwise_bytes(g, n, h, e, ni=ni) == 4 * (
+        g * n * 3 + g * ni * h + g * n * h + g * ni * n * e + ni * n + w
+        + g * ni * 3 + g * ni * h)
+    assert chip_smoke.pairwise_bytes(g, n, h, e, True, ni) == 4 * (
+        g * n * 3 + g * ni * h + g * n * h + g * ni * n * e + ni * n + w
+        + g * ni * 3 + g * ni * h
+        + g * n * 3 + g * ni * h + g * n * h + g * ni * n * e + w)
+    # operations: the slice's kept edges, half of the graph's here
+    for bound in (chip_smoke.pairwise_bound_ms,
+                  chip_smoke.pairwise_bwd_bound_ms):
+        whole, by = bound(g, off, h, e)
+        part, part_by = bound(g, off[:ni], h, e)
+        assert by == part_by == "operations"
+        assert part == pytest.approx(whole / 2)
+    tc, _ = chip_smoke.pairwise_tc_bound_ms(g, off[ni:], h, e, backward=True)
+    assert tc == pytest.approx(
+        chip_smoke.pairwise_tc_bound_ms(g, off, h, e, backward=True)[0] / 2)
+
+
 def test_pairwise_bwd_bound_counts_operations_and_bytes():
     h, e = 64, 2
     macs = (4 * h * h                  # a1 W2, msg Wc1, dcpre Wc1^T, dpre2 W2^T

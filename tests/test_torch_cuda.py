@@ -270,12 +270,66 @@ def test_widths_not_instantiated_raise_on_the_card(dev):
     assert (egnn_fused.pairwise_message.launches,
             egnn_fused.pairwise_message_bwd.launches) == before
     invalid = 1                                  # cudaErrorInvalidValue
-    shape = [4, 5, 96, 2, 1, 0, None]            # g, n, h, e, k, clip, stream
+    # g, n, h, e, k, clip, the receiver slice (ni, i0), stream
+    shape = [4, 5, 96, 2, 1, 0, 5, 0, None]
     assert egnn_fused._bind_fwd()(*([None] * 16 + shape)) == invalid
     bwd, scratch = egnn_fused._bind_bwd()
     assert bwd(*([None] * 22 + shape)) == invalid
-    assert scratch(4, 5, 96, 2, 1) == -1
-    assert scratch(4, 5, 128, 2, 1) > 0 and scratch(4, 5, 64, 2, 1) > 0
+    assert scratch(4, 5, 96, 2, 1, 5) == -1
+    assert scratch(4, 5, 128, 2, 1, 5) > 0 and scratch(4, 5, 64, 2, 1, 5) > 0
+    # a slice out of range, and a slice with stacked weights
+    for ni, i0, k in ((3, 3, 1), (0, 0, 1), (2, 0, 2)):
+        bad = [4, 5, 64, 2, k, 0, ni, i0, None]
+        assert egnn_fused._bind_fwd()(*([None] * 16 + bad)) == invalid
+        assert bwd(*([None] * 22 + bad)) == invalid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n,space,clip,h", [
+    (50, 10, 2, False, 64),      # the --dp 2 --space 2 path: a rank's batch
+    (50, 10, 2, True, 64),       # SEGNO's clip
+    (7, 31, 3, False, 128),      # H=128, slices of 10, 10 and 11 receivers
+    (3, 64, 4, True, 64),        # N at the gate's limit
+])
+def test_receiver_slices_give_the_whole_launch(dev, g, n, space, clip, h):
+    """#1/#2 on receiver slices [i0, i0 + ni): each within RTOL of its
+    plain version; the slices' tot_f, tot_m and defea side by side bitwise
+    the whole launch's (#1's tile is whole receiver rows; defea is per
+    edge); their dhi side by side and their dx, dhj and weight gradients
+    summed within 1e-5 of it (#2's tiles cut a graph of N > 11 (H=64) or
+    N > 8 (H=128) elsewhere in a slice, and a row's sum over j adds the
+    tiles' parts; the sums over i are taken in parts)."""
+    (x, hi, hj, efea, mask, w), cot = _bwd_inputs(g, n, 2, clip, None, dev,
+                                                  h=h)
+    bounds = np.linspace(0, n, space + 1).astype(int)
+    with torch.no_grad():
+        whole = egnn_fused.pairwise_message(clip, x, hi, hj, efea, mask, w)
+    bwhole = _flat(egnn_fused.pairwise_message_bwd(clip, x, hi, hj, efea,
+                                                   mask, w, *cot))
+    fwd, bwd = [], []
+    for i0, i1 in zip(bounds[:-1], bounds[1:]):
+        i0 = int(i0)
+        args = (x, hi[:, i0:i1].contiguous(), hj,
+                efea[:, i0:i1].contiguous(), mask[i0:i1].contiguous(), w)
+        c = tuple(t[:, i0:i1].contiguous() for t in cot)
+        with torch.no_grad():
+            fwd.append(egnn_fused.pairwise_message(clip, *args, i0=i0))
+        bwd.append(_flat(egnn_fused.pairwise_message_bwd(clip, *args, *c,
+                                                         i0=i0)))
+        _assert_close(fwd[-1], egnn_fused.pairwise_message_reference(
+            clip, *args, i0=i0))
+        _assert_close(bwd[-1], _flat(egnn_fused.pairwise_message_bwd_reference(
+            clip, *args, *c, i0=i0)))
+    for k in range(2):
+        assert torch.equal(torch.cat([f[k] for f in fwd], 1), whole[k])
+    assert torch.equal(torch.cat([b[3] for b in bwd], 1), bwhole[3])
+    for k in range(len(bwhole)):                 # dx, dhi, dhj, weights
+        if k == 3:
+            continue
+        got = torch.cat([b[k] for b in bwd], 1) if k == 1 else \
+            sum(b[k] for b in bwd)
+        err = float((got - bwhole[k]).abs().max())
+        assert err <= 1e-5 * max(1.0, float(bwhole[k].abs().max())), (k, err)
 
 
 @pytest.mark.cuda

@@ -159,20 +159,23 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(tmp_path, no_cuda):
 
 
 @pytest.mark.parametrize("extra,error", [
-    (["--model", "segno", "--space", "2"], NotImplementedError),
-    (["--precision", "bf16", "--dp", "2"], NotImplementedError),
-    (["--dp", "2"], NotImplementedError),
+    (["--model", "segno", "--space", "2"], ValueError),
+    (["--precision", "bf16", "--dp", "3"], ValueError),
+    (["--batch_size", "256", "--dp", "3"], ValueError),
     (["--traj_len", "0"], ValueError),
 ], ids=["segno", "bf16", "dp", "traj_len0"])
 def test_main_refuses_what_is_not_ported(extra, error):
-    """--dp/--space > 1 is not ported yet (bf16 is: a bf16 run with --dp 2
-    is refused for the --dp), nor EGNO at --traj_len 0."""
+    """What the JAX driver asserts before it builds its mesh
+    (nonode_tpu/main.py:209-214: the batch over --dp, the particles over
+    --space; SEGNO at the default 5 bodies, bf16 with a --dp that does not
+    divide the default batch of 256) raises ValueError before any rank
+    starts; so does EGNO at --traj_len 0."""
     base = {"--model": "egno", "--only_test": "true", "--device": "cpu"}
     argv = []
     for k, v in base.items():
         if k not in extra:
             argv += [k, v]
-    with pytest.raises(error, match="ROADMAP|traj_len"):
+    with pytest.raises(error, match="not divisible|traj_len"):
         tmain.main(tmain.get_args(argv + extra))
 
 
