@@ -35,7 +35,13 @@ Phases, each timed on its own line:
    SMs) and the launch without a slice; the slices' tot_f, tot_m, dhi and
    defea side by side bitwise the whole launch's, their dx, dhj and weight
    gradients summed within 1e-5 of it; each slice against its plain
-   version and timed beside its bound;
+   version and timed beside its bound. #1 and #2 at widths they are not
+   built for, H=32, 96 and 100, zero-padded to 64 or 128 in the wrappers:
+   at EGNO's serving shape within the split-TF32 budget of the slice
+   shape, with the clip engaged, and with two weight sets over G = 2 x
+   1280; each against its plain version at the native width, timed beside
+   its bound at that width and at the padded one, and beside H=128 at
+   EGNO's shape;
 4. main path: ``nonode_tpu_torch.main --model egno --only_test true`` on the
    committed charged-5 test split at the canonical EGNO width (4 layers,
    hidden 64, T=10, batch 256, traj_len 20), weights from --seed 42. Checks
@@ -110,7 +116,18 @@ Phases, each timed on its own line:
    MSE of its own preds within rtol 1e-5, the run's wall by PhaseTimer;
    train batch 0's loss and every gradient on the card within 1e-3 x
    max(1, max|.|) of the port's CPU; a step's wall and idle share;
-20. multi-rank path: a training step through the mesh's code path in a
+20. width path: ``main --config_by_file`` with a JSON preset of nf 96
+   (#1/#2 zero-padded to 128): EGNO ``--only_test false --epochs 2`` on
+   512 training samples with a 2-window test rollout, on the card and on
+   the CPU from the same seed, every loss within 1e-3 relative, #1/#2
+   launched as the run asks; then SEGNO serving at nf 32 (padded to 64) as
+   phase 7 checks it; no plain version of #1/#2 handed a CUDA tensor;
+21. baselines: GNN, LinearDynamics, RFVel, EquivariantScalarNet, EGMN and
+   FullMLP at hidden 64 and 4 layers on 100 graphs of the committed test
+   split: a forward and one backward on the card against the port's CPU
+   within 1e-3 x max(1, max|.|), every parameter given a gradient, the
+   time of one forward and backward; no kernel (none in JAX either);
+22. multi-rank path: a training step through the mesh's code path in a
    one-rank NCCL group, bitwise the step without a group; then gloo ranks
    sharing the card (parallel/mesh.py's backend rule): train batch 0's
    loss and gradients through ``--dp 2`` (EGNO and SEGNO, committed
@@ -374,6 +391,25 @@ MOCAP_CASES = [
      dict(g=MOCAP_G, n=31, h=128, e=1, skeleton=True, coord_scale=400.0),
      True, "mocap clip"),
 ]
+# #1/#2 at widths they are not built for, run zero-padded to 64 (H=32) or
+# 128 (H=96; H=100, not a multiple of 4) in the wrappers: EGNO's serving
+# shape, held to the split-TF32 budget as the slice shape is, and with the
+# clip engaged, held as H=64's clip case is; each timed, beside H=128 at
+# the same shape (H=64's is the slice row)
+WIDTHS = (32, 96, 100)
+WIDTH_CASES = [
+    case for h in WIDTHS for case in (
+        (f"width H={h} G=2560 N=5 E=2", dict(g=2560, n=5, h=h), False,
+         f"H={h}"),
+        (f"width H={h} G=2560 clip_edges=True",
+         dict(g=2560, n=5, h=h, coord_scale=400.0), True, f"H={h} clip"))
+] + [("H=128 G=2560 N=5 E=2 (instantiated)", dict(g=2560, n=5, h=128),
+      False, "H=128")]
+# the timed rows held to the split-TF32 budget
+SPLIT_TF32_ROWS = {"slice", "H=128"} | {f"H={h}" for h in WIDTHS}
+# the seed-axis form of the padded widths: two weight sets over G = 2 x 1280
+WIDTH_SEED_AXIS_CASES = [
+    (f"H={h}", 1280, False, 1.0, dict(k=2, h=h)) for h in WIDTHS]
 # the slice shape's times of the build that had H=64 alone (PERF.md §6),
 # printed beside this call's
 H64_ONLY_SLICE_MS = {"egnn_pairwise_fwd": "0.0481-0.0486",
@@ -422,7 +458,7 @@ def check_pairwise_kernel(egnn_fused, dev, cases=PAIRWISE_CASES):
                 raise AssertionError(f"{label}: {name} disagrees with the "
                                      f"plain version: {err} > "
                                      f"{KERNEL_RTOL} x {scale}")
-            if timed == "slice" and err > SPLIT_TF32_RTOL * scale:
+            if timed in SPLIT_TF32_ROWS and err > SPLIT_TF32_RTOL * scale:
                 raise AssertionError(f"{label}: {name} relative error "
                                      f"{err / scale} over the split-TF32 "
                                      f"budget {SPLIT_TF32_RTOL}")
@@ -435,19 +471,37 @@ def check_pairwise_kernel(egnn_fused, dev, cases=PAIRWISE_CASES):
                 lambda: egnn_fused.pairwise_message_reference(clip, *args))
         fp32 = pairwise_bound_ms(g, args[4], h, e)
         tc = pairwise_tc_bound_ms(g, args[4], h, e)
+        padded, padded_text = padded_bound(egnn_fused, g, args[4], h, e, ms)
         kept = g * int((args[4] != 0).sum())
         print(f"  {label}: kernel {ms:.4f} ms, plain version {plain_ms:.4f} "
               f"ms (no yardstick), {bounds_text(fp32, tc, ms)}, over the "
-              f"{kept} edges the mask keeps; the kernel also computes the "
-              f"{g * n * n - kept} masked-out edge rows; no single PyTorch "
-              f"call computes this function"
-              + (f"; slice-shape relative error within {SPLIT_TF32_RTOL:g}"
-                 f"; the H=64-only build: "
+              f"{kept} edges the mask keeps{padded_text}; the kernel also "
+              f"computes the {g * n * n - kept} masked-out edge rows; no "
+              f"single PyTorch call computes this function"
+              + (f"; relative error within {SPLIT_TF32_RTOL:g}"
+                 if timed in SPLIT_TF32_ROWS else "")
+              + (f"; the H=64-only build: "
                  f"{H64_ONLY_SLICE_MS['egnn_pairwise_fwd']} ms"
                  if timed == "slice" else ""), flush=True)
         rows[timed] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                           library_ms=None, **route_row(ms, fp32, tc))
+                           library_ms=None, **route_row(ms, fp32, tc),
+                           **padded)
     return rows
+
+
+def padded_bound(egnn_fused, g, mask, h, e, ms, backward=False):
+    """For a width that runs zero-padded: ({padded_width, padded_bound_ms,
+    padded_bound_share}, a clause for the printed line), the split-TF32
+    bound of the work at the padded width beside the native width's that
+    the row keeps; nothing for an instantiated width."""
+    hp = egnn_fused.padded_width(h)
+    if hp == h:
+        return {}, ""
+    bound_ms, pipe = pairwise_tc_bound_ms(g, mask, hp, e, backward)
+    return (dict(padded_width=hp, padded_bound_ms=bound_ms,
+                 padded_bound_share=bound_ms / ms),
+            f"; run zero-padded to H={hp}, whose work bounds it at "
+            f"{bound_ms:.4f} ms (by the {pipe}; {bound_ms / ms:.3f} of it)")
 
 
 def pairwise_bwd_flops_per_edge(h, e):
@@ -524,7 +578,7 @@ def check_pairwise_bwd_kernel(egnn_fused, dev, cases=PAIRWISE_CASES):
                 raise AssertionError(f"{label}: {name} disagrees with the "
                                      f"plain version: {err} > "
                                      f"{KERNEL_RTOL} x {scale}")
-            if timed == "slice" and err > SPLIT_TF32_RTOL * scale:
+            if timed in SPLIT_TF32_ROWS and err > SPLIT_TF32_RTOL * scale:
                 raise AssertionError(f"{label}: {name} relative error "
                                      f"{err / scale} over the split-TF32 "
                                      f"budget {SPLIT_TF32_RTOL}")
@@ -543,16 +597,20 @@ def check_pairwise_bwd_kernel(egnn_fused, dev, cases=PAIRWISE_CASES):
                 clip, *args, *cot))
         fp32 = pairwise_bwd_bound_ms(g, args[4], h, e)
         tc = pairwise_tc_bound_ms(g, args[4], h, e, backward=True)
+        padded, padded_text = padded_bound(egnn_fused, g, args[4], h, e, ms,
+                                           backward=True)
         print(f"  {label}: backward kernel {ms:.4f} ms (both launches), "
               f"plain version {plain_ms:.4f} ms (no yardstick), "
-              f"{bounds_text(fp32, tc, ms)}; no single PyTorch call "
-              f"computes this function"
-              + (f"; slice-shape relative error within {SPLIT_TF32_RTOL:g}"
-                 f"; the H=64-only build: "
+              f"{bounds_text(fp32, tc, ms)}{padded_text}; no single PyTorch "
+              f"call computes this function"
+              + (f"; relative error within {SPLIT_TF32_RTOL:g}"
+                 if timed in SPLIT_TF32_ROWS else "")
+              + (f"; the H=64-only build: "
                  f"{H64_ONLY_SLICE_MS['egnn_pairwise_bwd']} ms"
                  if timed == "slice" else ""), flush=True)
         rows[timed] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                           library_ms=None, **route_row(ms, fp32, tc))
+                           library_ms=None, **route_row(ms, fp32, tc),
+                           **padded)
     return rows
 
 
@@ -1267,13 +1325,13 @@ def seed_experiment(nt_main, model, where, seed=SEED, extra=()):
                                     seed_everything(seed))
 
 
-def cpu_first_windows(nt_main, model, data_dir):
+def cpu_first_windows(nt_main, model, data_dir, extra=()):
     """The port's own CPU rollout of the seed-42 weights over the first two
     windows of test batch 0, as [BATCH, frames, N, 3]: the windows that the
     test rollout draws from a fresh seed-42 RandomState."""
     from nonode_tpu_torch.data.nbody import NBodyDataset
 
-    exp = seed_experiment(nt_main, model, "cpu")
+    exp = seed_experiment(nt_main, model, "cpu", extra=extra)
     ds = NBodyDataset(data_dir, partition="test", traj_len=2,
                       max_samples=BATCH, device="cpu")
     perm, windows = exp.draw_epoch(ds, np.random.RandomState(SEED), BATCH,
@@ -1283,17 +1341,19 @@ def cpu_first_windows(nt_main, model, data_dir):
     return pred.transpose(0, 1).numpy()
 
 
-def run_main_path(nt_main, kernels, data_dir, out_dir, model="egno"):
+def run_main_path(nt_main, kernels, data_dir, out_dir, model="egno",
+                  extra=()):
     """``main --only_test true``: the test rollout of the seed-42 weights on
     the committed test split, #1 only; the first two windows of batch 0
-    against the port's CPU rollout."""
+    against the port's CPU rollout. ``extra``: more flags of ``main``,
+    given to both runs."""
     from nonode_tpu_torch.analysis.registry import artifact_stem
 
     args = nt_main.get_args([
         "--model", model, "--only_test", "true", "--device", "cuda",
         "--data_dir", str(data_dir), "--outf", str(out_dir),
         "--batch_size", str(BATCH), "--traj_len", str(TRAJ_LEN),
-        "--seed", str(SEED)])
+        "--seed", str(SEED), *extra])
     reset_launches(kernels)
     t0 = time.perf_counter()
     _, test_loss, _ = nt_main.main(args)
@@ -1317,7 +1377,7 @@ def run_main_path(nt_main, kernels, data_dir, out_dir, model="egno"):
         raise AssertionError("the first two windows of batch 0 are not finite")
 
     t1 = time.perf_counter()
-    cpu_first = cpu_first_windows(nt_main, model, data_dir)
+    cpu_first = cpu_first_windows(nt_main, model, data_dir, extra)
     err = float(np.abs(first - cpu_first).max())
     scale = max(1.0, float(np.abs(cpu_first).max()))
     print(f"  card vs CPU rollout, batch 0 windows 0-1: max_abs_err "
@@ -2523,6 +2583,243 @@ def run_multi_rank_path(nt_main, kernels, data_dir, tmp, dev):
     return paths
 
 
+# the width path: EGNO at a width #1/#2 run zero-padded to 128, trained for
+# two epochs on 512 training samples (2 batches of BATCH) with a 2-window
+# test rollout, card and CPU; then SEGNO serving at a width padded to 64
+WIDTH_EGNO_NF, WIDTH_SEGNO_NF = 96, 32
+WIDTH_SAMPLES, WIDTH_TRAJ = 512, 2
+
+
+@contextlib.contextmanager
+def no_plain_on_card(egnn_fused):
+    """Every plain version of #1/#2 raises while the block runs if it is
+    handed a CUDA tensor: a path on the card must reach the kernels."""
+    names = ("pairwise_message_reference", "pairwise_message_bwd_reference",
+             "pairwise_message_seeds_reference",
+             "pairwise_message_bwd_seeds_reference")
+    saved = {name: getattr(egnn_fused, name) for name in names}
+
+    def guard(name, fn):
+        def plain(clip_edges, x, *args, **kwargs):
+            if x.is_cuda:
+                raise AssertionError(f"{name} was handed a CUDA tensor")
+            return fn(clip_edges, x, *args, **kwargs)
+        return plain
+
+    for name, fn in saved.items():
+        setattr(egnn_fused, name, guard(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(egnn_fused, name, fn)
+
+
+def write_width_preset(path, nf):
+    """A --config_by_file preset that sets the hidden width alone (JSON:
+    the card's machine has no yaml)."""
+    path.write_text(json.dumps({"nf": nf}))
+    return path
+
+
+def run_width_path(nt_main, kernels, egnn_fused, data_dir, tmp):
+    """``main --config_by_file`` at widths #1/#2 run zero-padded: EGNO at nf
+    WIDTH_EGNO_NF, ``--only_test false --epochs 2`` on WIDTH_SAMPLES
+    training samples with a WIDTH_TRAJ-window test rollout, on the card
+    and on the CPU from the same seed (every loss within GRAD_RTOL, the
+    train step's card-vs-CPU tolerance; the checkpoint at that width);
+    then SEGNO serving at nf WIDTH_SEGNO_NF (``run_main_path``: its first
+    two windows against the CPU's). No plain version of #1/#2 is handed a
+    CUDA tensor. Returns each run's launches on the card."""
+    from nonode_tpu_torch.analysis.registry import artifact_stem
+
+    preset = write_width_preset(tmp / "width_egno.json", WIDTH_EGNO_NF)
+    argv = ["--model", "egno", "--only_test", "false", "--data_dir",
+            str(data_dir), "--epochs", "2", "--test_interval", "1",
+            "--batch_size", str(BATCH), "--max_samples", str(WIDTH_SAMPLES),
+            "--traj_len", str(WIDTH_TRAJ), "--seed", str(SEED),
+            "--config_by_file", str(preset)]
+    stem = artifact_stem("egno", "charged", SEED, 5)
+    train_b = min(WIDTH_SAMPLES, split_size(data_dir, "train")) // BATCH
+    want = path_launches(EXPECT["egno"]["per_forward"],
+                         split_size(data_dir, "test") // BATCH, WIDTH_TRAJ,
+                         2, train_b, 1, split_size(data_dir, "valid") // BATCH)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        args = nt_main.get_args([*argv, "--device", where, "--outf",
+                                 str(tmp / f"width_{where}")])
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        with no_plain_on_card(egnn_fused):
+            run_echoed(nt_main.main, args)
+        if where == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(
+            kernels, want if where == "cuda" else {},
+            f"width path egno nf {WIDTH_EGNO_NF} on {where}")
+        run = Path(args.outf) / args.exp_name
+        hidden = torch.load(run / f"{stem}.ckpt", map_location="cpu",
+                            weights_only=True)["embedding.weight"].shape[0]
+        if hidden != WIDTH_EGNO_NF:
+            raise AssertionError(f"the preset's width did not reach the "
+                                 f"model: embedding width {hidden}")
+        check_artifact(run / f"{stem}_results.npz",
+                       split_size(data_dir, "test") // BATCH * BATCH,
+                       traj_len=WIDTH_TRAJ)
+        runs[where] = (json.loads((run / f"{stem}.json").read_text()), wall,
+                       launches)
+    (card, card_wall, launches), (cpu, cpu_wall, _) = runs["cuda"], \
+        runs["cpu"]
+    worst = 0.0
+    for key in ("train loss", "val loss", "test loss"):
+        a, b = np.asarray(card[key], float), np.asarray(cpu[key], float)
+        if a.shape != b.shape or not np.isfinite(a).all() or not np.allclose(
+                a, b, rtol=GRAD_RTOL, atol=0):
+            raise AssertionError(f"width path: {key} {card[key]} on the "
+                                 f"card, {cpu[key]} on the CPU (rtol "
+                                 f"{GRAD_RTOL})")
+        worst = max(worst, float(np.max(np.abs(a - b) / np.abs(b))))
+    print(f"  egno nf {WIDTH_EGNO_NF} (#1/#2 zero-padded to H="
+          f"{egnn_fused.padded_width(WIDTH_EGNO_NF)}): losses "
+          f"{card['train loss']} {card['val loss']} {card['test loss']} on "
+          f"the card against {cpu['train loss']} {cpu['val loss']} "
+          f"{cpu['test loss']} on the CPU, worst relative difference "
+          f"{worst:.3e} (tolerance {GRAD_RTOL:g}); wall {card_wall:.3f} s "
+          f"(CPU {cpu_wall:.3f} s); launches {json.dumps(launches)}; no "
+          f"plain version handed a CUDA tensor", flush=True)
+    paths = {f"width egno nf{WIDTH_EGNO_NF}": launches}
+    preset = write_width_preset(tmp / "width_segno.json", WIDTH_SEGNO_NF)
+    with no_plain_on_card(egnn_fused):
+        paths[f"width segno nf{WIDTH_SEGNO_NF} serving"] = run_main_path(
+            nt_main, kernels, data_dir, tmp / "width_segno", model="segno",
+            extra=["--config_by_file", str(preset)])
+    return paths
+
+
+def baseline_inputs(data_dir, where, b=100):
+    """The first ``b`` graphs of the committed charged-5 test split at its
+    first frame, as ``main`` featurizes them (train.loop.prepare_inputs:
+    h = [|v|, q], edge attributes [q_i q_j, |x_i - x_j|^2]), on ``where``:
+    (loc, vel, |v|, h, edge attributes)."""
+    from nonode_tpu_torch.data.nbody import NBodyDataset
+    from nonode_tpu_torch.train.loop import prepare_inputs
+
+    ds = NBodyDataset(data_dir, partition="test", max_samples=b,
+                      device=where)
+    loc, vel = ds.loc[:b, ds.start], ds.vel[:b, ds.start]
+    charges, w = ds.charges[:b], ds.edge_weights[:b]
+    nodes, edge_attr, _ = prepare_inputs(loc, vel, w, charges)
+    vel_norm = torch.sqrt((vel * vel).sum(-1, keepdim=True))
+    return loc, vel, vel_norm, nodes, edge_attr
+
+
+def baseline_models(nf, e):
+    """Each baseline of models/baselines.py at the reference's widths (hidden
+    64, 4 layers: RFVel's defaults) for inputs of ``nf`` node features and
+    ``e`` edge attributes: name -> (class, keyword arguments, a function of
+    (loc, vel, |v|, h, edge attributes) that calls the model)."""
+    from nonode_tpu_torch.models import baselines as bl
+
+    return {
+        "GNN": (bl.GNN, dict(n_layers=4, in_node_nf=nf, in_edge_nf=e,
+                             hidden_nf=64),
+                lambda m, x, v, vn, h, ea: m(h, ea)),
+        "LinearDynamics": (bl.LinearDynamics, {},
+                           lambda m, x, v, vn, h, ea: m(x, v)),
+        "RFVel": (bl.RFVel, dict(hidden_nf=64, edge_attr_nf=e, n_layers=4),
+                  lambda m, x, v, vn, h, ea: m(vn, x, v, ea)),
+        "EquivariantScalarNet": (
+            bl.EquivariantScalarNet,
+            dict(n_vector_input=2, hidden_dim=64, n_scalar_input=nf),
+            lambda m, x, v, vn, h, ea: m([x, v], h)),
+        "EGMN": (bl.EGMN, dict(n_layers=4, n_vector_input=2, hidden_dim=64,
+                               n_scalar_input=nf),
+                 lambda m, x, v, vn, h, ea: m([x, v], h)),
+        "FullMLP": (bl.FullMLP, dict(in_node_nf=6, hidden_nf=64, n_layers=4),
+                    lambda m, x, v, vn, h, ea: m(torch.cat([x, v], -1))),
+    }
+
+
+def baseline_step(model, call, inputs):
+    """A forward and the backward of sum(y^2) over its outputs: (outputs,
+    {name: gradient}); every parameter must get a gradient."""
+    model.zero_grad(set_to_none=True)
+    outs = call(model, *inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    sum((y * y).sum() for y in outs).backward()
+    missing = [n for n, p in model.named_parameters() if p.grad is None]
+    if missing:
+        raise AssertionError(f"{type(model).__name__}: no gradient for "
+                             f"{missing}")
+    return ([y.detach() for y in outs],
+            {n: p.grad.detach() for n, p in model.named_parameters()})
+
+
+def nan_aware_rel_err(a, b):
+    """max |a - b| / max(1, max|b|) over the entries where b is finite;
+    raises unless a and b are NaN at the same entries."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(b)
+    if not torch.equal(torch.isnan(a), nan):
+        raise AssertionError("NaN at other entries on the card")
+    a, b = a[~nan], b[~nan]
+    if b.numel() == 0:
+        return 0.0
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def run_baselines_phase(kernels, data_dir, dev):
+    """Each baseline (``baseline_models``) on a batch of 100 graphs of the
+    committed split (``baseline_inputs``), seed-42 weights: a forward and
+    one backward on the card against the port's CPU, every output and
+    gradient within GRAD_RTOL x max(1, max|.|) (NaN at the same entries:
+    RFVel's dense radial takes sqrt at the diagonal, so its gradients of
+    every layer but the last are NaN, on both, as in JAX), and the time of
+    one forward and backward on the card. The baselines reach no kernel, as
+    in JAX: the phase launches none and is no kernel path."""
+    from nonode_tpu_torch.runtime import seed_everything
+
+    card, cpu = (baseline_inputs(data_dir, where) for where in (dev, "cpu"))
+    models = baseline_models(card[3].shape[-1], card[4].shape[-1])
+    reset_launches(kernels)
+    for name, (cls, kw, call) in models.items():
+        on_card = cls(**kw, device=dev, generator=seed_everything(SEED))
+        on_cpu = cls(**kw, device="cpu", generator=seed_everything(SEED))
+        outs, grads = baseline_step(on_card, call, card)
+        outs_h, grads_h = baseline_step(on_cpu, call, cpu)
+        errs = [nan_aware_rel_err(a, b) for a, b in zip(outs, outs_h)]
+        gerrs = {n: nan_aware_rel_err(grads[n], g) for n, g in grads_h.items()}
+        nans = sorted(n for n, g in grads_h.items() if torch.isnan(g).any())
+        worst = max(gerrs, key=gerrs.get)
+        if max(errs) > GRAD_RTOL or gerrs[worst] > GRAD_RTOL:
+            raise AssertionError(f"{name}: card vs CPU outputs {errs}, "
+                                 f"gradient of {worst} {gerrs[worst]} "
+                                 f"(tolerance {GRAD_RTOL})")
+        step = lambda: baseline_step(on_card, call, card)  # noqa: E731
+        ms = device_ms(step)
+        walls = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print(f"  {name}: outputs {[tuple(o.shape) for o in outs]}, "
+              f"{len(grads)} parameters with a gradient; card vs CPU worst "
+              f"relative error {max(errs):.3e} (outputs), {gerrs[worst]:.3e} "
+              f"(gradient of {worst}; tolerance {GRAD_RTOL:g})"
+              + (f"; NaN gradients on both, as in JAX: {len(nans)} tensors "
+                 f"of layers {sorted({n.split('.')[1] for n in nans})}"
+                 if nans else "")
+              + f"; forward and backward {ms:.4f} ms on the card by CUDA "
+              f"events, {1e3 * float(np.median(walls[1:])):.3f} ms "
+              f"sync-closed wall (median of 5)", flush=True)
+    read_launches(kernels, {}, "baselines")
+    print("  baselines: no kernel launched (the baselines reach none, in "
+          "JAX as here); not a kernel path", flush=True)
+
+
 # each kernel's launches on the path that runs it at full width: #1/#2 at
 # H=64 on the N-body train path, the N-body kernels on their runs
 OWN_PATH = {"egnn_pairwise_fwd": "train", "egnn_pairwise_bwd": "train",
@@ -2604,6 +2901,19 @@ def main():
                              clip_shape=r["mocap clip"],
                              seed_axis=mocap_seed[name])
                   for name, r in mocap_rows.items()}
+    width_rows = {
+        "egnn_pairwise_fwd": check_pairwise_kernel(egnn_fused, dev,
+                                                   WIDTH_CASES),
+        "egnn_pairwise_bwd": check_pairwise_bwd_kernel(egnn_fused, dev,
+                                                       WIDTH_CASES)}
+    width_seed = check_seed_axis_kernels(egnn_fused, dev,
+                                         WIDTH_SEED_AXIS_CASES)
+    for name, r in width_rows.items():
+        rows[name]["padded_widths"] = {
+            f"H={h}": dict(r[f"H={h}"], clip_shape=r[f"H={h} clip"],
+                           seed_axis=width_seed[name][f"H={h}"])
+            for h in WIDTHS}
+        rows[name]["h128_at_this_shape"] = r["H=128"]
     rows.update(check_nbody_kernels(dev))
     check_fused_frames(dev)
     phase("kernels", t0)
@@ -2686,6 +2996,16 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         mocap_launches = run_mocap_path(KERNELS, Path(tmp), dev)
     phase("mocap path", t0)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(run_width_path(nt_main, KERNELS, egnn_fused, data_dir,
+                                    Path(tmp)))
+    phase("width path", t0)
+
+    t0 = time.perf_counter()
+    run_baselines_phase(KERNELS, data_dir, dev)
+    phase("baselines", t0)
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:

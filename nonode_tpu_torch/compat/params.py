@@ -1,5 +1,5 @@
-"""Weights across frameworks: the nonode_tpu EGNO and SEGNO parameter trees
-(as numpy arrays) to this package's ``state_dict``s.
+"""Weights across frameworks: the nonode_tpu EGNO, SEGNO and baseline
+parameter trees (as numpy arrays) to this package's ``state_dict``s.
 
 The port's own copy of the layout mappings in
 nonode_tpu/compat/torch_port.py:66-116 (``egno_state_dict_from_params``,
@@ -100,3 +100,51 @@ def fleet_params_from_jax_params(convert, params_np) -> dict:
                 for i in range(np.asarray(first).shape[0])]
     return {name: torch.stack([sd[name] for sd in per_seed])
             for name in per_seed[0]}
+
+
+# each baseline's top-level keys in its JAX tree (nonode_tpu/models/
+# baselines.py, the ``init`` of each class)
+BASELINE_KEYS = {
+    "GNN": ("embedding", "edge", "node", "decoder"),
+    "LinearDynamics": ("time",),
+    "RFVel": ("layers",),
+    "EquivariantScalarNet": ("in_scalar", "out_vector", "out_scalar"),
+    "EGMN": ("layers",),
+    "FullMLP": ("embedding", "blocks", "output"),
+}
+
+
+def _put_tree(out: dict, prefix: str, tree) -> None:
+    """A JAX parameter tree under the port's names: an MLP ({l1, l2}) at
+    ``prefix.mlp.{0,2}``, a Linear ({w, b?}) at ``prefix.weight`` and
+    ``prefix.bias``, a list's entries at ``prefix.{i}``, a leaf at
+    ``prefix``."""
+    put_linear, put_mlp = _putters(out)
+    name = (lambda k: f"{prefix}.{k}") if prefix else str
+    if isinstance(tree, dict) and set(tree) == {"l1", "l2"}:
+        put_mlp(name("mlp"), tree)
+    elif isinstance(tree, dict) and "w" in tree and set(tree) <= {"w", "b"}:
+        put_linear(prefix, tree)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            _put_tree(out, name(k), v)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _put_tree(out, name(i), v)
+    else:
+        out[prefix] = tree
+
+
+def baseline_state_dict_from_jax_params(kind: str, params_np) -> dict:
+    """``params_np``: the JAX tree (numpy leaves) of the baseline ``kind``
+    (a class name of models/baselines.py). Returns a state_dict for that
+    class's ``load_state_dict(strict=True)``, which checks every shape."""
+    if kind not in BASELINE_KEYS:
+        raise ValueError(f"unknown baseline {kind!r}; one of "
+                         f"{', '.join(BASELINE_KEYS)}")
+    if set(params_np) != set(BASELINE_KEYS[kind]):
+        raise ValueError(f"a {kind} tree has the keys "
+                         f"{BASELINE_KEYS[kind]}, not {tuple(params_np)}")
+    out = {}
+    _put_tree(out, "", params_np)
+    return _tensors(out)

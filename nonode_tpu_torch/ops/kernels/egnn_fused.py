@@ -36,6 +36,15 @@ op's vmap rule folds the vmapped axis into that seed axis, so a fleet that
 vmaps the ordinary modules over stacked parameters (parallel/fleet.py)
 launches each kernel once per call for all its seeds. A slice other than the
 whole graph takes one weight set.
+
+Widths. The kernels are instantiated for H = 64 and H = 128. Any other width
+up to 128 runs on them zero-padded (``pad_width``): hi, hj and the weights
+take zero columns (and W2, Wc1, wc2 zero rows) up to the next instantiated
+width, and the outputs and gradients are cut back (``cut_width``). This is
+exact: a padded unit's pre-activation is 0 and SiLU(0) = 0, so it is 0 in
+the forward, the zero rows keep it from every real unit, its upstream
+gradient is 0 in the backward, and zeros split exactly into TF32 halves.
+A width above 128 raises.
 """
 
 from __future__ import annotations
@@ -50,7 +59,10 @@ from .build import load
 SOURCE = "egnn_fused_fwd.cu"
 BWD_SOURCE = "egnn_fused_bwd.cu"
 CLIP = 100.0
-HIDDEN = (64, 128)        # widths the kernels are instantiated for
+# the widths the kernels are instantiated for; any other H <= MAX_HIDDEN is
+# zero-padded to the next of them (``padded_width``), a larger one raises
+HIDDEN = (64, 128)
+MAX_HIDDEN = HIDDEN[-1]
 MAX_NODES = 64            # N * N <= 4096, as the TPU kernel's gate
 MAX_EDGE_FEATURES = 4     # E the kernels keep in registers
 
@@ -63,8 +75,9 @@ N_WEIGHTS = 9
 def supported(n: int, hidden: int, dtype, act, flat: bool, norm: bool,
               tanh: bool = False) -> bool:
     """Config gate, the TPU kernel's (nonode_tpu/ops/pallas/egnn_fused.py:
-    355-360). It has no width limit: on the card a width outside ``HIDDEN``
-    (the widths the kernels are instantiated for) raises in
+    355-360). It has no width limit: on the card the widths in ``HIDDEN``
+    run on their own instantiation, every other width up to ``MAX_HIDDEN``
+    runs zero-padded to the next one, and a width above it raises in
     ``pairwise_message``."""
     from ...nn import silu
     return (dtype == torch.float32 and not flat and not norm and not tanh
@@ -189,10 +202,11 @@ def _checked_inputs(x, hi, hj, efea, mask, weights, i0):
     g, n, _ = x.shape
     h = hi.shape[-1]
     e = efea.shape[-1]
-    if h not in HIDDEN or not 1 <= n <= MAX_NODES \
+    if not 1 <= h <= MAX_HIDDEN or not 1 <= n <= MAX_NODES \
             or not 1 <= e <= MAX_EDGE_FEATURES:
         raise ValueError(f"unsupported shape: N={n}, H={h}, E={e} "
-                         f"(kernel takes N<={MAX_NODES}, H in {HIDDEN}, "
+                         f"(kernel takes N<={MAX_NODES}, H<={MAX_HIDDEN}: "
+                         f"H in {HIDDEN} natively, others zero-padded, "
                          f"1<=E<={MAX_EDGE_FEATURES})")
     k = seeds_of(weights)
     lead = () if k is None else (k,)
@@ -212,6 +226,43 @@ def _checked_inputs(x, hi, hj, efea, mask, weights, i0):
 def _weight_shapes(h, e):
     return ((1, h), (e, h), (1, h), (h, h), (1, h), (h, h), (1, h), (h, 1),
             (1, 1))
+
+
+def padded_width(h: int) -> int:
+    """The instantiated width that H runs at: H itself in ``HIDDEN``, else
+    the next one up; raises above ``MAX_HIDDEN``."""
+    for hp in HIDDEN:
+        if 1 <= h <= hp:
+            return hp
+    raise ValueError(f"unsupported width H={h}: the kernels take "
+                     f"1<=H<={MAX_HIDDEN} (H in {HIDDEN} natively)")
+
+
+def pad_width(weights, hi, hj, hp):
+    """(weights, hi, hj) of width H zero-padded to width ``hp``: hi and hj
+    (columns H..hp), wg, we, b1, b2, bc1 (entries H..hp), w2 and wc1 (rows
+    and columns H..hp) and wc2 (rows H..hp); bc2 as it is. One weight set
+    or K stacked; the tensors come back contiguous."""
+    h = hi.shape[-1]
+    e = weights[1].shape[-2]
+
+    def grow(t, shape, want):
+        return F.pad(t, (0, want[1] - shape[1], 0, want[0] - shape[0])) \
+            .contiguous()
+
+    padded = tuple(grow(w, s, ps) for w, s, ps in zip(
+        weights, _weight_shapes(h, e), _weight_shapes(hp, e)))
+    return padded, grow(hi, (0, h), (0, hp)), grow(hj, (0, h), (0, hp))
+
+
+def cut_width(h, e, hidden=(), dweights=()):
+    """The inverse of ``pad_width`` on a padded call's outputs: the
+    hidden-width tensors (tot_m; dhi, dhj) cut to their first H columns and
+    the nine weight gradients to the weights' shapes at width H (one set or
+    K stacked). Returns (hidden, dweights)."""
+    return (tuple(t[..., :h].contiguous() for t in hidden),
+            tuple(d[..., :r, :c].contiguous()
+                  for d, (r, c) in zip(dweights, _weight_shapes(h, e))))
 
 
 def _per_seed(k, t):
@@ -285,19 +336,25 @@ def pairwise_message_fwd(clip_edges, x, hi, hj, efea, mask, weights, i0=0):
         raise ValueError(f"pairwise_message: unsupported device {x.device}")
     (g, n, h, e, k, ni), weights = _checked_inputs(x, hi, hj, efea, mask,
                                                    weights, i0)
+    hp = padded_width(h)
+    if hp != h:
+        weights, hi, hj = pad_width(weights, hi, hj, hp)
     dev = x.device
     totf = torch.empty((g, ni, 3), dtype=torch.float32, device=dev)
-    totm = torch.empty((g, ni, h), dtype=torch.float32, device=dev)
-    if g == 0:
-        return totf, totm
-    fn = _bind_fwd()
-    with torch.cuda.device(dev):
-        err = fn(*(t.data_ptr() for t in (x, hi, hj, efea, mask, *weights,
-                                          totf, totm)),
-                 g, n, h, e, k, int(bool(clip_edges)), ni, i0, _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"egnn_pairwise_fwd launch failed: cudaError {err}")
-    pairwise_message.launches += 1
+    totm = torch.empty((g, ni, hp), dtype=torch.float32, device=dev)
+    if g > 0:
+        fn = _bind_fwd()
+        with torch.cuda.device(dev):
+            err = fn(*(t.data_ptr() for t in (x, hi, hj, efea, mask,
+                                              *weights, totf, totm)),
+                     g, n, hp, e, k, int(bool(clip_edges)), ni, i0,
+                     _stream(dev))
+        if err != 0:
+            raise RuntimeError(
+                f"egnn_pairwise_fwd launch failed: cudaError {err}")
+        pairwise_message.launches += 1
+    if hp != h:
+        (totm,), _ = cut_width(h, e, (totm,))
     return totf, totm
 
 
@@ -325,28 +382,32 @@ def pairwise_message_bwd(clip_edges, x, hi, hj, efea, mask, weights, gtotf,
     dev = x.device
     _check("gtotf", gtotf, (g, ni, 3), dev)
     _check("gtotm", gtotm, (g, ni, h), dev)
+    hp = padded_width(h)
+    if hp != h:
+        weights, hi, hj = pad_width(weights, hi, hj, hp)
+        gtotm = F.pad(gtotm, (0, hp - h))
     dx = torch.empty((g, n, 3), dtype=torch.float32, device=dev)
-    dhi = torch.empty((g, ni, h), dtype=torch.float32, device=dev)
-    dhj = torch.empty((g, n, h), dtype=torch.float32, device=dev)
+    dhi = torch.empty((g, ni, hp), dtype=torch.float32, device=dev)
+    dhj = torch.empty((g, n, hp), dtype=torch.float32, device=dev)
     defea = torch.empty((g, ni, n, e), dtype=torch.float32, device=dev)
-    shapes = _weight_shapes(h, e)
+    shapes = _weight_shapes(hp, e)
     # the kernel's flat layout: dw2, dwc1, dwg, db1, db2, dbc1, dwc2, dwe, dbc2
     order = (3, 5, 0, 2, 4, 6, 7, 1, 8)
-    np_ = 2 * h * h + 5 * h + e * h + 1
+    np_ = 2 * hp * hp + 5 * hp + e * hp + 1
     flat = torch.zeros((k, np_), dtype=torch.float32, device=dev)
     if g > 0:
         fn, scratch_floats = _bind_bwd()
         with torch.cuda.device(dev):
             # one slot per block of the launch's grid on this device
-            size = scratch_floats(g, n, h, e, k, ni)
+            size = scratch_floats(g, n, hp, e, k, ni)
             if size < 0:
                 raise RuntimeError("egnn_pairwise_bwd: no launch grid for "
-                                   f"N={n}, H={h}, E={e} on {dev}")
+                                   f"N={n}, H={hp}, E={e} on {dev}")
             scratch = torch.empty(size, dtype=torch.float32, device=dev)
             err = fn(*(t.data_ptr() for t in (
                 x, hi, hj, efea, mask, *weights, gtotf, gtotm, dx, dhi, dhj,
                 defea, flat, scratch)),
-                g, n, h, e, k, int(bool(clip_edges)), ni, i0, _stream(dev))
+                g, n, hp, e, k, int(bool(clip_edges)), ni, i0, _stream(dev))
         if err != 0:
             raise RuntimeError(
                 f"egnn_pairwise_bwd launch failed: cudaError {err}")
@@ -358,6 +419,8 @@ def pairwise_message_bwd(clip_edges, x, hi, hj, efea, mask, weights, gtotf,
         part = flat[:, off:off + size].view(k, *shapes[w])
         dweights[w] = part if stacked else part[0]
         off += size
+    if hp != h:
+        (dhi, dhj), dweights = cut_width(h, e, (dhi, dhj), dweights)
     return dx, dhi, dhj, defea, tuple(dweights)
 
 

@@ -22,7 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..runtime import seed_everything
-from ..train.loop import make_perm
+from ..train.loop import make_perm, zero_missing_grads
 
 
 def eval_shard_indices(n: int, world_size: int, rank: int,
@@ -151,6 +151,7 @@ class SeedFleet:
                                            perms[:, b], per_seed_windows)
             opt.zero_grad(set_to_none=True)
             loss.sum().backward()        # the sum: see ``optimizer``
+            zero_missing_grads(params.values())
             opt.step()
             losses.append(loss.detach())
             last.append(per_frame[:, -1].detach())

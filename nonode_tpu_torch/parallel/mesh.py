@@ -129,7 +129,9 @@ class Mesh:
 
     def all_reduce_grads(self, params):
         """Sum the gradients of ``params`` over the world in one buffer.
-        A parameter with no gradient has none on every rank (one model)."""
+        A parameter with no gradient has none on every rank (one model);
+        the step then gives it a zero one (train.loop.zero_missing_grads),
+        so that Adam-L2 decays it as optax does."""
         grads = [p.grad for p in params if p.grad is not None]
         if not grads:
             return

@@ -100,6 +100,15 @@ def _finite_metrics(artifact, bound_mult=10.0):
     return out
 
 
+def zero_missing_grads(params) -> None:
+    """Give every parameter without a gradient (EGNO's last node MLP feeds
+    no loss term) a zero one: ``torch.optim.Adam`` skips a parameter whose
+    ``.grad`` is None, where optax's Adam-L2 decays every leaf."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
 class _Experiment:
     """A model's experiment against a device-resident dataset. The model's
     device is the experiment's device; the experiment owns the Adam-L2
@@ -138,6 +147,7 @@ class _Experiment:
         loss.backward()
         if self.mesh is not None:
             self.mesh.all_reduce_grads(self.model.parameters())
+        zero_missing_grads(self.model.parameters())
         self.optimizer.step()
 
     # ---------- the mesh ----------

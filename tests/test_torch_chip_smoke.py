@@ -464,3 +464,87 @@ def test_kernels_line_names_the_h128_instantiations():
         h128["egnn_pairwise_fwd_h128"]["ms"] == 3.0
     assert out[0]["launches"] == 7 and out[0]["width"] == 64
     json.dumps({"kernels": out})
+
+
+def test_padded_widths_are_bound_at_both_widths():
+    """A width that runs zero-padded keeps the bound of its own work and
+    gains the bound of the padded width's beside it; an instantiated width
+    gains nothing."""
+    from nonode_tpu_torch.ops.kernels import egnn_fused
+
+    off = 1.0 - torch.eye(5)
+    assert chip_smoke.padded_bound(egnn_fused, 2560, off, 64, 2, 0.1) == \
+        ({}, "")
+    for h, hp in ((32, 64), (96, 128), (100, 128)):
+        for backward in (False, True):
+            row, text = chip_smoke.padded_bound(egnn_fused, 2560, off, h, 2,
+                                                0.5, backward)
+            want = chip_smoke.pairwise_tc_bound_ms(2560, off, hp, 2,
+                                                   backward)[0]
+            assert row == dict(padded_width=hp, padded_bound_ms=want,
+                               padded_bound_share=want / 0.5)
+            assert f"H={hp}" in text
+            assert want > chip_smoke.pairwise_tc_bound_ms(
+                2560, off, h, 2, backward)[0]
+    assert {f"H={h}" for h in chip_smoke.WIDTHS} <= chip_smoke.SPLIT_TF32_ROWS
+    assert [c[3] for c in chip_smoke.WIDTH_CASES] == [
+        row for h in chip_smoke.WIDTHS for row in (f"H={h}", f"H={h} clip")
+    ] + ["H=128"]
+
+
+def test_width_preset_sets_the_models_width(tmp_path):
+    """The width path's preset reaches the model through --config_by_file,
+    and nothing else of the arguments."""
+    from nonode_tpu_torch import main as nt_main
+    from nonode_tpu_torch.runtime import seed_everything
+
+    preset = chip_smoke.write_width_preset(tmp_path / "p.json", 96)
+    args = nt_main.get_args(["--model", "egno", "--epochs", "2",
+                             "--config_by_file", str(preset)])
+    assert args.epochs == 2
+    exp = nt_main.build_experiment(args, torch.device("cpu"),
+                                   seed_everything(1))
+    assert exp.model.embedding.weight.shape[0] == 96
+    assert exp.model.layers[0].hidden_nf == 96
+
+
+def test_plain_versions_are_guarded_and_restored():
+    from nonode_tpu_torch.ops.kernels import egnn_fused
+
+    before = egnn_fused.pairwise_message_reference
+    x = torch.zeros(1, 2, 3)
+    with chip_smoke.no_plain_on_card(egnn_fused):
+        assert egnn_fused.pairwise_message_reference is not before
+        w = tuple(torch.zeros(s) for s in egnn_fused._weight_shapes(4, 1))
+        out = egnn_fused.pairwise_message_fwd(
+            False, x, torch.zeros(1, 2, 4), torch.zeros(1, 2, 4),
+            torch.zeros(1, 2, 2, 1), 1.0 - torch.eye(2), w)
+        assert [tuple(o.shape) for o in out] == [(1, 2, 3), (1, 2, 4)]
+    assert egnn_fused.pairwise_message_reference is before
+
+
+def test_baselines_phase_runs_each_baseline_on_the_cpu():
+    """The baselines phase's inputs, models and step on the CPU: 100 graphs
+    of the committed split, every parameter given a gradient, RFVel's NaN
+    gradients confined to the layers before its last (as in JAX)."""
+    from nonode_tpu_torch.runtime import seed_everything
+
+    inputs = chip_smoke.baseline_inputs(chip_smoke.ROOT / "data", "cpu")
+    assert [tuple(a.shape) for a in inputs] == [
+        (100, 5, 3), (100, 5, 3), (100, 5, 1), (100, 5, 2), (100, 5, 5, 2)]
+    models = chip_smoke.baseline_models(2, 2)
+    assert list(models) == ["GNN", "LinearDynamics", "RFVel",
+                            "EquivariantScalarNet", "EGMN", "FullMLP"]
+    for name, (cls, kw, call) in models.items():
+        model = cls(**kw, device="cpu", generator=seed_everything(42))
+        outs, grads = chip_smoke.baseline_step(model, call, inputs)
+        assert outs[0].shape == (100, 5, 3), name
+        assert set(grads) == set(dict(model.named_parameters()))
+        nan = {n.split(".")[1] for n, g in grads.items()
+               if torch.isnan(g).any()}
+        assert nan == ({"0", "1", "2"} if name == "RFVel" else set()), name
+        assert all(torch.isfinite(o).all() for o in outs)
+    a = torch.tensor([1.0, float("nan"), 3.0])
+    assert chip_smoke.nan_aware_rel_err(a, a.clone()) == 0.0
+    with pytest.raises(AssertionError, match="NaN"):
+        chip_smoke.nan_aware_rel_err(torch.ones(3), a)

@@ -14,8 +14,9 @@ Tolerance: max|kernel - plain| <= 1e-4 x max(1, max|plain|); both are fp32
 128 products (the N-body kernels: up to N pair terms, and up to 100
 micro-steps) taken in another order. #1/#2 are held at both widths they
 are built for, H=64 and H=128 (mocap's, on the skeleton mask of
-chip_smoke.py's written CMU skeleton); H=64 also to the bits of the build
-that had H=64 alone.
+chip_smoke.py's written CMU skeleton), and at widths that run on them
+zero-padded (H=32, 96, 100); H=64 also to the bits of the build that had
+H=64 alone.
 """
 
 from pathlib import Path
@@ -122,11 +123,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(TypeError, match="float32"):
         egnn_fused.pairwise_message(False, x.double(), hi, hj, efea, mask,
                                     weights)
-    with pytest.raises(ValueError, match="unsupported shape"):
-        egnn_fused.pairwise_message(False, x, hi[..., :48], hj[..., :48],
-                                    efea, mask, weights)
+    with pytest.raises(ValueError, match="wg has shape"):
+        egnn_fused.pairwise_message(False, x, hi[..., :48].contiguous(),
+                                    hj[..., :48].contiguous(), efea, mask,
+                                    weights)
     gtotf, gtotm = torch.ones_like(x), torch.ones_like(hi)
-    with pytest.raises(ValueError, match="unsupported shape"):
+    with pytest.raises(ValueError, match="wg has shape"):
         egnn_fused.pairwise_message_bwd(False, x, hi[..., :48].contiguous(),
                                         hj[..., :48].contiguous(), efea, mask,
                                         weights, gtotf, gtotm[..., :48])
@@ -254,30 +256,78 @@ def test_h128_kernels_match_plain_versions(dev, g, n, e, clip, isolated,
 
 
 @pytest.mark.cuda
-def test_widths_not_instantiated_raise_on_the_card(dev):
-    """H=96: the wrappers raise before a launch, and the entry points
-    themselves refuse it (cudaErrorInvalidValue, and no scratch size), the
-    one dispatch on the width that both kernels and the scratch share."""
-    (x, hi, hj, efea, mask, weights), cot = _bwd_inputs(4, 5, 2, False, None,
-                                                        dev, h=96)
+@pytest.mark.parametrize("h", [32, 96, 100])
+@pytest.mark.parametrize("form", ["EGNO G=2560", "clip", "seed axis K=2"])
+def test_widths_not_instantiated_run_padded_on_the_card(dev, h, form):
+    """H=32, 96 and 100 (not a multiple of 4) run on the H=64 and H=128
+    kernels, zero-padded in the wrappers: #1 and #2 within RTOL of their
+    plain versions at the native width, two runs bitwise equal, one launch
+    each; at EGNO's serving shape, with the clip engaged, and with two
+    stacked weight sets. The raw entry points still refuse such a width
+    (cudaErrorInvalidValue, and no scratch size): the one dispatch on the
+    width that both kernels and the scratch share."""
+    clip = form == "clip"
+    (x, hi, hj, efea, mask, weights), cot = _bwd_inputs(
+        2560, 5, 2, clip, None, dev, h=h)
+    if form == "seed axis K=2":
+        other = _inputs(1, 5, h, 2, seed=h, dev=dev)[5]
+        weights = tuple(torch.stack(w) for w in zip(weights, other))
+    args = (x, hi, hj, efea, mask, weights)
+    stacked = form == "seed axis K=2"
+    plain = egnn_fused.pairwise_message_seeds_reference if stacked else \
+        egnn_fused.pairwise_message_reference
+    bplain = egnn_fused.pairwise_message_bwd_seeds_reference if stacked \
+        else egnn_fused.pairwise_message_bwd_reference
     before = (egnn_fused.pairwise_message.launches,
               egnn_fused.pairwise_message_bwd.launches)
-    with torch.no_grad(), pytest.raises(ValueError, match="unsupported shape"):
+    with torch.no_grad():
+        got = egnn_fused.pairwise_message(clip, *args)
+        again = egnn_fused.pairwise_message(clip, *args)
+    bgot = _flat(egnn_fused.pairwise_message_bwd(clip, *args, *cot))
+    bagain = _flat(egnn_fused.pairwise_message_bwd(clip, *args, *cot))
+    torch.cuda.synchronize()
+    assert (egnn_fused.pairwise_message.launches,
+            egnn_fused.pairwise_message_bwd.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(bgot, bagain))
+    with torch.no_grad():
+        want = plain(clip, *args)
+        if clip:
+            free = plain(False, *args)[0]
+            assert float((free - want[0]).abs().max()) > 1.0
+    _assert_close(got, want)
+    bwant = _flat(bplain(clip, *args, *cot))
+    assert [a.shape for a in bgot] == [b.shape for b in bwant]
+    _assert_close(bgot, bwant)
+    invalid = 1                                  # cudaErrorInvalidValue
+    # g, n, h, e, k, clip, the receiver slice (ni, i0), stream
+    shape = [4, 5, h, 2, 1, 0, 5, 0, None]
+    assert egnn_fused._bind_fwd()(*([None] * 16 + shape)) == invalid
+    bwd, scratch = egnn_fused._bind_bwd()
+    assert bwd(*([None] * 22 + shape)) == invalid
+    assert scratch(4, 5, h, 2, 1, 5) == -1
+    assert scratch(4, 5, 128, 2, 1, 5) > 0 and scratch(4, 5, 64, 2, 1, 5) > 0
+
+
+@pytest.mark.cuda
+def test_widths_above_128_and_bad_slices_raise_on_the_card(dev):
+    """A width above 128 raises before a launch, naming the limit; the
+    entry points refuse a slice out of range and a slice with stacked
+    weights."""
+    (x, hi, hj, efea, mask, weights), cot = _bwd_inputs(4, 5, 2, False, None,
+                                                        dev, h=160)
+    before = (egnn_fused.pairwise_message.launches,
+              egnn_fused.pairwise_message_bwd.launches)
+    with torch.no_grad(), pytest.raises(ValueError, match="H<=128"):
         egnn_fused.pairwise_message(False, x, hi, hj, efea, mask, weights)
-    with pytest.raises(ValueError, match="unsupported shape"):
+    with pytest.raises(ValueError, match="H<=128"):
         egnn_fused.pairwise_message_bwd(False, x, hi, hj, efea, mask,
                                         weights, *cot)
     assert (egnn_fused.pairwise_message.launches,
             egnn_fused.pairwise_message_bwd.launches) == before
     invalid = 1                                  # cudaErrorInvalidValue
-    # g, n, h, e, k, clip, the receiver slice (ni, i0), stream
-    shape = [4, 5, 96, 2, 1, 0, 5, 0, None]
-    assert egnn_fused._bind_fwd()(*([None] * 16 + shape)) == invalid
-    bwd, scratch = egnn_fused._bind_bwd()
-    assert bwd(*([None] * 22 + shape)) == invalid
-    assert scratch(4, 5, 96, 2, 1, 5) == -1
-    assert scratch(4, 5, 128, 2, 1, 5) > 0 and scratch(4, 5, 64, 2, 1, 5) > 0
-    # a slice out of range, and a slice with stacked weights
+    bwd, _ = egnn_fused._bind_bwd()
     for ni, i0, k in ((3, 3, 1), (0, 0, 1), (2, 0, 2)):
         bad = [4, 5, 64, 2, k, 0, ni, i0, None]
         assert egnn_fused._bind_fwd()(*([None] * 16 + bad)) == invalid
@@ -401,15 +451,36 @@ def test_egnn_layer_kernel_route_matches_dense_route(dev):
 
 
 @pytest.mark.cuda
-def test_egnn_layer_of_another_width_raises_on_the_card(dev):
-    """The gate has no width limit, as the TPU's: a width the kernel is not
-    instantiated for raises instead of taking the dense path."""
-    layer = EGNNLayer(48, 2, fused=True, device=dev,
-                      generator=torch.Generator().manual_seed(0))
-    z = lambda *s: torch.zeros(*s, device=dev)
-    assert layer._use_fused(z(4, 5, 3), None)
-    with torch.no_grad(), pytest.raises(ValueError, match="unsupported shape"):
-        layer(z(4, 5, 3), z(4, 5, 48), z(5, 5, 2))
+@pytest.mark.parametrize("h", [32, 96, 100])
+def test_egnn_layer_of_another_width_runs_on_the_card(dev, h):
+    """The gate has no width limit, as the TPU's: a layer at a width the
+    kernels are not built for takes them, zero-padded, and its output and
+    every gradient match the dense route of the same layer."""
+    layer = EGNNLayer(h, 2, with_v=True, fused=True, device=dev,
+                      generator=torch.Generator().manual_seed(h))
+    rng = np.random.RandomState(h)
+    t = lambda *s: torch.tensor(rng.randn(*s), dtype=torch.float32,  # noqa: E731
+                                device=dev, requires_grad=True)
+    ins = (t(10, 8, 5, 3), t(10, 8, 5, h), t(8, 5, 5, 2), t(10, 8, 5, 3))
+    assert layer._use_fused(ins[0], None)
+    outs, grads = [], []
+    for fused in (True, False):
+        layer.fused = fused
+        layer.zero_grad(set_to_none=True)
+        for a in ins:
+            a.grad = None
+        before = (egnn_fused.pairwise_message.launches,
+                  egnn_fused.pairwise_message_bwd.launches)
+        xo, vo, ho = layer(*ins[:3], v=ins[3])
+        (xo.square().sum() + ho.sin().sum()).backward()
+        assert (egnn_fused.pairwise_message.launches,
+                egnn_fused.pairwise_message_bwd.launches) == \
+            (before[0] + fused, before[1] + fused)
+        outs.append([o.detach() for o in (xo, vo, ho)])
+        grads.append([a.grad.clone() for a in ins]
+                     + [p.grad.clone() for p in layer.parameters()])
+    _assert_close(*outs)
+    _assert_close(*grads)
 
 
 def _segno_pair(dev, b=32, seed=0):

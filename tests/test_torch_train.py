@@ -328,6 +328,86 @@ def test_train_and_eval_epochs_match_jax(tmp_path):
     assert_close(tlast, vlast, rtol=1e-4, atol=0)
 
 
+@pytest.mark.parametrize("path", ["single", "fleet", "dp2"])
+def test_adam_l2_decays_parameters_without_gradient(tmp_path, path):
+    """Three Adam-L2 steps of a two-layer EGNO, whose last node MLP feeds no
+    loss term and so gets no gradient: as optax's chain(add_decayed_weights,
+    adam) does, the port decays it (wd x p alone reaches Adam), on one
+    process, in a seed fleet of K=2 (against JAX's SeedFleet) and through
+    --dp 2 gloo ranks. Every parameter after the steps within rtol 1e-5 of
+    JAX's, the unused MLP included, which moved by about lr a step. The
+    weight decay is 1e-2, so that every gradient entry (wd x p included,
+    the spectral weights' of order 1e-4) stands far above Adam's eps
+    (1e-8), where fp32 rounding of the two sides could move an entry by up
+    to lr (test_train_and_eval_epochs_match_jax's second tier); the atol,
+    1e-3 x lr, covers entries that three steps of about lr bring near 0:
+    each step moves a parameter by lr x m / sqrt(v), whose inputs agree
+    within the gradients' 1e-4."""
+    lr, wd, n_layers = 1e-3, 1e-2, 2
+    model_kw = dict(n_layers=n_layers, hidden_nf=16, time_emb_dim=8)
+    jds, tds = _split(tmp_path, s=12)
+    jexp = JaxExperiment(JaxEGNO(**model_kw), lr=lr, weight_decay=wd)
+    rng_j, rng_t = np.random.RandomState(9), np.random.RandomState(9)
+    perm = make_perm(rng_t, len(tds), 4)
+    np.testing.assert_array_equal(perm, jax_make_perm(rng_j, len(jds), 4))
+    idx_t = EGNOExperiment(EGNO(**model_kw, device="cpu"), lr=lr,
+                           weight_decay=wd).epoch_index_arrays(tds, rng_t)
+    jidx = {k: jnp.asarray(v) for k, v in
+            jexp.epoch_index_arrays(jds, rng_j).items()}
+    arrays = (jds.loc, jds.vel, jds.charges, jds.edge_weights)
+    unused = f"layers.{n_layers - 1}.node_net"
+    convert = lambda p: egno_state_dict_from_jax_params(  # noqa: E731
+        jax.tree.map(np.asarray, p), n_layers)
+
+    if path == "fleet":
+        from nonode_tpu.parallel import fleet as jfleet
+        from nonode_tpu_torch.compat.params import \
+            fleet_params_from_jax_params
+        from nonode_tpu_torch.parallel.fleet import SeedFleet
+        jf = jfleet.SeedFleet(jexp, [0, 1])
+        params, jopt = jf.init()
+        to_sd = lambda p: fleet_params_from_jax_params(  # noqa: E731
+            lambda q: egno_state_dict_from_jax_params(q, n_layers),
+            jax.tree.map(np.asarray, p))
+        before = to_sd(params)       # the epoch donates the JAX buffers
+        perms = np.stack([perm, perm[::-1]])
+        jafter, _, _, _ = jf.train_epoch(params, jopt, arrays, jidx,
+                                         jnp.asarray(perms))
+        fleet = SeedFleet(EGNOExperiment(EGNO(**model_kw, device="cpu"),
+                                         lr=lr, weight_decay=wd), [0, 1])
+        after = {k: v.clone().requires_grad_() for k, v in before.items()}
+        fleet.train_epoch(after, fleet.optimizer(after), tds, idx_t, perms)
+        want = to_sd(jafter)
+    else:
+        params, opt_state = jexp.init(jax.random.PRNGKey(0))
+        before = convert(params)     # the epoch donates the JAX buffers
+        jafter, _, _, _ = jexp.train_epoch(params, opt_state, arrays, jidx,
+                                           jnp.asarray(perm))
+        want = convert(jafter)
+        if path == "single":
+            model = EGNO(**model_kw, device="cpu")
+            model.load_state_dict(before, strict=True)
+            EGNOExperiment(model, lr=lr, weight_decay=wd).train_epoch(
+                tds, idx_t, perm)
+            after = model.state_dict()
+        else:
+            from nonode_tpu_torch.parallel import mesh as meshes
+            from torch_port_util import egno_epoch_on_rank
+            split_kw = dict(data_dir=tmp_path, partition="train",
+                            dataset="charged")
+            after = meshes.launch(egno_epoch_on_rank, (
+                {k: v.numpy() for k, v in before.items()}, model_kw,
+                split_kw, idx_t, perm, lr, wd), 2, 1, torch.device("cpu"))
+    assert set(after) == set(want)
+    assert any(k.startswith(unused) for k in want)
+    for k, ref in want.items():
+        got = np.asarray(torch.as_tensor(after[k]).detach())
+        assert_close(got, ref.numpy(), rtol=1e-5, atol=1e-3 * lr)
+        if k.startswith(unused):
+            moved = np.abs(got - before[k].detach().numpy()).max()
+            assert moved > lr, (k, moved)
+
+
 @pytest.mark.parametrize("dataset,varDT", [
     ("charged", False), ("charged", True), ("gravity", True)])
 def test_multi_input_train_and_eval_epochs_match_jax(tmp_path, dataset,

@@ -67,3 +67,24 @@ def write_gravity_split(d, partition="test", seed=0, s=8, f=55, n=5):
     for name, a in (("loc", loc), ("vel", vel), ("charges", masses),
                     ("edges", forces)):
         np.save(d / f"{name}_{suffix}.npy", a.astype(np.float32))
+
+
+def egno_epoch_on_rank(mesh, state, model_kw, split_kw, windows, perm, lr,
+                       weight_decay):
+    """One EGNO training epoch (``perm``'s rows on ``windows``) through the
+    mesh on this rank, from the weights ``state`` (numpy, by name), on the
+    train split NBodyDataset reads with ``split_kw``; returns the weights
+    after it as numpy arrays. Run by ``parallel.mesh.launch``."""
+    from nonode_tpu_torch.data.nbody import NBodyDataset
+    from nonode_tpu_torch.models.egno import EGNO
+    from nonode_tpu_torch.parallel.mesh import apply_mesh
+    from nonode_tpu_torch.train.loop import EGNOExperiment
+
+    model = EGNO(**model_kw, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()},
+                          strict=True)
+    exp = apply_mesh(EGNOExperiment(model, lr=lr, weight_decay=weight_decay),
+                     mesh)
+    exp.train_epoch(NBodyDataset(**split_kw, device="cpu"), windows, perm)
+    return {k: v.detach().numpy().copy()
+            for k, v in model.state_dict().items()}
