@@ -41,7 +41,15 @@ Phases, each timed on its own line:
    shape, with the clip engaged, and with two weight sets over G = 2 x
    1280; each against its plain version at the native width, timed beside
    its bound at that width and at the padded one, and beside H=128 at
-   EGNO's shape;
+   EGNO's shape; H=128's outputs at EGNO's shape bitwise those of the build
+   before the wide route (a sha256). #1 and #2 on their wide route (every
+   width above 128, any E; csrc/egnn_wide.cuh): H=256 at EGNO's shape
+   without and with the clip, H=200 zero-padded to 256, H=512 and H=1024,
+   E=6 at H=64 and H=256, the mocap shape at H=256, two weight sets over
+   G = 2 x 1280 bitwise two single-seed launches, and a receiver slice
+   (rows 5-9 of N=10, G=500) side by side bitwise the whole launch; each
+   against its plain version within the split-TF32 budget (1e-4 with the
+   clip), twice bitwise, timed beside its bound;
 4. main path: ``nonode_tpu_torch.main --model egno --only_test true`` on the
    committed charged-5 test split at the canonical EGNO width (4 layers,
    hidden 64, T=10, batch 256, traj_len 20), weights from --seed 42. Checks
@@ -119,9 +127,12 @@ Phases, each timed on its own line:
 20. width path: ``main --config_by_file`` with a JSON preset of nf 96
    (#1/#2 zero-padded to 128): EGNO ``--only_test false --epochs 2`` on
    512 training samples with a 2-window test rollout, on the card and on
-   the CPU from the same seed, every loss within 1e-3 relative, #1/#2
-   launched as the run asks; then SEGNO serving at nf 32 (padded to 64) as
-   phase 7 checks it; no plain version of #1/#2 handed a CUDA tensor;
+   the CPU from the same seed, every loss within 1e-3 relative, the
+   checkpoint at that width, #1/#2 launched as the run asks; then SEGNO
+   serving at nf 32 (padded to 64) as phase 7 checks it; then the same at
+   nf 256 (EGNO, #1/#2 on their wide route) and nf 200 (SEGNO serving with
+   the clip, padded to 256); no plain version of #1/#2 handed a CUDA
+   tensor;
 21. baselines: GNN, LinearDynamics, RFVel, EquivariantScalarNet, EGMN and
    FullMLP at hidden 64 and 4 layers on 100 graphs of the committed test
    split: a forward and one backward on the card against the port's CPU
@@ -143,8 +154,9 @@ Every kernel's time is its device time alone (CUDA events around one call,
 the stream held busy while the host enqueues it), median of repeats. Then it
 prints the kernels line (each kernel's launches on its own path, and on
 every path, the multi-rank paths' summed over their ranks; #1 and #2 with
-their receiver-slice cases, and as their H=128 instantiations, with the
-mocap path's launches) and, last, one JSON line with the device. It exits non-zero,
+their receiver-slice cases, as their H=128 instantiations with the mocap
+path's launches, and on their wide route with the nf-256 path's launches)
+and, last, one JSON line with the device. It exits non-zero,
 with no result, without CUDA, outside the repository, or when the checkout
 lacks the committed splits.
 """
@@ -410,6 +422,42 @@ SPLIT_TF32_ROWS = {"slice", "H=128"} | {f"H={h}" for h in WIDTHS}
 # the seed-axis form of the padded widths: two weight sets over G = 2 x 1280
 WIDTH_SEED_AXIS_CASES = [
     (f"H={h}", 1280, False, 1.0, dict(k=2, h=h)) for h in WIDTHS]
+# #1/#2 on their wide route (csrc/egnn_wide.cuh): every width above 128
+# and any E. EGNO's serving shape at H=256 without and with the clip, H=200
+# zero-padded to 256, H=512 and H=1024 (the backward's tiles in global
+# memory), E=6 at H=64 and H=256, and the mocap shape at H=256; each against
+# its plain version, twice bitwise, timed beside its bound. The clip cases
+# are held to KERNEL_RTOL (as H=64's clip case), the others to the split-TF32
+# budget (tests/test_torch_tf32_split.py holds the products at H=256 and
+# 1024 to it on the CPU).
+WIDE_G = 2560
+WIDE_CASES = [
+    ("wide H=256 G=2560 N=5 E=2", dict(g=WIDE_G, n=5, h=256), False,
+     "H=256"),
+    ("wide H=256 G=2560 clip_edges=True",
+     dict(g=WIDE_G, n=5, h=256, coord_scale=400.0), True, "H=256 clip"),
+    ("wide H=200 G=2560 N=5 E=2", dict(g=WIDE_G, n=5, h=200), False,
+     "H=200"),
+    ("wide H=512 G=2560 N=5 E=2", dict(g=WIDE_G, n=5, h=512), False,
+     "H=512"),
+    ("wide H=1024 G=2560 N=5 E=2", dict(g=WIDE_G, n=5, h=1024), False,
+     "H=1024"),
+    ("wide E=6 H=64 G=2560 N=5", dict(g=WIDE_G, n=5, h=64, e=6), False,
+     "E=6 H=64"),
+    ("wide E=6 H=256 G=2560 N=5", dict(g=WIDE_G, n=5, h=256, e=6), False,
+     "E=6 H=256"),
+    ("wide mocap G=60 N=31 H=256 E=1", dict(g=MOCAP_G, n=31, h=256, e=1,
+                                            skeleton=True), False,
+     "mocap H=256"),
+]
+# the wide route's seed axis (fleet_main at nf 256): two weight sets over
+# G = 2 x 1280, bitwise two single-seed launches
+WIDE_SEED_AXIS_CASES = [("H=256", WIDE_G // 2, False, 1.0, dict(k=2, h=256))]
+# and its receiver slice (--space at nf 256): rows 5-9 of N=10, G=500
+WIDE_SLICE_CASES = [("slice G=500 N=10 ni=5 H=256", 500, False, 1.0)]
+WIDE_ROWS = [case[3] for case in WIDE_CASES]
+SPLIT_TF32_ROWS = SPLIT_TF32_ROWS | {row for row in WIDE_ROWS
+                                     if "clip" not in row}
 # the slice shape's times of the build that had H=64 alone (PERF.md §6),
 # printed beside this call's
 H64_ONLY_SLICE_MS = {"egnn_pairwise_fwd": "0.0481-0.0486",
@@ -640,12 +688,17 @@ def seed_axis_inputs(k, b, n, h, e, seed, dev, coord_scale, mask=None):
     return x, hi, hj, efea, mask, weights, sets
 
 
-def check_seed_axis_kernels(egnn_fused, dev, cases=SEED_AXIS_CASES):
+def check_seed_axis_kernels(egnn_fused, dev, cases=SEED_AXIS_CASES,
+                            seed_rtol=None):
     """#1 and #2 with K weight sets in one launch (SEEDS at EGNO's and
     SEGNO's shapes, N=5, H=64, E=2, unless a case gives its shape): bitwise
     equal to one launch per seed, within KERNEL_RTOL x max(1, max|plain|)
     of the plain seed-axis version, bitwise repeatable; timed beside the K
     single-seed launches, with K times the single-seed split-TF32 bound.
+    With ``seed_rtol``, each seed's outputs are also held to that seed's
+    own plain version within seed_rtol (the vmapped plain version sums the
+    weight gradients in other batched products, so it is no split-TF32
+    yardstick), and the two plain versions' difference is printed.
     Returns {"egnn_pairwise_fwd": {label: row}, "egnn_pairwise_bwd": {...}}."""
     rows = {"egnn_pairwise_fwd": {}, "egnn_pairwise_bwd": {}}
     for label, b, clip, coord_scale, *shape in cases:
@@ -714,6 +767,9 @@ def check_seed_axis_kernels(egnn_fused, dev, cases=SEED_AXIS_CASES):
                                      f"with the plain seed-axis version: "
                                      f"{err} > {KERNEL_RTOL} x {scale}")
             errs[which].append(err / scale)
+        if seed_rtol is not None:
+            check_each_seed(egnn_fused, label, clip, (x, hi, hj, efea, mask),
+                            sets, cot, b, outs, plain, seed_rtol)
         timing = {
             "egnn_pairwise_fwd": (fwd, single, lambda: egnn_fused.
                                   pairwise_message_seeds_reference(
@@ -748,6 +804,42 @@ def check_seed_axis_kernels(egnn_fused, dev, cases=SEED_AXIS_CASES):
     return rows
 
 
+def check_each_seed(egnn_fused, label, clip, nodes, sets, cot, b, outs,
+                    plain, rtol):
+    """Each seed's part of the seed-axis outputs ``outs`` against that
+    seed's own plain version, within rtol x max(1, max|plain|); prints the
+    worst error and how far the plain seed-axis version (``plain``) is from
+    the per-seed plain versions."""
+    part = lambda t, s: t[s * b:(s + 1) * b]                 # noqa: E731
+    worst, plains = (0.0, ""), 0.0
+    for s, ws in enumerate(sets):
+        args = (*(part(t, s) for t in nodes[:4]), nodes[4], ws)
+        with torch.no_grad():
+            want = dict(zip(("tot_f", "tot_m"),
+                            egnn_fused.pairwise_message_reference(clip,
+                                                                  *args)))
+        want.update(bwd_outputs(egnn_fused.pairwise_message_bwd_reference(
+            clip, *args, *(part(c, s) for c in cot))))
+        for name, w in want.items():
+            stacked = name not in ("tot_f", "tot_m", "dx", "dhi", "dhj",
+                                   "defea")
+            pick = (lambda t: t[s]) if stacked else (  # noqa: E731
+                lambda t: part(t, s))
+            scale = max(1.0, float(w.abs().max()))
+            err = float((pick(outs[name]) - w).abs().max()) / scale
+            if err > rtol:
+                raise AssertionError(f"seed axis {label}: seed {s}'s {name} "
+                                     f"is {err:.3e} relative from its own "
+                                     f"plain version (> {rtol})")
+            worst = max(worst, (err, name))
+            plains = max(plains, float((pick(plain[name]) - w).abs().max())
+                         / scale)
+    print(f"  seed axis {label}: each seed within {worst[0]:.3e} ({worst[1]}) "
+          f"of its own plain version (tolerance {rtol:g}); the plain "
+          f"seed-axis version is {plains:.3e} from the per-seed plain "
+          f"versions", flush=True)
+
+
 # #1/#2 on receiver slices, the particle axis over ``--space`` ranks: the
 # --dp 2 --space 2 shape of the multi-rank path, N=10 split in two slices
 # of ni=5 receivers; G = 50 (a rank's batch of 50 graphs) with and without
@@ -768,11 +860,16 @@ SLICE_RTOL = 1e-5
 # with 132 SMs (tests/test_torch_cuda.py holds the same): the whole-graph
 # launch, (0, N), keeps those bits
 H64_DIGEST = "33fb1907313fbc658085584579d82703bc32911819bb4164c0b6efeb622d09c4"
+# the same of #1's and #2's H=128 outputs at EGNO's shape, without and with
+# the clip (h128_digest), from the build before the wide route, on an H100
+# SXM: H=128 keeps its code and its bits
+H128_DIGEST = "75185fb2b0ea509830954d5f67f3129962fd67c75d03a724b3af8a7c44621a7a"
 
 
 def h64_digest_check(egnn_fused, dev):
-    """The whole-graph launches' digest against the H=64-only build's, on
-    a card of 132 SMs (the persistent grids depend on the SM count)."""
+    """The whole-graph launches' digests against the H=64-only build's (at
+    H=64) and the build's before the wide route (at H=128), on a card of
+    132 SMs (the persistent grids depend on the SM count)."""
     import importlib.util
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -784,27 +881,32 @@ def h64_digest_check(egnn_fused, dev):
         "time_pairwise_kernels", ROOT / "scripts" / "time_pairwise_kernels.py")
     script = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(script)
-    digest = script.h64_digest(sys.modules[__name__], egnn_fused, dev)
-    if digest != H64_DIGEST:
-        raise AssertionError(f"#1/#2 at (0, N) lost the bits of the "
-                             f"H=64-only build: digest {digest}")
-    print(f"  (0, N): #1 and #2 outputs bitwise those of the H=64-only "
-          f"build (sha256 {digest[:16]}...)", flush=True)
+    for digest_of, want, build in (
+            (script.h64_digest, H64_DIGEST, "the H=64-only build"),
+            (script.h128_digest, H128_DIGEST, "the build before the wide "
+                                              "route (H=128)")):
+        digest = digest_of(sys.modules[__name__], egnn_fused, dev)
+        if digest != want:
+            raise AssertionError(f"#1/#2 at (0, N) lost the bits of "
+                                 f"{build}: digest {digest}")
+        print(f"  (0, N): #1 and #2 outputs bitwise those of {build} "
+              f"(sha256 {digest[:16]}...)", flush=True)
 
 
-def check_slice_kernels(egnn_fused, dev, cases=SLICE_CASES):
-    """#1 and #2 on SLICE_SPACE receiver slices of N=SLICE_N against the
-    whole-graph launch of the same inputs: the (0, N) slice bitwise the
-    launch without a slice; the slices' tot_f, tot_m, dhi and defea put
-    side by side bitwise the whole launch's (each row sums over j in the
-    same order; for dhi, #2's tiles hold a graph's rows whole at N = 10);
-    dx, dhj and the weight gradients summed over the slices
-    within SLICE_RTOL x max(1, max|whole|); each slice within KERNEL_RTOL
-    of its plain version and bitwise over two runs. The second slice (i0 =
-    ni) timed beside its plain version and its bound. Returns {kernel:
-    {label: row}}."""
+def check_slice_kernels(egnn_fused, dev, cases=SLICE_CASES, h=64,
+                        rtol=KERNEL_RTOL):
+    """#1 and #2 at width ``h`` on SLICE_SPACE receiver slices of N=SLICE_N
+    against the whole-graph launch of the same inputs: the (0, N) slice
+    bitwise the launch without a slice; the slices' tot_f, tot_m, dhi and
+    defea put side by side bitwise the whole launch's (each row sums over j
+    in the same order; for dhi, #2's tiles hold a graph's rows whole at N =
+    10 at H=64, and a receiver's row whole on the wide route); dx, dhj and
+    the weight gradients summed over the slices within SLICE_RTOL x max(1,
+    max|whole|); each slice within ``rtol`` of its plain version and bitwise
+    over two runs. The second slice (i0 = ni) timed beside its plain
+    version and its bound. Returns {kernel: {label: row}}."""
     rows = {"egnn_pairwise_fwd": {}, "egnn_pairwise_bwd": {}}
-    n, ni, h, e = SLICE_N, SLICE_N // SLICE_SPACE, 64, 2
+    n, ni, e = SLICE_N, SLICE_N // SLICE_SPACE, 2
     for label, g, clip, scale in cases:
         x, hi, hj, efea, mask, w = pairwise_inputs(g, n, h, e, seed=g,
                                                    dev=dev, coord_scale=scale)
@@ -877,10 +979,10 @@ def check_slice_kernels(egnn_fused, dev, cases=SLICE_CASES):
                 for kern, plain in pairs:
                     err = float((kern - plain).abs().max())
                     scale_ = max(1.0, float(plain.abs().max()))
-                    if err > KERNEL_RTOL * scale_:
+                    if err > rtol * scale_:
                         raise AssertionError(
                             f"{label} slice i0={i0}: {which} disagrees with "
-                            f"the plain version: {err} > {KERNEL_RTOL} x "
+                            f"the plain version: {err} > {rtol} x "
                             f"{scale_}")
                     errs[which] = max(errs[which], err)
         worst = max(summed, key=summed.get)
@@ -891,7 +993,7 @@ def check_slice_kernels(egnn_fused, dev, cases=SLICE_CASES):
               f"tolerance {SLICE_RTOL:g}); each slice within "
               f"{errs['egnn_pairwise_fwd']:.3e} (forward) and "
               f"{errs['egnn_pairwise_bwd']:.3e} (backward) of its plain "
-              f"version (tolerance {KERNEL_RTOL:g} x max(1, max|plain|)); "
+              f"version (tolerance {rtol:g} x max(1, max|plain|)); "
               f"two runs bitwise equal", flush=True)
         (a, c, i0) = parts[1]
         smask = a[4]
@@ -921,6 +1023,25 @@ def check_slice_kernels(egnn_fused, dev, cases=SLICE_CASES):
                 if which == "egnn_pairwise_bwd" else 0.0, ms=ms,
                 plain_ms=plain_ms, library_ms=None, **route_row(ms, fp32, tc))
     return rows
+
+
+def wide_kernel_rows(egnn_fused, dev):
+    """#1 and #2 on their wide route: WIDE_CASES against their plain
+    versions and timed, the seed axis bitwise two single-seed launches, the
+    receiver slice bitwise the whole launch. Returns {kernel: row}: the
+    H=256 EGNO-shape row, with every other case's row under its label."""
+    fwd = check_pairwise_kernel(egnn_fused, dev, WIDE_CASES)
+    bwd = check_pairwise_bwd_kernel(egnn_fused, dev, WIDE_CASES)
+    seed = check_seed_axis_kernels(egnn_fused, dev, WIDE_SEED_AXIS_CASES,
+                                   seed_rtol=SPLIT_TF32_RTOL)
+    slices = check_slice_kernels(egnn_fused, dev, WIDE_SLICE_CASES, h=256,
+                                 rtol=SPLIT_TF32_RTOL)
+    out = {}
+    for name, r in (("egnn_pairwise_fwd", fwd), ("egnn_pairwise_bwd", bwd)):
+        out[name] = dict(r["H=256"], width=256, cases={
+            row: r[row] for row in WIDE_ROWS if row != "H=256"},
+            seed_axis=seed[name], receiver_slice=slices[name])
+    return out
 
 
 def nbody_bound_ms(name, n, steps=1):
@@ -2585,9 +2706,13 @@ def run_multi_rank_path(nt_main, kernels, data_dir, tmp, dev):
 
 # the width path: EGNO at a width #1/#2 run zero-padded to 128, trained for
 # two epochs on 512 training samples (2 batches of BATCH) with a 2-window
-# test rollout, card and CPU; then SEGNO serving at a width padded to 64
-WIDTH_EGNO_NF, WIDTH_SEGNO_NF = 96, 32
-WIDTH_SAMPLES, WIDTH_TRAJ = 512, 2
+# test rollout, card and CPU; then SEGNO serving at a width padded to 64.
+# Then EGNO at nf 256 on the wide route, cut to 256 samples (one batch) and
+# a 1-window rollout so that its CPU side takes about 20 s on the card's
+# host (32 s at 512 samples and 2 windows), and SEGNO serving at nf 200 (the
+# clip, zero-padded to the wide route's 256). (EGNO nf, SEGNO nf, samples,
+# test windows) a run.
+WIDTH_RUNS = ((96, 32, 512, 2), (256, 200, 256, 1))
 
 
 @contextlib.contextmanager
@@ -2622,27 +2747,28 @@ def write_width_preset(path, nf):
     return path
 
 
-def run_width_path(nt_main, kernels, egnn_fused, data_dir, tmp):
-    """``main --config_by_file`` at widths #1/#2 run zero-padded: EGNO at nf
-    WIDTH_EGNO_NF, ``--only_test false --epochs 2`` on WIDTH_SAMPLES
-    training samples with a WIDTH_TRAJ-window test rollout, on the card
+def run_width_path(nt_main, kernels, egnn_fused, data_dir, tmp, egno_nf,
+                   segno_nf, samples, traj):
+    """``main --config_by_file`` at widths #1/#2 are not instantiated for:
+    EGNO at nf egno_nf, ``--only_test false --epochs 2`` on ``samples``
+    training samples with a ``traj``-window test rollout, on the card
     and on the CPU from the same seed (every loss within GRAD_RTOL, the
     train step's card-vs-CPU tolerance; the checkpoint at that width);
-    then SEGNO serving at nf WIDTH_SEGNO_NF (``run_main_path``: its first
+    then SEGNO serving at nf segno_nf (``run_main_path``: its first
     two windows against the CPU's). No plain version of #1/#2 is handed a
     CUDA tensor. Returns each run's launches on the card."""
     from nonode_tpu_torch.analysis.registry import artifact_stem
 
-    preset = write_width_preset(tmp / "width_egno.json", WIDTH_EGNO_NF)
+    preset = write_width_preset(tmp / "width_egno.json", egno_nf)
     argv = ["--model", "egno", "--only_test", "false", "--data_dir",
             str(data_dir), "--epochs", "2", "--test_interval", "1",
-            "--batch_size", str(BATCH), "--max_samples", str(WIDTH_SAMPLES),
-            "--traj_len", str(WIDTH_TRAJ), "--seed", str(SEED),
+            "--batch_size", str(BATCH), "--max_samples", str(samples),
+            "--traj_len", str(traj), "--seed", str(SEED),
             "--config_by_file", str(preset)]
     stem = artifact_stem("egno", "charged", SEED, 5)
-    train_b = min(WIDTH_SAMPLES, split_size(data_dir, "train")) // BATCH
+    train_b = min(samples, split_size(data_dir, "train")) // BATCH
     want = path_launches(EXPECT["egno"]["per_forward"],
-                         split_size(data_dir, "test") // BATCH, WIDTH_TRAJ,
+                         split_size(data_dir, "test") // BATCH, traj,
                          2, train_b, 1, split_size(data_dir, "valid") // BATCH)
     runs = {}
     for where in ("cuda", "cpu"):
@@ -2657,16 +2783,16 @@ def run_width_path(nt_main, kernels, egnn_fused, data_dir, tmp):
         wall = time.perf_counter() - t0
         launches = read_launches(
             kernels, want if where == "cuda" else {},
-            f"width path egno nf {WIDTH_EGNO_NF} on {where}")
+            f"width path egno nf {egno_nf} on {where}")
         run = Path(args.outf) / args.exp_name
         hidden = torch.load(run / f"{stem}.ckpt", map_location="cpu",
                             weights_only=True)["embedding.weight"].shape[0]
-        if hidden != WIDTH_EGNO_NF:
+        if hidden != egno_nf:
             raise AssertionError(f"the preset's width did not reach the "
                                  f"model: embedding width {hidden}")
         check_artifact(run / f"{stem}_results.npz",
                        split_size(data_dir, "test") // BATCH * BATCH,
-                       traj_len=WIDTH_TRAJ)
+                       traj_len=traj)
         runs[where] = (json.loads((run / f"{stem}.json").read_text()), wall,
                        launches)
     (card, card_wall, launches), (cpu, cpu_wall, _) = runs["cuda"], \
@@ -2680,18 +2806,21 @@ def run_width_path(nt_main, kernels, egnn_fused, data_dir, tmp):
                                  f"card, {cpu[key]} on the CPU (rtol "
                                  f"{GRAD_RTOL})")
         worst = max(worst, float(np.max(np.abs(a - b) / np.abs(b))))
-    print(f"  egno nf {WIDTH_EGNO_NF} (#1/#2 zero-padded to H="
-          f"{egnn_fused.padded_width(WIDTH_EGNO_NF)}): losses "
+    hp = egnn_fused.padded_width(egno_nf)
+    route = "the wide route" if egnn_fused.wide_route(egno_nf, 2) else \
+        "an instantiation"
+    print(f"  egno nf {egno_nf} (#1/#2 on {route} at H={hp}"
+          f"{', zero-padded' if hp != egno_nf else ''}): losses "
           f"{card['train loss']} {card['val loss']} {card['test loss']} on "
           f"the card against {cpu['train loss']} {cpu['val loss']} "
           f"{cpu['test loss']} on the CPU, worst relative difference "
           f"{worst:.3e} (tolerance {GRAD_RTOL:g}); wall {card_wall:.3f} s "
           f"(CPU {cpu_wall:.3f} s); launches {json.dumps(launches)}; no "
           f"plain version handed a CUDA tensor", flush=True)
-    paths = {f"width egno nf{WIDTH_EGNO_NF}": launches}
-    preset = write_width_preset(tmp / "width_segno.json", WIDTH_SEGNO_NF)
+    paths = {f"width egno nf{egno_nf}": launches}
+    preset = write_width_preset(tmp / "width_segno.json", segno_nf)
     with no_plain_on_card(egnn_fused):
-        paths[f"width segno nf{WIDTH_SEGNO_NF} serving"] = run_main_path(
+        paths[f"width segno nf{segno_nf} serving"] = run_main_path(
             nt_main, kernels, data_dir, tmp / "width_segno", model="segno",
             extra=["--config_by_file", str(preset)])
     return paths
@@ -2829,11 +2958,14 @@ OWN_PATH = {"egnn_pairwise_fwd": "train", "egnn_pairwise_bwd": "train",
             "nbody_gravity_leapfrog": "gravity"}
 
 
-def kernels_line(kernels, rows, paths, mocap_rows, mocap_launches):
+def kernels_line(kernels, rows, paths, mocap_rows, mocap_launches,
+                 wide_rows, wide_paths):
     """The kernels line's entries: every kernel with its measured ``rows``
     and its launches on its own path and on every path of ``paths``; after
     #1 and #2, their H=128 instantiations (``<name>_h128``) with the mocap
-    cases' ``mocap_rows`` and their launches on the mocap path."""
+    cases' ``mocap_rows`` and their launches on the mocap path, and their
+    wide route (``<name>_wide``) with ``wide_rows``, their launches on the
+    first of ``wide_paths`` (EGNO at nf 256) and on each of them."""
     out = []
     for k in kernels:
         name = k["name"]
@@ -2849,6 +2981,13 @@ def kernels_line(kernels, rows, paths, mocap_rows, mocap_launches):
                         "launches": mocap_launches[name], "path": "mocap",
                         "launches_by_path": {"mocap": mocap_launches[name]},
                         **mocap_rows[name]})
+        if name in wide_rows:
+            out.append({"name": f"{name}_wide", **common,
+                        "launches": paths[wide_paths[0]][name],
+                        "path": wide_paths[0],
+                        "launches_by_path": {p: paths[p][name]
+                                             for p in wide_paths},
+                        **wide_rows[name]})
     return out
 
 
@@ -2914,6 +3053,7 @@ def main():
                            seed_axis=width_seed[name][f"H={h}"])
             for h in WIDTHS}
         rows[name]["h128_at_this_shape"] = r["H=128"]
+    wide_rows = wide_kernel_rows(egnn_fused, dev)
     rows.update(check_nbody_kernels(dev))
     check_fused_frames(dev)
     phase("kernels", t0)
@@ -2998,9 +3138,10 @@ def main():
     phase("mocap path", t0)
 
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        paths.update(run_width_path(nt_main, KERNELS, egnn_fused, data_dir,
-                                    Path(tmp)))
+    for run in WIDTH_RUNS:
+        with tempfile.TemporaryDirectory() as tmp:
+            paths.update(run_width_path(nt_main, KERNELS, egnn_fused,
+                                        data_dir, Path(tmp), *run))
     phase("width path", t0)
 
     t0 = time.perf_counter()
@@ -3013,7 +3154,10 @@ def main():
                                          Path(tmp), dev))
     phase("multi-rank path", t0)
 
-    out = kernels_line(KERNELS, rows, paths, mocap_rows, mocap_launches)
+    egno_nf, segno_nf = WIDTH_RUNS[-1][:2]
+    out = kernels_line(KERNELS, rows, paths, mocap_rows, mocap_launches,
+                       wide_rows, (f"width egno nf{egno_nf}",
+                                   f"width segno nf{segno_nf} serving"))
     print(json.dumps({"kernels": out}), flush=True)
     print(f"total: {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

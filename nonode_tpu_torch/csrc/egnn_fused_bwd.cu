@@ -78,14 +78,17 @@
 //   seed's units, slots and sums are those of a launch of its B graphs alone:
 //   the same bits. With K > 1 the K * blocks blocks run in waves.
 // Instantiated for H = 64 (every configuration in model_confs.yaml) and
-// H = 128 (mocap's configs/config_mocap_no.json), through egnn_tf32.cuh's
-// with_width, which the scratch size goes through too; another width is
-// refused at the entry points.
+// H = 128 (mocap's configs/config_mocap_no.json) with E <= 4, through
+// egnn_tf32.cuh's with_width, which the scratch size goes through too; every
+// other width (a multiple of 64, as the wrapper pads it) and any E take the
+// wide route below (egnn_wide.cuh).
 //
 // The TPU kernel's (8,128) padding, its rows=800 VMEM budget and the weight
 // gradients it accumulates across its sequential grid have no counterpart here.
 
-#include "egnn_tf32.cuh"
+#include <numeric>
+
+#include "egnn_wide.cuh"
 
 namespace {
 
@@ -770,22 +773,510 @@ cudaError_t launch(const float* x, const float* hi, const float* hj, const float
   return cudaGetLastError();
 }
 
+// ---- the wide route (egnn_wide.cuh): any H that is a multiple of kCols, any E ----
+
+// The wide backward's own shared memory: per row of a tile, rij and r2, dcw,
+// drij, the mask, mask / deg, receiver and sender; deg.
+constexpr int kWideBwdFixed = kRows * (4 + 1 + 3 + 1 + 1 + 2) + kMaxN;
+constexpr int kWideBwdTiles = 4;   // pre1/a1, pre2/msg, cpre/dcpre/dpre1, sigmoid(cpre)/dpre2
+
+inline size_t wide_bwd_smem(const WideTiles& t) {
+  return sizeof(float) * (kWideBwdFixed + (t.shared ? t.floats : 0));
+}
+
+// A wide unit is gpu whole graphs, walked in tiles of npt = R / N whole
+// receivers (a tile may end inside a graph, never inside a receiver's row);
+// the block's running sums of the nine weight gradients live in its slot of
+// the scratch buffer, followed by its tiles where they are not in shared
+// memory (`stride` floats a block).
+__global__ void __launch_bounds__(kThreads, 1)
+egnn_pairwise_bwd_wide(const float* __restrict__ x, const float* __restrict__ hi,
+                       const float* __restrict__ hj, const float* __restrict__ efea,
+                       const float* __restrict__ mask, const float* __restrict__ wg,
+                       const float* __restrict__ we, const float* __restrict__ b1,
+                       const float* __restrict__ w2, const float* __restrict__ b2,
+                       const float* __restrict__ wc1, const float* __restrict__ bc1,
+                       const float* __restrict__ wc2, const float* __restrict__ bc2,
+                       const float* __restrict__ gtotf, const float* __restrict__ gtotm,
+                       float* __restrict__ dx, float* __restrict__ dhi,
+                       float* __restrict__ dhj, float* __restrict__ defea,
+                       float* __restrict__ partial, long long stride, int global_tiles,
+                       long long num_graphs, long long units, int n, int h, int e,
+                       int clip_edges, int ni, int first_row, int rows, int gpu) {
+  const long long seed = blockIdx.y;
+  const long long seed_g0 = seed * num_graphs;
+  const int LD = padded_wide(h);
+  const int CH = h / 4;                    // 4-column chunks of a row
+  const int NC = h / kCols;                // column passes of a product
+  const int MT = rows / 16;                // m16 row tiles of a tile
+  const int HT = h / 16;                   // m16 row tiles of dW
+  extern __shared__ __align__(128) float smem[];
+  float* s_rij = smem;                     // [kRows][4]: rij, r2
+  float* s_dcw = s_rij + 4 * kRows;        // [kRows]
+  float* s_drij = s_dcw + kRows;           // [kRows][3]
+  float* s_m = s_drij + 3 * kRows;         // [kRows]: mask[i,j]
+  float* s_mw = s_m + kRows;               // [kRows]: mask[i,j] / deg[i]
+  int2* s_rs = reinterpret_cast<int2*>(s_mw + kRows);   // receiver, sender (-1: padding)
+  float* s_deg = s_mw + 3 * kRows;         // [N]
+  // the block's slot: dW2, dWc1, dwg, db1, db2, dbc1, dwc2, dwe, dbc2
+  // (partial_floats), then its tiles when they are not in shared memory
+  float* part = partial + (seed * gridDim.x + blockIdx.x) * stride;
+  float* s_p1 = global_tiles ? part + slot_floats(h, e) : s_deg + kMaxN;   // pre1, then a1
+  float* s_p2 = s_p1 + rows * LD;          // pre2, then msg
+  float* s_x = s_p2 + rows * LD;           // cpre, dcpre, then dpre1
+  float* s_y = s_x + rows * LD;            // sigmoid(cpre), then dpre2
+  float* s_cw = s_y + rows * LD;           // [R][NC]: cw's sum over each column pass
+  float* p_dw2 = part;
+  float* p_dwc1 = p_dw2 + (long long)h * h;
+  float* p_wg = p_dwc1 + (long long)h * h;
+  float* p_b1 = p_wg + h;
+  float* p_b2 = p_b1 + h;
+  float* p_bc1 = p_b2 + h;
+  float* p_wc2 = p_bc1 + h;
+  float* p_we = p_wc2 + h;
+  float* p_bc2 = p_we + (long long)e * h;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float* W2 = w2 + seed * h * h;
+  const float* Wc1 = wc1 + seed * h * h;
+  const float* Wg = wg + seed * h;
+  const float* B1 = b1 + seed * h;
+  const float* We = we + seed * e * h;
+  const float* B2 = b2 + seed * h;
+  const float* Bc1 = bc1 + seed * h;
+  const float* Wc2 = wc2 + seed * h;
+  for (int i = tid; i < ni; i += kThreads) {
+    float d = 0.0f;
+    for (int j = 0; j < n; ++j) d += __ldg(mask + i * n + j);
+    s_deg[i] = fmaxf(d, 1.0f);
+  }
+  __syncthreads();
+  const float bias_c2 = __ldg(bc2 + seed);
+  const int nn = ni * n;                   // a graph's edges in the slice
+  const int npt = rows / n;                // receivers a tile
+  const int g = lane >> 2, t4 = lane & 3;  // the fragments' row and column pair
+  const float4* hi4 = reinterpret_cast<const float4*>(hi);
+  const float4* hj4 = reinterpret_cast<const float4*>(hj);
+  bool first_tile = true;                  // the block's first: it writes its slot
+
+  for (long long unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    const long long left = num_graphs - unit * gpu;
+    const int ng = left < gpu ? (int)left : gpu;
+    const int edges = ng * nn;
+    const int tiles = (ng * ni + npt - 1) / npt;
+    const long long g0 = seed_g0 + unit * gpu;   // the unit's first graph,
+    const long long nbase = g0 * n;              // node (x, hj, dx, dhj),
+    const long long qbase = g0 * ni;             // receiver (hi, gtot*, dhi)
+    const long long ebase = g0 * nn;             // and edge
+
+    for (int t = 0; t < tiles; ++t) {
+      const int t0 = t * npt * n;
+      const int cnt = min(npt * n, edges - t0);
+      const int ksteps = (cnt + 7) / 8;   // of the weight gradients' row sums
+
+      // ---- per row, a thread each: receiver, sender, rij, r2, mask ----
+      if (tid < rows) {
+        const int r = tid;
+        const int ge = t0 + r;
+        float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, mij = 0.0f, mw = 0.0f;
+        int li = -1, lj = 0;
+        if (r < cnt) {
+          const int gl = ge / nn;
+          const int w = ge - gl * nn;
+          const int i = w / n;
+          const int j = w - i * n;
+          li = gl * ni + i;
+          lj = gl * n + j;
+          const float* xi = x + (nbase + gl * n + first_row + i) * 3;
+          const float* xj = x + (nbase + lj) * 3;
+          d0 = __ldg(xi + 0) - __ldg(xj + 0);
+          d1 = __ldg(xi + 1) - __ldg(xj + 1);
+          d2 = __ldg(xi + 2) - __ldg(xj + 2);
+          mij = __ldg(mask + i * n + j);
+          mw = mij / s_deg[i];
+        }
+        s_rij[r * 4 + 0] = d0;
+        s_rij[r * 4 + 1] = d1;
+        s_rij[r * 4 + 2] = d2;
+        s_rij[r * 4 + 3] = d0 * d0 + d1 * d1 + d2 * d2;
+        s_m[r] = mij;
+        s_mw[r] = mw;
+        s_rs[r] = make_int2(li, lj);
+      }
+      __syncthreads();
+
+      // ---- pre1 = r2 wg + efea @ we + hi + hj + b1 (padding rows: zeros) ----
+      for (int q = tid; q < rows * CH; q += kThreads) {
+        const int r = q / CH;
+        const int c4 = q - r * CH;
+        const int2 rs = s_rs[r];
+        float4 p = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (rs.x >= 0)
+          p = first_layer(s_rij[r * 4 + 3], efea + (ebase + t0 + r) * e, e, Wg, We, B1, h,
+                          4 * c4, __ldg(hi4 + (qbase + rs.x) * CH + c4),
+                          __ldg(hj4 + (nbase + rs.y) * CH + c4));
+        *reinterpret_cast<float4*>(s_p1 + r * LD + 4 * c4) = p;
+      }
+      __syncthreads();
+
+      // ---- pre2 = silu(pre1) @ W2 + b2 ----
+      for (int u = warp; u < MT * NC; u += kWarps) {
+        const int mi = u % MT, c0 = (u / MT) * kCols;
+        float acc[kCols / 8][4];
+        rows_times_cols<false>(acc, s_p1 + 16 * mi * LD, LD, W2, h, h / 8, c0, Silu());
+        float* lo = s_p2 + (16 * mi + g) * LD + c0 + 2 * t4;
+#pragma unroll
+        for (int nt = 0; nt < kCols / 8; ++nt) {
+          const int c = c0 + 8 * nt + 2 * t4;
+          const float bx = __ldg(B2 + c), by = __ldg(B2 + c + 1);
+          *reinterpret_cast<float2*>(lo + 8 * nt) = make_float2(acc[nt][0] + bx, acc[nt][1] + by);
+          *reinterpret_cast<float2*>(lo + 8 * LD + 8 * nt) =
+              make_float2(acc[nt][2] + bx, acc[nt][3] + by);
+        }
+      }
+      __syncthreads();
+
+      // ---- cpre = silu(pre2) @ Wc1 + bc1 -> X, sigmoid(cpre) -> Y; cw's sums ----
+      for (int u = warp; u < MT * NC; u += kWarps) {
+        const int mi = u % MT, nc = u / MT, c0 = nc * kCols;
+        float acc[kCols / 8][4];
+        rows_times_cols<false>(acc, s_p2 + 16 * mi * LD, LD, Wc1, h, h / 8, c0, Silu());
+        float p_lo = 0.0f, p_hi = 0.0f;
+        float* x_lo = s_x + (16 * mi + g) * LD + c0 + 2 * t4;
+        float* y_lo = s_y + (16 * mi + g) * LD + c0 + 2 * t4;
+#pragma unroll
+        for (int nt = 0; nt < kCols / 8; ++nt) {
+          const int c = c0 + 8 * nt + 2 * t4;
+          const float bx = __ldg(Bc1 + c), by = __ldg(Bc1 + c + 1);
+          const float wx = __ldg(Wc2 + c), wy = __ldg(Wc2 + c + 1);
+          const float z0 = acc[nt][0] + bx, z1 = acc[nt][1] + by;
+          const float z2 = acc[nt][2] + bx, z3 = acc[nt][3] + by;
+          const float q0 = sigmoid(z0), q1 = sigmoid(z1), q2 = sigmoid(z2), q3 = sigmoid(z3);
+          p_lo = fmaf(z0 * q0, wx, p_lo);
+          p_lo = fmaf(z1 * q1, wy, p_lo);
+          p_hi = fmaf(z2 * q2, wx, p_hi);
+          p_hi = fmaf(z3 * q3, wy, p_hi);
+          *reinterpret_cast<float2*>(x_lo + 8 * nt) = make_float2(z0, z1);
+          *reinterpret_cast<float2*>(x_lo + 8 * LD + 8 * nt) = make_float2(z2, z3);
+          *reinterpret_cast<float2*>(y_lo + 8 * nt) = make_float2(q0, q1);
+          *reinterpret_cast<float2*>(y_lo + 8 * LD + 8 * nt) = make_float2(q2, q3);
+        }
+        quad_sum(p_lo, p_hi);
+        if (t4 < 2)       // lane t4 = 0 takes row g, lane t4 = 1 row g + 8
+          s_cw[(16 * mi + g + 8 * t4) * NC + nc] = t4 == 0 ? p_lo : p_hi;
+      }
+      __syncthreads();
+
+      // ---- per row: cw, and the force's gradient dcw, drij ----
+      if (tid < rows) {
+        const int r = tid;
+        float cw = 0.0f;
+        for (int nc = 0; nc < NC; ++nc) cw += s_cw[r * NC + nc];
+        cw += bias_c2;
+        float dcw = 0.0f, dr0 = 0.0f, dr1 = 0.0f, dr2 = 0.0f;
+        const int li = s_rs[r].x;
+        if (li >= 0) {
+          const float mw = s_mw[r];
+          const float d0 = s_rij[r * 4 + 0], d1 = s_rij[r * 4 + 1], d2 = s_rij[r * 4 + 2];
+          float gf0 = __ldg(gtotf + (qbase + li) * 3 + 0) * mw;
+          float gf1 = __ldg(gtotf + (qbase + li) * 3 + 1) * mw;
+          float gf2 = __ldg(gtotf + (qbase + li) * 3 + 2) * mw;
+          if (clip_edges) {   // d clip / d f: 1 inside +-100, 0 outside (and for NaN)
+            gf0 *= fabsf(d0 * cw) <= kClip ? 1.0f : 0.0f;
+            gf1 *= fabsf(d1 * cw) <= kClip ? 1.0f : 0.0f;
+            gf2 *= fabsf(d2 * cw) <= kClip ? 1.0f : 0.0f;
+          }
+          dcw = gf0 * d0 + gf1 * d1 + gf2 * d2;
+          dr0 = gf0 * cw;
+          dr1 = gf1 * cw;
+          dr2 = gf2 * cw;
+        }
+        s_dcw[r] = dcw;
+        s_drij[r * 3 + 0] = dr0;
+        s_drij[r * 3 + 1] = dr1;
+        s_drij[r * 3 + 2] = dr2;
+      }
+      __syncthreads();
+
+      // ---- dcpre = dcw wc2 silu'(cpre) -> X; dwc2 += ca dcw, dbc1 += dcpre,
+      // dbc2 += dcw: a thread a column, the rows in order ----
+      for (int c = tid; c < h; c += kThreads) {
+        const float w = __ldg(Wc2 + c);
+        float sw = 0.0f, sb = 0.0f;
+        for (int r = 0; r < rows; ++r) {
+          const float z = s_x[r * LD + c], s = s_y[r * LD + c], d = s_dcw[r];
+          const float dc = d * w * dsilu(z, s);
+          s_x[r * LD + c] = dc;
+          sw = fmaf(z * s, d, sw);
+          sb += dc;
+        }
+        add_to(p_wc2 + c, sw, first_tile);
+        add_to(p_bc1 + c, sb, first_tile);
+      }
+      if (tid == 0) {
+        float s = 0.0f;
+        for (int r = 0; r < rows; ++r) s += s_dcw[r];
+        add_to(p_bc2, s, first_tile);
+      }
+      __syncthreads();
+
+      // ---- dpre2 = (dcpre @ Wc1^T + gtotm[i] mask[i,j]) silu'(pre2) -> Y;
+      // pre2 -> msg in P2 (neither is this product's operand) ----
+      for (int u = warp; u < MT * NC; u += kWarps) {
+        const int mi = u % MT, c0 = (u / MT) * kCols;
+        float acc[kCols / 8][4];
+        rows_times_cols<true>(acc, s_x + 16 * mi * LD, LD, Wc1, h, h / 8, c0, Identity());
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {   // rows g and g + 8
+          const int r = 16 * mi + g + 8 * hh;
+          const int li = s_rs[r].x;
+          const float mij = s_m[r];
+          const float* gm = gtotm + (qbase + (li >= 0 ? li : 0)) * h;
+          float* yr = s_y + r * LD;
+          float* pr = s_p2 + r * LD;
+#pragma unroll
+          for (int nt = 0; nt < kCols / 8; ++nt) {
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+              const int c = c0 + 8 * nt + 2 * t4 + cc;
+              const float z = pr[c];
+              const float s = sigmoid(z);
+              yr[c] = li >= 0 ? (acc[nt][2 * hh + cc] + __ldg(gm + c) * mij) * dsilu(z, s) : 0.0f;
+              pr[c] = z * s;
+            }
+          }
+        }
+      }
+      __syncthreads();
+
+      // ---- dWc1 += msg^T dcpre over the tile's rows (padding rows: dcpre 0);
+      // db2 += dpre2 ----
+      for (int u = warp; u < HT * NC; u += kWarps)
+        cols_weight_grad(p_dwc1, h, s_p2, s_x, LD, ksteps, u % HT, (u / HT) * kCols, first_tile);
+      for (int c = tid; c < h; c += kThreads) {
+        float s = 0.0f;
+        for (int r = 0; r < rows; ++r) s += s_y[r * LD + c];
+        add_to(p_b2 + c, s, first_tile);
+      }
+      __syncthreads();
+
+      // ---- dpre1 = (dpre2 @ W2^T) silu'(pre1) -> X; pre1 -> a1 in P1 ----
+      for (int u = warp; u < MT * NC; u += kWarps) {
+        const int mi = u % MT, c0 = (u / MT) * kCols;
+        float acc[kCols / 8][4];
+        rows_times_cols<true>(acc, s_y + 16 * mi * LD, LD, W2, h, h / 8, c0, Identity());
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = 16 * mi + g + 8 * hh;
+          const bool valid = s_rs[r].x >= 0;
+          float* zr = s_p1 + r * LD;
+          float* xr = s_x + r * LD;
+#pragma unroll
+          for (int nt = 0; nt < kCols / 8; ++nt) {
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+              const int c = c0 + 8 * nt + 2 * t4 + cc;
+              const float z = zr[c];
+              const float s = sigmoid(z);
+              xr[c] = valid ? acc[nt][2 * hh + cc] * dsilu(z, s) : 0.0f;
+              zr[c] = z * s;
+            }
+          }
+        }
+      }
+      __syncthreads();
+
+      // ---- dr2 = dpre1 . wg (into drij) and defea = dpre1 @ We^T: a warp a
+      // row, its lanes over the columns, then a fixed butterfly ----
+      for (int r = warp; r < cnt; r += kWarps) {
+        const float* xr = s_x + r * LD;
+        for (int o = 0; o <= e; ++o) {
+          const float* v = o == 0 ? Wg : We + (o - 1) * h;
+          float s = 0.0f;
+          for (int c = lane; c < h; c += 32) s = fmaf(xr[c], __ldg(v + c), s);
+#pragma unroll
+          for (int m = 16; m >= 1; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+          if (lane == 0) {
+            if (o == 0) {
+#pragma unroll
+              for (int d = 0; d < 3; ++d) s_drij[r * 3 + d] += 2.0f * s_rij[r * 4 + d] * s;
+            } else {
+              defea[(ebase + t0 + r) * e + o - 1] = s;
+            }
+          }
+        }
+      }
+      // dwg += r2 dpre1, db1 += dpre1, dwe += efea dpre1: a thread a column
+      for (int c = tid; c < h; c += kThreads) {
+        float sg = 0.0f, sb = 0.0f;
+        for (int r = 0; r < cnt; ++r) {
+          const float d = s_x[r * LD + c];
+          sg = fmaf(s_rij[r * 4 + 3], d, sg);
+          sb += d;
+        }
+        add_to(p_wg + c, sg, first_tile);
+        add_to(p_b1 + c, sb, first_tile);
+        for (int k = 0; k < e; ++k) {
+          float s = 0.0f;
+          for (int r = 0; r < cnt; ++r)
+            s = fmaf(__ldg(efea + (ebase + t0 + r) * e + k), s_x[r * LD + c], s);
+          add_to(p_we + k * h + c, s, first_tile);
+        }
+      }
+      // dW2 += a1^T dpre2 over the tile's rows (padding rows: dpre2 0)
+      for (int u = warp; u < HT * NC; u += kWarps)
+        cols_weight_grad(p_dw2, h, s_p1, s_y, LD, ksteps, u % HT, (u / HT) * kCols, first_tile);
+      first_tile = false;
+      __syncthreads();
+
+      // ---- node sums of the graphs the tile touches: over senders (dhi, dx)
+      // of a receiver of the slice, over the tile's receivers (dhj, dx) of
+      // every node; a graph's first tile writes, later ones add ----
+      const int gl_lo = t0 / nn;
+      const int nodes = ((t0 + cnt - 1) / nn - gl_lo + 1) * n;
+      for (int q = tid; q < nodes * CH; q += kThreads) {
+        const int node = gl_lo * n + q / CH;
+        const int c4 = q % CH;
+        const int gl = node / n;
+        const int a = node - gl * n;
+        const bool first = gl * nn >= t0;
+        const int ia = a - first_row;              // a's slice row, if it has one
+        const bool recv = ia >= 0 && ia < ni;
+        const int base_i = gl * nn + ia * n - t0;  // edge (a, k) at base_i + k
+        const int base_j = gl * nn + a - t0;       // edge (k, a) at base_j + k n
+        float4 si = make_float4(0.0f, 0.0f, 0.0f, 0.0f), sj = si;
+        for (int k = 0; recv && k < n; ++k) {
+          const int ei = base_i + k;
+          if (ei >= 0 && ei < cnt) {
+            const float4 v = *reinterpret_cast<const float4*>(s_x + ei * LD + 4 * c4);
+            si.x += v.x;
+            si.y += v.y;
+            si.z += v.z;
+            si.w += v.w;
+          }
+        }
+        for (int k = 0; k < ni; ++k) {
+          const int ej = base_j + k * n;
+          if (ej >= 0 && ej < cnt) {
+            const float4 v = *reinterpret_cast<const float4*>(s_x + ej * LD + 4 * c4);
+            sj.x += v.x;
+            sj.y += v.y;
+            sj.z += v.z;
+            sj.w += v.w;
+          }
+        }
+        float4* oj = reinterpret_cast<float4*>(dhj + (nbase + node) * h) + c4;
+        if (!first) {
+          const float4 pj = *oj;
+          sj = make_float4(pj.x + sj.x, pj.y + sj.y, pj.z + sj.z, pj.w + sj.w);
+        }
+        *oj = sj;
+        if (recv) {
+          float4* oi = reinterpret_cast<float4*>(dhi + (qbase + gl * ni + ia) * h) + c4;
+          if (!first) {
+            const float4 pi = *oi;
+            si = make_float4(pi.x + si.x, pi.y + si.y, pi.z + si.z, pi.w + si.w);
+          }
+          *oi = si;
+        }
+      }
+      for (int q = tid; q < nodes * 3; q += kThreads) {
+        const int node = gl_lo * n + q / 3;
+        const int c = q % 3;
+        const int gl = node / n;
+        const int a = node - gl * n;
+        const int ia = a - first_row;
+        const bool recv = ia >= 0 && ia < ni;
+        const int base_i = gl * nn + ia * n - t0;
+        const int base_j = gl * nn + a - t0;
+        float si = 0.0f, sj = 0.0f;
+        for (int k = 0; recv && k < n; ++k) {
+          const int ei = base_i + k;
+          if (ei >= 0 && ei < cnt) si += s_drij[ei * 3 + c];
+        }
+        for (int k = 0; k < ni; ++k) {
+          const int ej = base_j + k * n;
+          if (ej >= 0 && ej < cnt) sj += s_drij[ej * 3 + c];
+        }
+        const long long out = (nbase + node) * 3 + c;
+        dx[out] = gl * nn >= t0 ? si - sj : dx[out] + (si - sj);
+      }
+      __syncthreads();   // the next tile rewrites the fields and the tiles
+    }
+  }
+}
+
+// A wide backward launch's tiles, its floats of scratch a block (the slot of
+// partial weight gradients, then the tiles where they are not in shared
+// memory), its graphs a unit, units and blocks a seed.
+struct WideBwdGrid {
+  WideTiles tiles;
+  long long stride, units;
+  int gpu, grid;
+};
+
+cudaError_t wide_bwd_grid(long long b, int n, int h, int e, int ni, WideBwdGrid* out) {
+  out->tiles = wide_tiles(h, n, kWideBwdTiles, kWideBwdFixed);
+  out->stride = slot_floats(h, e) + (out->tiles.shared ? 0 : out->tiles.floats);
+  const int npt = out->tiles.rows / n;
+  out->gpu = npt / std::gcd(npt, ni);      // whole tiles of whole receivers
+  out->units = (b + out->gpu - 1) / out->gpu;
+  return wide_grid(egnn_pairwise_bwd_wide, wide_bwd_smem(out->tiles), out->units, out->stride,
+                   &out->grid);
+}
+
+cudaError_t launch_wide(const float* x, const float* hi, const float* hj, const float* efea,
+                        const float* mask, const float* wg, const float* we, const float* b1,
+                        const float* w2, const float* b2, const float* wc1, const float* bc1,
+                        const float* wc2, const float* bc2, const float* gtotf,
+                        const float* gtotm, float* dx, float* dhi, float* dhj, float* defea,
+                        float* dweights, float* scratch, long long g, int n, int h, int e, int k,
+                        int clip_edges, int ni, int first_row, cudaStream_t stream) {
+  const long long b = g / k;                     // one seed's graphs
+  WideBwdGrid lg;
+  cudaError_t err = wide_bwd_grid(b, n, h, e, ni, &lg);
+  if (err != cudaSuccess) return err;
+  egnn_pairwise_bwd_wide<<<dim3(lg.grid, k), kThreads, wide_bwd_smem(lg.tiles), stream>>>(
+      x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1, wc2, bc2, gtotf, gtotm, dx, dhi, dhj,
+      defea, scratch, lg.stride, lg.tiles.shared ? 0 : 1, b, lg.units, n, h, e, clip_edges, ni,
+      first_row, lg.tiles.rows, lg.gpu);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long np = partial_floats(h, e);
+  egnn_pairwise_bwd_reduce<<<dim3((unsigned)((np + 255) / 256), k), 256, 0, stream>>>(
+      scratch, dweights, lg.grid, lg.stride, np);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Floats of scratch the wrapper allocates for one call on the current device:
-// one slot of partial weight gradients per block of the launch's grid, for
-// each of the K seeds of G = K * B graphs, on receiver slices of ni rows. -1 if
-// the grid cannot be found.
+// one slot of partial weight gradients per block of the launch's grid (on the
+// wide route followed by the block's tiles where they are not in shared
+// memory), for each of the K seeds of G = K * B graphs, on receiver slices of
+// ni rows. -1 for a shape the kernel does not take or if the grid cannot be
+// found.
 extern "C" long long egnn_pairwise_bwd_scratch_floats(long long g, int n, int h, int e, int k,
                                                       int ni) {
   if (bad_shape(g, n, h, e, k) || bad_slice(n, ni, 0, k)) return -1;
-  int grid = 0;
-  long long units = 0;
-  if (with_width(h, [&](auto width) {
-        return grid_of<decltype(width)::value>(g / k, n, ni, &grid, &units);
-      }) != cudaSuccess)
-    return -1;
-  return (long long)k * grid * slot_floats(h, e);
+  long long size = 0;
+  const cudaError_t err = with_width(h, e, [&](auto width) {
+    if constexpr (std::is_same_v<decltype(width), Wide>) {
+      WideBwdGrid lg;
+      const cudaError_t status = wide_bwd_grid(g / k, n, h, e, ni, &lg);
+      size = (long long)k * lg.grid * lg.stride;
+      return status;
+    } else {
+      int grid = 0;
+      long long units = 0;
+      const cudaError_t status = grid_of<decltype(width)::value>(g / k, n, ni, &grid, &units);
+      size = (long long)k * grid * slot_floats(h, e);
+      return status;
+    }
+  });
+  return err == cudaSuccess ? size : -1;
 }
 
 // Plain C entry point, loaded with ctypes. Returns a cudaError_t (0 = both
@@ -805,10 +1296,16 @@ extern "C" int egnn_pairwise_bwd(const float* x, const float* hi, const float* h
                                  int n, int h, int e, int k, int clip_edges, int ni, int i0,
                                  void* stream_ptr) {
   if (bad_shape(g, n, h, e, k) || bad_slice(n, ni, i0, k)) return (int)cudaErrorInvalidValue;
-  return (int)with_width(h, [&](auto width) {
-    return launch<decltype(width)::value>(
-        x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1, wc2, bc2, gtotf, gtotm, dx, dhi, dhj,
-        defea, dweights, scratch, g, n, e, k, clip_edges, ni, i0,
-        reinterpret_cast<cudaStream_t>(stream_ptr));
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream_ptr);
+  return (int)with_width(h, e, [&](auto width) {
+    if constexpr (std::is_same_v<decltype(width), Wide>)
+      return launch_wide(x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1, bc1, wc2, bc2, gtotf,
+                         gtotm, dx, dhi, dhj, defea, dweights, scratch, g, n, h, e, k,
+                         clip_edges, ni, i0, s);
+    else
+      return launch<decltype(width)::value>(x, hi, hj, efea, mask, wg, we, b1, w2, b2, wc1,
+                                            bc1, wc2, bc2, gtotf, gtotm, dx, dhi, dhj, defea,
+                                            dweights, scratch, g, n, e, k, clip_edges, ni, i0,
+                                            s);
   });
 }

@@ -1,12 +1,13 @@
 // Pieces shared by the pairwise-chain kernels (egnn_fused_fwd.cu and
 // egnn_fused_bwd.cu): the tile shape, the split ("3x") TF32 products on the
 // tensor cores, the SiLU formulas, the weight staging, the persistent grid
-// and the one dispatch on the width H.
+// and the one dispatch on the width H and the edge features E.
 //
-// Two widths are instantiated. H = 64 stages W2 and Wc1 in shared memory as
-// {big, small} pairs (68 KB for both). At H = 128 the pairs would take
-// 2 x 128 x 132 float2 = 270 KB, more than a block's 227 KB, so that route
-// reads the raw fp32 matrices (64 KB each, resident in L1 and L2) from
+// Two widths are instantiated, for E <= kMaxE; every other width, and any
+// E, takes the wide route (egnn_wide.cuh). H = 64 stages W2 and Wc1 in
+// shared memory as {big, small} pairs (68 KB for both). At H = 128 the pairs
+// would take 2 x 128 x 132 float2 = 270 KB, more than a block's 227 KB, so
+// that route reads the raw fp32 matrices (64 KB each, resident in L1 and L2) from
 // global memory and splits each B element into big and small in registers
 // as it is loaded: the same two TF32 values split_weights would store, so
 // the products are the same whichever route a width takes.
@@ -43,8 +44,9 @@ namespace egnn_tc {
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;   // edge rows of a tile: 16 per warp
-constexpr int kMaxE = 4;             // edge features the kernels take
+constexpr int kMaxE = 4;             // edge features the instantiated widths take
 constexpr int kMaxN = 64;            // nodes of a graph the kernels take
+constexpr int kCols = 64;            // H is a multiple of it (the wrapper zero-pads)
 constexpr float kClip = 100.0f;
 
 // A row of a per-edge [kRows][H] tile, and of a staged HxH weight, is padded
@@ -266,31 +268,33 @@ inline cudaError_t persistent_grid(Kernel kernel, size_t smem, long long units, 
   return cudaSuccess;
 }
 
+// The wide route's tag (egnn_wide.cuh): a width given at run time.
+struct Wide {};
+
 // The one dispatch on the width: f(std::integral_constant<int, H>()) for an
-// instantiated H, cudaErrorInvalidValue for any other h. Both kernels' entry
-// points and the backward's scratch size go through it, so a launch and the
-// scratch it is given always agree on H.
+// instantiated H with e <= kMaxE, f(Wide()) for every other h and e. Both
+// kernels' entry points and their scratch sizes go through it, so a launch
+// and the scratch it is given always agree on the route.
 template <class F>
-inline cudaError_t with_width(int h, F&& f) {
-  switch (h) {
-    case 64:
-      return f(std::integral_constant<int, 64>());
-    case 128:
-      return f(std::integral_constant<int, 128>());
-    default:
-      return cudaErrorInvalidValue;
+inline cudaError_t with_width(int h, int e, F&& f) {
+  if (e <= kMaxE) {
+    switch (h) {
+      case 64:
+        return f(std::integral_constant<int, 64>());
+      case 128:
+        return f(std::integral_constant<int, 128>());
+      default:
+        break;
+    }
   }
+  return f(Wide());
 }
 
-inline bool instantiated(int h) {
-  return with_width(h, [](auto) { return cudaSuccess; }) == cudaSuccess;
-}
-
-// The shapes #1 and #2 both take: G = K * B graphs of 1..kMaxN nodes, an
-// instantiated H, 1..kMaxE edge features, and 1..65535 weight sets (the
-// grid's y extent).
+// The shapes #1 and #2 both take: G = K * B graphs of 1..kMaxN nodes (the
+// TPU gate's n * n <= 4096), H a positive multiple of kCols, E >= 1, and
+// 1..65535 weight sets (the grid's y extent).
 inline bool bad_shape(long long g, int n, int h, int e, int k) {
-  return g <= 0 || n < 1 || n > kMaxN || !instantiated(h) || e < 1 || e > kMaxE || k < 1 ||
+  return g <= 0 || n < 1 || n > kMaxN || h < kCols || h % kCols != 0 || e < 1 || k < 1 ||
          k > 65535 || g % k != 0;
 }
 

@@ -37,14 +37,18 @@ vmaps the ordinary modules over stacked parameters (parallel/fleet.py)
 launches each kernel once per call for all its seeds. A slice other than the
 whole graph takes one weight set.
 
-Widths. The kernels are instantiated for H = 64 and H = 128. Any other width
-up to 128 runs on them zero-padded (``pad_width``): hi, hj and the weights
-take zero columns (and W2, Wc1, wc2 zero rows) up to the next instantiated
-width, and the outputs and gradients are cut back (``cut_width``). This is
-exact: a padded unit's pre-activation is 0 and SiLU(0) = 0, so it is 0 in
-the forward, the zero rows keep it from every real unit, its upstream
-gradient is 0 in the backward, and zeros split exactly into TF32 halves.
-A width above 128 raises.
+Widths and edge features. The kernels are instantiated for H = 64 and
+H = 128 with E <= 4; every other width, and any E, takes their wide route
+(``csrc/egnn_wide.cuh``: products in passes of 64 output columns, H and E
+given at run time), so no width and no E raises. A width is run at
+``padded_width``: 64 up to 64, 128 up to 128, else the next multiple of the
+wide route's 64 columns. A width below it runs zero-padded (``pad_width``):
+hi, hj and the weights take zero columns (and W2, Wc1, wc2 zero rows) up to
+the padded width, and the outputs and gradients are cut back
+(``cut_width``). This is exact: a padded unit's pre-activation is 0 and
+SiLU(0) = 0, so it is 0 in the forward, the zero rows keep it from every
+real unit, its upstream gradient is 0 in the backward, and zeros split
+exactly into TF32 halves.
 """
 
 from __future__ import annotations
@@ -59,12 +63,13 @@ from .build import load
 SOURCE = "egnn_fused_fwd.cu"
 BWD_SOURCE = "egnn_fused_bwd.cu"
 CLIP = 100.0
-# the widths the kernels are instantiated for; any other H <= MAX_HIDDEN is
-# zero-padded to the next of them (``padded_width``), a larger one raises
+# the widths the kernels are instantiated for (with E <= NATIVE_EDGE_FEATURES);
+# every other width runs on the wide route, padded to a multiple of
+# WIDE_COLUMNS (``padded_width``)
 HIDDEN = (64, 128)
-MAX_HIDDEN = HIDDEN[-1]
+NATIVE_EDGE_FEATURES = 4
+WIDE_COLUMNS = 64
 MAX_NODES = 64            # N * N <= 4096, as the TPU kernel's gate
-MAX_EDGE_FEATURES = 4     # E the kernels keep in registers
 
 # weights tuple layout (all pre-transposed to [in, out] / row vectors):
 #   wg [1,H], we [E,H], b1 [1,H], w2 [H,H], b2 [1,H],
@@ -75,10 +80,8 @@ N_WEIGHTS = 9
 def supported(n: int, hidden: int, dtype, act, flat: bool, norm: bool,
               tanh: bool = False) -> bool:
     """Config gate, the TPU kernel's (nonode_tpu/ops/pallas/egnn_fused.py:
-    355-360). It has no width limit: on the card the widths in ``HIDDEN``
-    run on their own instantiation, every other width up to ``MAX_HIDDEN``
-    runs zero-padded to the next one, and a width above it raises in
-    ``pairwise_message``."""
+    355-360). It has no width limit and no E limit: on the card every width
+    and E runs (``padded_width``, ``wide_route``)."""
     from ...nn import silu
     return (dtype == torch.float32 and not flat and not norm and not tanh
             and act is silu and n <= MAX_NODES)
@@ -202,12 +205,9 @@ def _checked_inputs(x, hi, hj, efea, mask, weights, i0):
     g, n, _ = x.shape
     h = hi.shape[-1]
     e = efea.shape[-1]
-    if not 1 <= h <= MAX_HIDDEN or not 1 <= n <= MAX_NODES \
-            or not 1 <= e <= MAX_EDGE_FEATURES:
+    if h < 1 or not 1 <= n <= MAX_NODES or e < 1:
         raise ValueError(f"unsupported shape: N={n}, H={h}, E={e} "
-                         f"(kernel takes N<={MAX_NODES}, H<={MAX_HIDDEN}: "
-                         f"H in {HIDDEN} natively, others zero-padded, "
-                         f"1<=E<={MAX_EDGE_FEATURES})")
+                         f"(kernel takes 1<=N<={MAX_NODES}, H>=1, E>=1)")
     k = seeds_of(weights)
     lead = () if k is None else (k,)
     if k is not None and (k < 1 or g % k):
@@ -229,13 +229,20 @@ def _weight_shapes(h, e):
 
 
 def padded_width(h: int) -> int:
-    """The instantiated width that H runs at: H itself in ``HIDDEN``, else
-    the next one up; raises above ``MAX_HIDDEN``."""
+    """The width H runs at: the first of ``HIDDEN`` that holds it, else H
+    rounded up to a multiple of ``WIDE_COLUMNS`` (the wide route's)."""
+    if h < 1:
+        raise ValueError(f"unsupported width H={h}")
     for hp in HIDDEN:
-        if 1 <= h <= hp:
+        if h <= hp:
             return hp
-    raise ValueError(f"unsupported width H={h}: the kernels take "
-                     f"1<=H<={MAX_HIDDEN} (H in {HIDDEN} natively)")
+    return -(-h // WIDE_COLUMNS) * WIDE_COLUMNS
+
+
+def wide_route(h: int, e: int) -> bool:
+    """Whether a launch of width H (after padding) and E edge features
+    takes the wide route rather than an instantiation of ``HIDDEN``."""
+    return padded_width(h) not in HIDDEN or e > NATIVE_EDGE_FEATURES
 
 
 def pad_width(weights, hi, hj, hp):
@@ -298,11 +305,15 @@ def pairwise_message_bwd_seeds_reference(clip_edges, x, hi, hj, efea, mask,
 
 
 def _bind_fwd():
-    fn = load(SOURCE).egnn_pairwise_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_longlong]
+    lib = load(SOURCE)
+    fn = lib.egnn_pairwise_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_longlong]
                    + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    scratch = lib.egnn_pairwise_fwd_scratch_floats
+    scratch.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 5
+    scratch.restype = ctypes.c_longlong
+    return fn, scratch
 
 
 def _bind_bwd():
@@ -343,10 +354,18 @@ def pairwise_message_fwd(clip_edges, x, hi, hj, efea, mask, weights, i0=0):
     totf = torch.empty((g, ni, 3), dtype=torch.float32, device=dev)
     totm = torch.empty((g, ni, hp), dtype=torch.float32, device=dev)
     if g > 0:
-        fn = _bind_fwd()
+        fn, scratch_floats = _bind_fwd()
         with torch.cuda.device(dev):
+            # the wide route's tiles where they leave shared memory (none:
+            # an empty tensor, a null pointer)
+            size = scratch_floats(g, n, hp, e, k, ni)
+            if size < 0:
+                raise RuntimeError("egnn_pairwise_fwd: no launch grid for "
+                                   f"N={n}, H={hp}, E={e} on {dev}")
+            scratch = torch.empty(size, dtype=torch.float32, device=dev)
             err = fn(*(t.data_ptr() for t in (x, hi, hj, efea, mask,
-                                              *weights, totf, totm)),
+                                              *weights, totf, totm,
+                                              scratch)),
                      g, n, hp, e, k, int(bool(clip_edges)), ni, i0,
                      _stream(dev))
         if err != 0:

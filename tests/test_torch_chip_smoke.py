@@ -434,9 +434,11 @@ def test_mocap_path_launches_are_what_its_splits_ask(tmp_path, monkeypatch):
 
 
 def test_kernels_line_names_the_h128_instantiations():
-    """#1 and #2 appear twice: at H=64 with their launches on the N-body
-    paths, and as <name>_h128 with the mocap cases' numbers and their
-    launches on the mocap path; every entry has the contract's keys."""
+    """#1 and #2 appear three times: at H=64 with their launches on the
+    N-body paths, as <name>_h128 with the mocap cases' numbers and their
+    launches on the mocap path, and as <name>_wide with the wide route's
+    numbers and their launches on the nf-256 width path; every entry has
+    the contract's keys."""
     from nonode_tpu_torch.ops.kernels import KERNELS
 
     keys = {"max_abs_err": 1e-6, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.1,
@@ -444,16 +446,24 @@ def test_kernels_line_names_the_h128_instantiations():
     rows = {k["name"]: dict(keys, width=64) for k in KERNELS}
     paths = {"train": {k["name"]: 7 for k in KERNELS},
              "stretch": {k["name"]: 1 for k in KERNELS},
-             "gravity": {k["name"]: 2 for k in KERNELS}}
+             "gravity": {k["name"]: 2 for k in KERNELS},
+             "width egno nf96": {k["name"]: 5 for k in KERNELS},
+             "width egno nf256": {k["name"]: 9 for k in KERNELS},
+             "width segno nf200 serving": {k["name"]: 3 for k in KERNELS}}
     mocap_rows = {n: dict(keys, width=128, ms=3.0)
                   for n in ("egnn_pairwise_fwd", "egnn_pairwise_bwd")}
     mocap = {"egnn_pairwise_fwd": 432, "egnn_pairwise_bwd": 192}
-    out = chip_smoke.kernels_line(KERNELS, rows, paths, mocap_rows, mocap)
+    wide_rows = {n: dict(keys, width=256, ms=4.0)
+                 for n in ("egnn_pairwise_fwd", "egnn_pairwise_bwd")}
+    out = chip_smoke.kernels_line(
+        KERNELS, rows, paths, mocap_rows, mocap, wide_rows,
+        ("width egno nf256", "width segno nf200 serving"))
     assert [e["name"] for e in out] == [
-        "egnn_pairwise_fwd", "egnn_pairwise_fwd_h128", "egnn_pairwise_bwd",
-        "egnn_pairwise_bwd_h128", "nbody_charged_force",
-        "nbody_gravity_accel", "nbody_charged_leapfrog",
-        "nbody_gravity_leapfrog"]
+        "egnn_pairwise_fwd", "egnn_pairwise_fwd_h128",
+        "egnn_pairwise_fwd_wide", "egnn_pairwise_bwd",
+        "egnn_pairwise_bwd_h128", "egnn_pairwise_bwd_wide",
+        "nbody_charged_force", "nbody_gravity_accel",
+        "nbody_charged_leapfrog", "nbody_gravity_leapfrog"]
     contract = {"name", "route", "source", "replaces", "launches", *keys}
     assert all(contract <= set(e) for e in out)
     h128 = {e["name"]: e for e in out if e["name"].endswith("_h128")}
@@ -463,7 +473,60 @@ def test_kernels_line_names_the_h128_instantiations():
     assert h128["egnn_pairwise_fwd_h128"]["width"] == 128 and \
         h128["egnn_pairwise_fwd_h128"]["ms"] == 3.0
     assert out[0]["launches"] == 7 and out[0]["width"] == 64
+    wide = {e["name"]: e for e in out if e["name"].endswith("_wide")}
+    assert wide["egnn_pairwise_bwd_wide"]["launches"] == 9
+    assert wide["egnn_pairwise_fwd_wide"]["launches_by_path"] == {
+        "width egno nf256": 9, "width segno nf200 serving": 3}
+    assert wide["egnn_pairwise_fwd_wide"]["ms"] == 4.0 and \
+        wide["egnn_pairwise_fwd_wide"]["route"] == "cuda"
     json.dumps({"kernels": out})
+
+
+def test_wide_cases_take_the_wide_route():
+    """The wide route's cases: H=256 at EGNO's serving shape with and
+    without the clip, H=200 padded to 256, H=512 and H=1024, E=6 at H=64
+    and H=256, the mocap shape at H=256; every one on the wide route, and
+    all but the clip held to the split-TF32 budget; the seed axis (two sets
+    over G = 2 x 1280) and the slice (rows 5-9 of N=10) at H=256."""
+    from nonode_tpu_torch.ops.kernels import egnn_fused
+
+    cpu = torch.device("cpu")
+    shapes = {}
+    for label, kw, clip, timed in chip_smoke.WIDE_CASES:
+        kw = {**kw, "g": 2}             # the shapes, at two graphs
+        g, n, h, e, args = chip_smoke.case_inputs(kw, kw["n"], cpu)
+        assert egnn_fused.wide_route(h, e), label
+        assert args[1].shape == (2, n, h) and args[3].shape == (2, n, n, e)
+        shapes[timed] = (n, h, e, clip)
+        assert (timed in chip_smoke.SPLIT_TF32_ROWS) == (not clip)
+    assert shapes == {
+        "H=256": (5, 256, 2, False), "H=256 clip": (5, 256, 2, True),
+        "H=200": (5, 200, 2, False), "H=512": (5, 512, 2, False),
+        "H=1024": (5, 1024, 2, False), "E=6 H=64": (5, 64, 6, False),
+        "E=6 H=256": (5, 256, 6, False), "mocap H=256": (31, 256, 1, False)}
+    assert {kw["g"] for _, kw, _, _ in chip_smoke.WIDE_CASES} == {2560, 60}
+    assert egnn_fused.padded_width(200) == 256
+    (label, b, clip, _, shape), = chip_smoke.WIDE_SEED_AXIS_CASES
+    assert (shape["k"] * b, shape["h"]) == (2560, 256) and not clip
+    (label, g, clip, _), = chip_smoke.WIDE_SLICE_CASES
+    assert (g, chip_smoke.SLICE_N, chip_smoke.SLICE_SPACE) == (500, 10, 2)
+
+
+def test_width_runs_take_an_instantiation_and_the_wide_route():
+    """The width path's runs: EGNO nf 96 and SEGNO nf 32 padded to the
+    instantiated 128 and 64; EGNO nf 256 on the wide route (cut to one
+    training batch and one test window) and SEGNO nf 200 padded to its
+    256."""
+    from nonode_tpu_torch.ops.kernels import egnn_fused
+
+    assert chip_smoke.WIDTH_RUNS == ((96, 32, 512, 2), (256, 200, 256, 1))
+    assert [(egnn_fused.padded_width(a), egnn_fused.padded_width(b))
+            for a, b, _, _ in chip_smoke.WIDTH_RUNS] == [(128, 64),
+                                                        (256, 256)]
+    assert [egnn_fused.wide_route(nf, 2) for run in chip_smoke.WIDTH_RUNS
+            for nf in run[:2]] == [False, False, True, True]
+    assert [samples // chip_smoke.BATCH for _, _, samples, _ in
+            chip_smoke.WIDTH_RUNS] == [2, 1]
 
 
 def test_padded_widths_are_bound_at_both_widths():
@@ -498,14 +561,15 @@ def test_width_preset_sets_the_models_width(tmp_path):
     from nonode_tpu_torch import main as nt_main
     from nonode_tpu_torch.runtime import seed_everything
 
-    preset = chip_smoke.write_width_preset(tmp_path / "p.json", 96)
-    args = nt_main.get_args(["--model", "egno", "--epochs", "2",
-                             "--config_by_file", str(preset)])
-    assert args.epochs == 2
-    exp = nt_main.build_experiment(args, torch.device("cpu"),
-                                   seed_everything(1))
-    assert exp.model.embedding.weight.shape[0] == 96
-    assert exp.model.layers[0].hidden_nf == 96
+    for nf in (96, 256):
+        preset = chip_smoke.write_width_preset(tmp_path / "p.json", nf)
+        args = nt_main.get_args(["--model", "egno", "--epochs", "2",
+                                 "--config_by_file", str(preset)])
+        assert args.epochs == 2
+        exp = nt_main.build_experiment(args, torch.device("cpu"),
+                                       seed_everything(1))
+        assert exp.model.embedding.weight.shape[0] == nf
+        assert exp.model.layers[0].hidden_nf == nf
 
 
 def test_plain_versions_are_guarded_and_restored():

@@ -14,9 +14,10 @@ Tolerance: max|kernel - plain| <= 1e-4 x max(1, max|plain|); both are fp32
 128 products (the N-body kernels: up to N pair terms, and up to 100
 micro-steps) taken in another order. #1/#2 are held at both widths they
 are built for, H=64 and H=128 (mocap's, on the skeleton mask of
-chip_smoke.py's written CMU skeleton), and at widths that run on them
-zero-padded (H=32, 96, 100); H=64 also to the bits of the build that had
-H=64 alone.
+chip_smoke.py's written CMU skeleton), at widths that run on them
+zero-padded (H=32, 96, 100), and on their wide route (every width above 128,
+any E: H=129 to 1024, E=6, its seed axis and receiver slices); H=64 also to
+the bits of the build that had H=64 alone, H=128 to those of its parent.
 """
 
 from pathlib import Path
@@ -36,6 +37,9 @@ RTOL = 1e-4
 # sha256 of the H=64 outputs of #1 and #2 (scripts/time_pairwise_kernels.py:
 # h64_digest) from the build that instantiated H=64 alone, on an H100 SXM
 H64_DIGEST = "33fb1907313fbc658085584579d82703bc32911819bb4164c0b6efeb622d09c4"
+# and of the H=128 outputs at EGNO's shape (h128_digest) from the build
+# before the wide route, on an H100 SXM
+H128_DIGEST = "75185fb2b0ea509830954d5f67f3129962fd67c75d03a724b3af8a7c44621a7a"
 
 
 @pytest.fixture
@@ -303,35 +307,89 @@ def test_widths_not_instantiated_run_padded_on_the_card(dev, h, form):
     invalid = 1                                  # cudaErrorInvalidValue
     # g, n, h, e, k, clip, the receiver slice (ni, i0), stream
     shape = [4, 5, h, 2, 1, 0, 5, 0, None]
-    assert egnn_fused._bind_fwd()(*([None] * 16 + shape)) == invalid
+    fwd, fwd_scratch = egnn_fused._bind_fwd()
+    assert fwd(*([None] * 17 + shape)) == invalid
     bwd, scratch = egnn_fused._bind_bwd()
     assert bwd(*([None] * 22 + shape)) == invalid
-    assert scratch(4, 5, h, 2, 1, 5) == -1
+    assert scratch(4, 5, h, 2, 1, 5) == -1 and fwd_scratch(4, 5, h, 2, 1,
+                                                           5) == -1
     assert scratch(4, 5, 128, 2, 1, 5) > 0 and scratch(4, 5, 64, 2, 1, 5) > 0
+    assert fwd_scratch(4, 5, 128, 2, 1, 5) == 0
 
 
 @pytest.mark.cuda
-def test_widths_above_128_and_bad_slices_raise_on_the_card(dev):
-    """A width above 128 raises before a launch, naming the limit; the
-    entry points refuse a slice out of range and a slice with stacked
-    weights."""
-    (x, hi, hj, efea, mask, weights), cot = _bwd_inputs(4, 5, 2, False, None,
-                                                        dev, h=160)
+def test_bad_slices_and_unpadded_widths_are_refused_on_the_card(dev):
+    """The entry points refuse a slice out of range, a slice with stacked
+    weights and a width the wrapper has not padded to a multiple of 64
+    (H=160; the wrapper runs it at 192); a width above 128 has a route."""
+    invalid = 1                                  # cudaErrorInvalidValue
+    fwd, fwd_scratch = egnn_fused._bind_fwd()
+    bwd, scratch = egnn_fused._bind_bwd()
+    for ni, i0, k, h in ((3, 3, 1, 64), (0, 0, 1, 64), (2, 0, 2, 64),
+                         (5, 0, 1, 160)):
+        bad = [4, 5, h, 2, k, 0, ni, i0, None]
+        assert fwd(*([None] * 17 + bad)) == invalid
+        assert bwd(*([None] * 22 + bad)) == invalid
+    assert fwd_scratch(4, 5, 160, 2, 1, 5) == scratch(4, 5, 160, 2, 1, 5) \
+        == -1
+    assert egnn_fused.padded_width(160) == 192
+    assert scratch(4, 5, 192, 2, 1, 5) > 0 and fwd_scratch(4, 5, 192, 2, 1,
+                                                           5) == 0
+    # the forward's tiles stay in shared memory at H=1024 for N=5, and
+    # leave it for N=64
+    assert fwd_scratch(4, 5, 1024, 2, 1, 5) == 0
+    assert fwd_scratch(4, 64, 1024, 2, 1, 64) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n,h,e,clip,isolated", [
+    (2560, 5, 256, 2, False, None),    # EGNO's serving shape at nf 256
+    (2560, 5, 256, 2, True, None),     # SEGNO's per-edge clip
+    (256, 5, 200, 2, True, None),      # zero-padded to 256 (nf 200)
+    (7, 5, 129, 2, False, None),       # zero-padded to 192, ragged tiles
+    (64, 5, 512, 2, False, None),
+    (16, 5, 1024, 2, False, None),     # #2's tiles in global memory
+    (2560, 5, 64, 6, False, None),     # E > 4 at an instantiated width
+    (256, 5, 256, 6, True, None),
+    (60, 31, 256, 1, False, "skeleton"),   # mocap's shape at H=256
+    (9, 64, 256, 3, True, 10),         # N at the gate's limit: #2 global
+    (3, 64, 512, 2, False, None),      # #1's tiles in global memory too
+])
+def test_wide_route_kernels_match_plain_versions(dev, g, n, h, e, clip,
+                                                 isolated):
+    """#1 and #2 on the wide route (csrc/egnn_wide.cuh): within RTOL of
+    their plain versions, two runs bitwise equal, one launch each."""
+    assert egnn_fused.wide_route(h, e)
+    x, hi, hj, efea, mask, weights = _inputs(
+        g, n, h, e, seed=n + h + e, dev=dev,
+        coord_scale=400.0 if clip else 1.0, isolated=isolated)
+    rng = np.random.RandomState(h)
+    cot = tuple(torch.tensor(rng.randn(*s), dtype=torch.float32, device=dev)
+                for s in ((g, n, 3), (g, n, h)))
+    args = (x, hi, hj, efea, mask, weights)
     before = (egnn_fused.pairwise_message.launches,
               egnn_fused.pairwise_message_bwd.launches)
-    with torch.no_grad(), pytest.raises(ValueError, match="H<=128"):
-        egnn_fused.pairwise_message(False, x, hi, hj, efea, mask, weights)
-    with pytest.raises(ValueError, match="H<=128"):
-        egnn_fused.pairwise_message_bwd(False, x, hi, hj, efea, mask,
-                                        weights, *cot)
+    with torch.no_grad():
+        got = egnn_fused.pairwise_message(clip, *args)
+        again = egnn_fused.pairwise_message(clip, *args)
+    bgot = _flat(egnn_fused.pairwise_message_bwd(clip, *args, *cot))
+    bagain = _flat(egnn_fused.pairwise_message_bwd(clip, *args, *cot))
+    torch.cuda.synchronize()
     assert (egnn_fused.pairwise_message.launches,
-            egnn_fused.pairwise_message_bwd.launches) == before
-    invalid = 1                                  # cudaErrorInvalidValue
-    bwd, _ = egnn_fused._bind_bwd()
-    for ni, i0, k in ((3, 3, 1), (0, 0, 1), (2, 0, 2)):
-        bad = [4, 5, 64, 2, k, 0, ni, i0, None]
-        assert egnn_fused._bind_fwd()(*([None] * 16 + bad)) == invalid
-        assert bwd(*([None] * 22 + bad)) == invalid
+            egnn_fused.pairwise_message_bwd.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(bgot, bagain))
+    with torch.no_grad():
+        want = egnn_fused.pairwise_message_reference(clip, *args)
+        if clip:
+            free = egnn_fused.pairwise_message_reference(False, *args)[0]
+            assert float((free - want[0]).abs().max()) > 1.0
+    _assert_close(got, want)
+    bwant = _flat(egnn_fused.pairwise_message_bwd_reference(clip, *args,
+                                                            *cot))
+    assert [a.shape for a in bgot] == [b.shape for b in bwant]
+    _assert_close(bgot, bwant)
 
 
 @pytest.mark.cuda
@@ -340,6 +398,8 @@ def test_widths_above_128_and_bad_slices_raise_on_the_card(dev):
     (50, 10, 2, True, 64),       # SEGNO's clip
     (7, 31, 3, False, 128),      # H=128, slices of 10, 10 and 11 receivers
     (3, 64, 4, True, 64),        # N at the gate's limit
+    (500, 10, 2, False, 256),    # the wide route: --space at nf 256
+    (3, 64, 4, True, 256),       # the wide route with #2's tiles global
 ])
 def test_receiver_slices_give_the_whole_launch(dev, g, n, space, clip, h):
     """#1/#2 on receiver slices [i0, i0 + ni): each within RTOL of its
@@ -373,6 +433,8 @@ def test_receiver_slices_give_the_whole_launch(dev, g, n, space, clip, h):
     for k in range(2):
         assert torch.equal(torch.cat([f[k] for f in fwd], 1), whole[k])
     assert torch.equal(torch.cat([b[3] for b in bwd], 1), bwhole[3])
+    if egnn_fused.wide_route(h, 2):     # its tiles hold whole receivers
+        assert torch.equal(torch.cat([b[1] for b in bwd], 1), bwhole[1])
     for k in range(len(bwhole)):                 # dx, dhi, dhj, weights
         if k == 3:
             continue
@@ -386,9 +448,10 @@ def test_receiver_slices_give_the_whole_launch(dev, g, n, space, clip, h):
 def test_h64_kernels_keep_the_bits_of_the_h64_only_build(dev):
     """The H=64 outputs of #1 and #2 (scripts/time_pairwise_kernels.py's
     digest: the slice and SEGNO shapes, N=31 with E=1, two stacked weight
-    sets) are the bits of the build that instantiated H=64 alone, recorded
-    on an H100 SXM (132 SMs: the persistent grid, and with it #2's sum of
-    its per-block weight gradients, depends on the SM count)."""
+    sets) are the bits of the build that instantiated H=64 alone, and the
+    H=128 outputs at EGNO's shape those of the build before the wide route,
+    recorded on an H100 SXM (132 SMs: the persistent grid, and with it #2's
+    sum of its per-block weight gradients, depends on the SM count)."""
     import importlib.util
 
     import chip_smoke
@@ -402,6 +465,7 @@ def test_h64_kernels_keep_the_bits_of_the_h64_only_build(dev):
     script = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(script)
     assert script.h64_digest(chip_smoke, egnn_fused, dev) == H64_DIGEST
+    assert script.h128_digest(chip_smoke, egnn_fused, dev) == H128_DIGEST
 
 
 @pytest.mark.cuda
@@ -451,7 +515,7 @@ def test_egnn_layer_kernel_route_matches_dense_route(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", [32, 96, 100])
+@pytest.mark.parametrize("h", [32, 96, 100, 200, 256])
 def test_egnn_layer_of_another_width_runs_on_the_card(dev, h):
     """The gate has no width limit, as the TPU's: a layer at a width the
     kernels are not built for takes them, zero-padded, and its output and
@@ -565,6 +629,8 @@ def _seed_axis(k, b, n, e, clip, dev, h=64):
     (2, 3, 64, 3, False, 64),        # graphs over several tiles, E=3
     (1, 9, 5, 2, False, 64),         # one stacked set
     (2, 30, 31, 1, True, 128),       # mocap's width and shape, two seeds
+    (2, 1280, 5, 2, False, 256),     # the wide route: fleet_main at nf 256
+    (3, 7, 5, 6, True, 64),          # the wide route at E=6
 ])
 def test_seed_axis_kernels_give_the_bits_of_single_seed_launches(
         dev, k, b, n, e, clip, h):

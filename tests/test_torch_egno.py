@@ -101,6 +101,28 @@ def test_multi_input_forward_matches_jax():
         assert_close(a, b, **TOL)
 
 
+def test_hidden_256_matches_jax():
+    """EGNO at hidden 256 (2 layers, 3 graphs): a width the card runs on
+    #1/#2's wide route; the port's fused layers (the plain version on the
+    CPU) against JAX's dense path."""
+    jm = JaxEGNO(n_layers=2, hidden_nf=256, time_emb_dim=8, num_timesteps=10)
+    params = jm.init(jax.random.PRNGKey(5))
+    loc, vel, charges, w = _inputs((3,), 5, seed=6)
+    nodes, edge_attr, loc_mean = jax_prepare_inputs(
+        *map(jnp.asarray, (loc, vel, w, charges)))
+    jx, jv, jh = jax.jit(jm.__call__)(params, jnp.asarray(loc),
+                                      jnp.asarray(vel), nodes, edge_attr,
+                                      loc_mean)
+    model = _port(jm, params)
+    assert all(layer._use_fused(t(loc), None) for layer in model.layers)
+    with torch.no_grad():
+        tn, te, tmean = prepare_inputs(*map(t, (loc, vel, w, charges)))
+        tx, tv, th = model(t(loc), t(vel), tn, te, tmean)
+    assert th.shape[-1] == 256
+    for a, b in ((tx, jx), (tv, jv), (th, jh)):
+        assert_close(a, b, **TOL)
+
+
 def test_canonical_width_matches_jax():
     """The flagship EGNO (4 layers, hidden 64, T=10) at B=4, built as
     __graft_entry__._egno_example builds it."""

@@ -6,7 +6,9 @@ and, through EGNNLayer, to the JAX dense path. The CUDA kernel itself runs
 only on the card: its tests are in test_torch_cuda.py.
 
 Tolerance 1e-5 (rtol and atol): both sides are fp32 and differ only in the
-order of sums over H <= 32 products and N <= 6 edges.
+order of sums over H <= 32 products and N <= 6 edges. Wider rows (H = 96 and
+256, or E = 6) sum over more products, whose rounding scales with the
+largest entry: there the atol is 1e-5 x max(1, max|ref|).
 """
 
 from pathlib import Path
@@ -57,11 +59,19 @@ def _mask(n, isolated=None, seed=3):
     return mask
 
 
-@pytest.mark.parametrize("h", [16, 96])
+# (H, E) of the chain's tests against JAX: H=16 and the padded H=96 with
+# E=2; H=256 and E=6, which the card runs on the wide route
+WIDTHS_AND_E = [pytest.param(16, 2, id="16"), pytest.param(96, 2, id="96"),
+                pytest.param(256, 2, id="256"),
+                pytest.param(16, 6, id="16-e6"),
+                pytest.param(256, 6, id="256-e6")]
+
+
+@pytest.mark.parametrize("h,e", WIDTHS_AND_E)
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("clip_edges", [False, True])
-def test_plain_version_matches_pallas_interpret(clip_edges, masked, h):
-    g, n, e = 6, 5, 2
+def test_plain_version_matches_pallas_interpret(clip_edges, masked, h, e):
+    g, n = 6, 5
     # a large coordinate head makes per-edge forces exceed the +-100 clip
     x, hi, hj, efea, weights = _chain_inputs(
         g, n, h, e, seed=0, coord_scale=400.0 if clip_edges else 1.0)
@@ -71,10 +81,11 @@ def test_plain_version_matches_pallas_interpret(clip_edges, masked, h):
     args = (*map(t, (x, hi, hj, efea, mask)), tuple(map(t, weights)))
     tf, tm = egnn_fused.pairwise_message_reference(clip_edges, *args)
     for a, b in ((tf, jf), (tm, jm)):
-        # at H=96 the sums run over 96 products and, with the clip, the
-        # coordinate head is scaled 400x: the rounding scales with the
-        # largest entry, so the atol does too
-        scale = 1.0 if h == 16 else max(1.0, float(np.abs(b).max()))
+        # at H=96 and H=256 the sums run over 96 and 256 products and,
+        # with the clip, the coordinate head is scaled 400x: the rounding
+        # scales with the largest entry, so the atol does too
+        scale = 1.0 if (h, e) == (16, 2) else max(1.0,
+                                                  float(np.abs(b).max()))
         assert_close(a, b, rtol=TOL["rtol"], atol=TOL["atol"] * scale)
     if clip_edges:
         unclipped, _ = egnn_fused.pairwise_message_reference(False, *args)
@@ -83,14 +94,14 @@ def test_plain_version_matches_pallas_interpret(clip_edges, masked, h):
         assert float(tf[:, 4].abs().max()) == 0.0   # isolated: degree clamp
 
 
-@pytest.mark.parametrize("h", [16, 96])
+@pytest.mark.parametrize("h,e", WIDTHS_AND_E)
 @pytest.mark.parametrize("edge_mask", [False, True])
 @pytest.mark.parametrize("with_v", [False, True])
-def test_fused_layer_matches_jax_dense_layer(with_v, edge_mask, h):
+def test_fused_layer_matches_jax_dense_layer(with_v, edge_mask, h, e):
     """The port's EGNNLayer on the fused route (the plain version on the
     CPU) against the JAX dense EGNNLayer(fused=False); H=96 is a width the
-    card runs zero-padded to 128."""
-    n, e = 5, 2
+    card runs zero-padded to 128, H=256 and E=6 run on its wide route."""
+    n = 5
     jl = JaxEGNNLayer(h, e, with_v=with_v)
     params = jl.init(jax.random.PRNGKey(0))
     rng = np.random.RandomState(1)
@@ -109,8 +120,10 @@ def test_fused_layer_matches_jax_dense_layer(with_v, edge_mask, h):
     with torch.no_grad():
         tx, tv, th = layer(t(x), t(hh), t(efea), v=t(v) if with_v else None,
                            edge_mask=None if em is None else t(em))
-    assert_close(tx, jx, **TOL)
-    assert_close(th, jh, **TOL)
+    for a, b in ((tx, jx), (th, jh)):
+        scale = 1.0 if (h, e) in ((16, 2), (96, 2)) else max(
+            1.0, float(np.abs(np.asarray(b)).max()))
+        assert_close(a, b, rtol=TOL["rtol"], atol=TOL["atol"] * scale)
     if with_v:
         assert_close(tv, jv, rtol=0, atol=0)
 
@@ -142,7 +155,7 @@ def _padded_cut(clip, args, hp, i0=0, cot=None):
 
 @pytest.mark.parametrize("form", ["whole", "clip", "seed axis",
                                   "receiver slice"])
-@pytest.mark.parametrize("h", [32, 96, 100])
+@pytest.mark.parametrize("h", [32, 96, 100, 200])
 def test_padded_width_gives_the_native_width(h, form):
     """A width the kernels are not built for, zero-padded to the next one
     (64 or 128) and cut back, gives the chain and its gradients at the
@@ -150,9 +163,10 @@ def test_padded_width_gives_the_native_width(h, form):
     max|native|) (fp32 sums with zeros added, in another order). The
     forms: the whole graph, the per-edge clip engaged, two stacked weight
     sets, receivers 2-4 of 5. With the clip, tot_f is a mean of per-edge
-    forces of up to the clip's 100 each, so its scale includes 100."""
+    forces of up to the clip's 100 each, so its scale includes 100. H=200
+    pads to the wide route's 256."""
     hp = egnn_fused.padded_width(h)
-    assert hp == (64 if h <= 64 else 128)
+    assert hp == (64 if h <= 64 else 128 if h <= 128 else 256)
     clip = form == "clip"
     x, hi, hj, efea, weights = _chain_inputs(
         4, 5, h, 2, seed=h, coord_scale=400.0 if clip else 1.0)
@@ -183,12 +197,30 @@ def test_padded_width_gives_the_native_width(h, form):
         assert float((free - native[0]).abs().max()) > 1.0
 
 
-def test_widths_above_128_raise_naming_the_limit():
-    for h in (129, 160, 256):
-        with pytest.raises(ValueError, match="1<=H<=128"):
-            egnn_fused.padded_width(h)
-    assert [egnn_fused.padded_width(h) for h in (1, 64, 65, 128)] == \
-        [64, 64, 128, 128]
+@pytest.mark.parametrize("h", [1, 64, 100, 128, 129, 200, 256, 1000])
+def test_every_width_has_a_route(h):
+    """Every width runs on the card: at 64 or 128 (their instantiations,
+    E <= 4) or at the wide route's width, H rounded up to 64 columns; the
+    wrapper's checks take it with E = 2 and E = 6, and pad and cut it."""
+    hp = egnn_fused.padded_width(h)
+    assert hp == {1: 64, 64: 64, 100: 128, 128: 128, 129: 192, 200: 256,
+                  256: 256, 1000: 1024}[h]
+    assert egnn_fused.wide_route(h, 2) == (hp > 128)
+    assert egnn_fused.wide_route(h, 6)          # E > 4: the wide route
+    for e in (2, 6):
+        x, hi, hj, efea, weights = _chain_inputs(2, 5, h, e, seed=h)
+        args = (*map(t, (x, hi, hj, efea, _mask(5))), tuple(map(t, weights)))
+        (g, n, hh, ee, k, ni), _ = egnn_fused._checked_inputs(*args, 0)
+        assert (g, n, hh, ee, k, ni) == (2, 5, h, e, 1, 5)
+        wp, hip, hjp = egnn_fused.pad_width(args[5], args[1], args[2], hp)
+        assert [tuple(w.shape) for w in wp] == \
+            list(egnn_fused._weight_shapes(hp, e))
+        assert hip.shape == hjp.shape == (2, 5, hp)
+        (cut,), dw = egnn_fused.cut_width(h, e, (hip,), wp)
+        assert torch.equal(cut, args[1])
+        assert all(torch.equal(a, b) for a, b in zip(dw, args[5]))
+    with pytest.raises(ValueError, match="H=0"):
+        egnn_fused.padded_width(0)
 
 
 def test_gate_matches_the_tpu_gate():

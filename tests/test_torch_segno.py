@@ -218,6 +218,24 @@ def test_forward_matches_jax(agg):
         assert_close(a, b, **FWD_TOL)
 
 
+def test_hidden_256_forward_matches_jax():
+    """SEGNO at hidden 256 (T=10 weight-tied steps, 3 graphs): a width the
+    card runs on #1/#2's wide route, with the per-edge clip; the port's
+    fused GCL (the plain version on the CPU) against JAX."""
+    jm = JaxSEGNO(hidden_nf=256)
+    params = jm.init(jax.random.PRNGKey(7))
+    model = SEGNO(hidden_nf=256, device="cpu")
+    model.load_state_dict(segno_state_dict_from_jax_params(
+        jax.tree.map(np.asarray, params)), strict=True)
+    his, x, v, ea = _inputs((3,), seed=8)
+    jx, jh, jv = jm(params, *map(jnp.asarray, (his, x, v, ea)), T=10)
+    with torch.no_grad():
+        got = model(*map(t, (his, x, v, ea)), T=10)
+    assert got[1].shape[-1] == 256
+    for a, b in zip(got, (jx, jh, jv)):
+        assert_close(a, b, **FWD_TOL)
+
+
 def test_forward_dynamic_matches_jax_masked_integration():
     """Per-batch segment lengths: JAX integrates max_interior steps and
     masks those past each traced length; the port runs exactly the host

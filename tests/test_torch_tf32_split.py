@@ -11,7 +11,9 @@ CPU at the kernels' shapes (rows x 64 @ 64 x 64, and the weight gradients'
 64 x rows @ rows x 64), with the weights and activation scales of
 chip_smoke.pairwise_inputs, and holds it to a float64 product: split TF32
 stays within 1e-5 x max(1, max|ref|), the kernels' fp32-parity budget, and a
-single TF32 pass does not.
+single TF32 pass does not. The same holds at the wide route's widths (H = 256
+and 1024, csrc/egnn_wide.cuh), where a product's K steps over H: the budget
+the card's wide-route cases are held to.
 """
 
 import numpy as np
@@ -59,13 +61,13 @@ def tc_product(a, b, passes):
     return acc
 
 
-def chain_products(scale):
+def chain_products(scale, h=H, g=32):
     """The six products of the chain's forward and backward, (a, b) pairs in
-    fp32, from the slice's inputs on 32 graphs of N = 5 (800 edge rows); hi
-    and hj multiplied by ``scale``."""
-    g, n, e = 32, 5, 2
+    fp32, from the slice's inputs on g graphs of N = 5 (25 g edge rows) at
+    width ``h``; hi and hj multiplied by ``scale``."""
+    n, e = 5, 2
     x, hi, hj, efea, mask, weights = chip_smoke.pairwise_inputs(
-        g, n, H, e, seed=n, dev="cpu")
+        g, n, h, e, seed=n, dev="cpu")
     hi, hj = hi * scale, hj * scale
     wg, we, b1, w2, b2, wc1, bc1, wc2, bc2 = weights
     rows = lambda t: t.reshape(-1, t.shape[-1])               # noqa: E731
@@ -78,7 +80,7 @@ def chain_products(scale):
     cpre = msg @ wc1 + bc1
     rng = np.random.RandomState(0)
     gtotf, gtotm = (torch.tensor(rng.randn(*s), dtype=torch.float32)
-                    for s in ((g, n, 3), (g, n, H)))
+                    for s in ((g, n, 3), (g, n, h)))
     gf = rows((gtotf[:, :, None, :] * (mask / mask.sum(-1, keepdim=True))
                [..., None]))
     dcw = (gf * rows(rij)).sum(-1, keepdim=True)
@@ -123,3 +125,48 @@ def test_split_tf32_meets_the_fp32_budget_and_one_pass_does_not(name, scale):
     single_err = float((tc_product(a, b, 1).double() - ref).abs().max())
     assert split_err <= bound, (split_err, bound)
     assert single_err > bound, (single_err, bound)
+
+
+@pytest.mark.parametrize("h", [256, 1024])
+@pytest.mark.parametrize("name", PRODUCTS)
+def test_split_tf32_meets_the_fp32_budget_at_the_wide_widths(name, h):
+    """The wide route's products (K = H = 256 and 1024 in the HxH products,
+    K = 200 edge rows in the weight gradients, more than a tile's 128)
+    within the same budget, and a single TF32 pass outside it: the whole
+    contraction, over one column pass (64 output columns) of each."""
+    a, b = chain_products(1.0, h, g=8)[name]
+    b = b[:, :64]
+    ref = a.double() @ b.double()
+    bound = TOL * max(1.0, float(ref.abs().max()))
+    split_err = float((tc_product(a, b, 3).double() - ref).abs().max())
+    single_err = float((tc_product(a, b, 1).double() - ref).abs().max())
+    assert split_err <= bound, (split_err, bound)
+    assert single_err > bound, (single_err, bound)
+
+
+def chain_tot_f(x, hi, hj, efea, mask, weights, product):
+    """The chain's tot_f with its two HxH products taken by ``product``."""
+    wg, we, b1, w2, b2, wc1, bc1, wc2, bc2 = weights
+    rij = x[:, :, None, :] - x[:, None, :, :]
+    r2 = (rij * rij).sum(-1, keepdim=True)
+    pre1 = r2 * wg + efea @ we + hi[:, :, None, :] + hj[:, None, :, :] + b1
+    g, n, _, h = pre1.shape
+    msg = F.silu(product(F.silu(pre1).reshape(-1, h), w2) + b2)
+    cw = F.silu(product(msg, wc1) + bc1) @ wc2 + bc2
+    f = rij * cw.reshape(g, n, n, 1)
+    deg = mask.sum(-1, keepdim=True).clamp(min=1.0)
+    return (f * mask[..., None]).sum(-2) / deg
+
+
+@pytest.mark.parametrize("h", [64, 256, 1024])
+def test_split_tf32_chain_meets_the_budget_at_every_width(h):
+    """The whole forward chain to tot_f, its products in split TF32 with
+    the accumulation rounded to nearest, against the fp32 plain version:
+    within the budget at every width, the depth of the contraction
+    notwithstanding (what the wide route's chunked accumulation keeps on
+    the card, csrc/egnn_wide.cuh)."""
+    inputs = chip_smoke.pairwise_inputs(32, 5, h, 2, seed=5, dev="cpu")
+    plain = chain_tot_f(*inputs, lambda a, b: a @ b)
+    split = chain_tot_f(*inputs, lambda a, b: tc_product(a, b, 3))
+    bound = TOL * max(1.0, float(plain.abs().max()))
+    assert float((split - plain).abs().max()) <= bound
