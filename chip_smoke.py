@@ -24,13 +24,17 @@ Phases, each timed on its own line:
    with the clip (SEGNO) in one launch: bitwise equal to 5 single-seed
    launches and over two runs, within 1e-4 x max(1, max|plain|) of the
    plain seed-axis version, timed beside the 5 single-seed launches.
-   #1 and #2 at H=128 (their second width, weights read from global
-   memory) at the mocap path's shape: G=60, N=31, E=1 on the written
-   skeleton's skeleton + 2-hop mask, without and with the clip, and K=2
-   weight sets over G = 2 x 30; each against its plain version, twice
-   bitwise equal, timed beside its bound. #1 and #2 on receiver slices
-   (the particle axis over --space): N=10 in two slices of 5 receivers at
-   G=50 (with and without the clip) and G=500; the whole-graph launch,
+   #1 at H=128 (its second width, weights read from global memory) and #2
+   on its tile route (csrc/egnn_fused_bwd.cu: every (H, E) but H=64 with
+   E <= 4) at the mocap path's shape: G=60, N=31, E=1 on the written
+   skeleton's skeleton + 2-hop mask, without and with the clip, with hi
+   and hj x200, and K=2 weight sets over G = 2 x 30; and at N=64 with E=3
+   over G=271 graphs (a graph over 32 tiles, on every block); each against
+   its plain version, twice bitwise equal, timed beside its bound (#2's
+   cases without the clip within the split-TF32 budget). #1 and #2 on
+   receiver slices (the particle axis over --space): N=10 in two slices of
+   5 receivers at G=50 (with and without the clip) and G=500; the
+   whole-graph launch,
    (0, N), bitwise the H=64-only build (a sha256 of its outputs, on 132
    SMs) and the launch without a slice; the slices' tot_f, tot_m, dhi and
    defea side by side bitwise the whole launch's, their dx, dhj and weight
@@ -41,9 +45,11 @@ Phases, each timed on its own line:
    shape, with the clip engaged, and with two weight sets over G = 2 x
    1280; each against its plain version at the native width, timed beside
    its bound at that width and at the padded one, and beside H=128 at
-   EGNO's shape; H=128's outputs at EGNO's shape bitwise those of the build
-   before the wide route (a sha256). #1 and #2 on their wide route (every
-   width above 128, any E; csrc/egnn_wide.cuh): H=256 at EGNO's shape
+   EGNO's shape (#2 at H=96, 100 and 128 on its tile route); #1's outputs
+   at H=128 and 256 at EGNO's shape bitwise those of the build before #2's
+   tile route, #2's those recorded from its own build (two sha256s). #1 on
+   its wide route (csrc/egnn_wide.cuh) and #2 on its tile route (every
+   width above 128, any E): H=256 at EGNO's shape
    without and with the clip, H=200 zero-padded to 256, H=512 and H=1024,
    E=6 at H=64 and H=256, the mocap shape at H=256, two weight sets over
    G = 2 x 1280 bitwise two single-seed launches, and a receiver slice
@@ -123,16 +129,17 @@ Phases, each timed on its own line:
    splits ask, the artifact's preds [240, 5, 31, 3] and its test_loss the
    MSE of its own preds within rtol 1e-5, the run's wall by PhaseTimer;
    train batch 0's loss and every gradient on the card within 1e-3 x
-   max(1, max|.|) of the port's CPU; a step's wall and idle share;
+   max(1, max|.|) of the port's CPU; a step's wall and idle share, and
+   #2's and #1's shares of its device time;
 20. width path: ``main --config_by_file`` with a JSON preset of nf 96
    (#1/#2 zero-padded to 128): EGNO ``--only_test false --epochs 2`` on
    512 training samples with a 2-window test rollout, on the card and on
    the CPU from the same seed, every loss within 1e-3 relative, the
    checkpoint at that width, #1/#2 launched as the run asks; then SEGNO
    serving at nf 32 (padded to 64) as phase 7 checks it; then the same at
-   nf 256 (EGNO, #1/#2 on their wide route) and nf 200 (SEGNO serving with
-   the clip, padded to 256); no plain version of #1/#2 handed a CUDA
-   tensor;
+   nf 256 (EGNO, #1 on its wide route, #2 on its tile route) and nf 200
+   (SEGNO serving with the clip, padded to 256); no plain version of #1/#2
+   handed a CUDA tensor;
 21. baselines: GNN, LinearDynamics, RFVel, EquivariantScalarNet, EGMN and
    FullMLP at hidden 64 and 4 layers on 100 graphs of the committed test
    split: a forward and one backward on the card against the port's CPU
@@ -154,8 +161,9 @@ Every kernel's time is its device time alone (CUDA events around one call,
 the stream held busy while the host enqueues it), median of repeats. Then it
 prints the kernels line (each kernel's launches on its own path, and on
 every path, the multi-rank paths' summed over their ranks; #1 and #2 with
-their receiver-slice cases, as their H=128 instantiations with the mocap
-path's launches, and on their wide route with the nf-256 path's launches)
+their receiver-slice cases; #1 as its H=128 instantiation with the mocap
+path's launches and as its wide route with the nf-256 path's; #2 as its
+tile route with its launches on the mocap path and the EGNO width paths)
 and, last, one JSON line with the device. It exits non-zero,
 with no result, without CUDA, outside the repository, or when the checkout
 lacks the committed splits.
@@ -419,13 +427,27 @@ WIDTH_CASES = [
       False, "H=128")]
 # the timed rows held to the split-TF32 budget
 SPLIT_TF32_ROWS = {"slice", "H=128"} | {f"H={h}" for h in WIDTHS}
+# #2's tile route (every (H, E) but H=64 with E <= 4) beyond the cases above:
+# the mocap shape with activations x200 (hi and hj scaled, where the TF32
+# rounding of the operands weighs most) and graphs over many tiles on many
+# blocks (N=64: 32 tiles of 2 receivers a graph at H=128, E=3, G = 2 x 132 +
+# 7); with the mocap shape, held to the split-TF32 budget
+TILE_CASES = [
+    ("tiles mocap G=60 N=31 H=128 E=1 activations x200",
+     dict(g=MOCAP_G, n=31, h=128, e=1, skeleton=True, scale=200.0), False,
+     "mocap x200"),
+    ("tiles N=64 H=128 E=3 G=271", dict(g=271, n=64, h=128, e=3), False,
+     "N=64 E=3"),
+]
+TILE_SPLIT_TF32_ROWS = {"mocap", "mocap x200", "N=64 E=3"}
 # the seed-axis form of the padded widths: two weight sets over G = 2 x 1280
 WIDTH_SEED_AXIS_CASES = [
     (f"H={h}", 1280, False, 1.0, dict(k=2, h=h)) for h in WIDTHS]
-# #1/#2 on their wide route (csrc/egnn_wide.cuh): every width above 128
-# and any E. EGNO's serving shape at H=256 without and with the clip, H=200
-# zero-padded to 256, H=512 and H=1024 (the backward's tiles in global
-# memory), E=6 at H=64 and H=256, and the mocap shape at H=256; each against
+# #1 on its wide route (csrc/egnn_wide.cuh) and #2 on its tile route
+# (csrc/egnn_fused_bwd.cu): every width above 128 and any E. EGNO's serving
+# shape at H=256 without and with the clip, H=200 zero-padded to 256, H=512
+# and H=1024 (#2 on 16-row tiles of 3 receivers), E=6 at H=64 and H=256,
+# and the mocap shape at H=256; each against
 # its plain version, twice bitwise, timed beside its bound. The clip cases
 # are held to KERNEL_RTOL (as H=64's clip case), the others to the split-TF32
 # budget (tests/test_torch_tf32_split.py holds the products at H=256 and
@@ -465,13 +487,15 @@ H64_ONLY_SLICE_MS = {"egnn_pairwise_fwd": "0.0481-0.0486",
 
 
 def case_inputs(kw, seed, dev):
-    """(g, n, h, e, pairwise_inputs) of a PAIRWISE_CASES or MOCAP_CASES
-    entry's shape and inputs."""
+    """(g, n, h, e, pairwise_inputs) of a PAIRWISE_CASES, MOCAP_CASES or
+    TILE_CASES entry's shape and inputs (``scale`` multiplies hi and hj)."""
     kw = dict(kw)
     g, n, h, e = kw.pop("g"), kw.pop("n"), kw.pop("h", 64), kw.pop("e", 2)
+    scale = kw.pop("scale", 1.0)
     if kw.pop("skeleton", False):
         kw["mask"] = mocap_mask(dev)
-    return g, n, h, e, pairwise_inputs(g, n, h, e, seed=seed, dev=dev, **kw)
+    x, hi, hj, *rest = pairwise_inputs(g, n, h, e, seed=seed, dev=dev, **kw)
+    return g, n, h, e, (x, hi * scale, hj * scale, *rest)
 
 
 def check_pairwise_kernel(egnn_fused, dev, cases=PAIRWISE_CASES):
@@ -589,9 +613,11 @@ def bwd_outputs(out):
                     (dx, dhi, dhj, defea, *dweights)))
 
 
-def check_pairwise_bwd_kernel(egnn_fused, dev, cases=PAIRWISE_CASES):
+def check_pairwise_bwd_kernel(egnn_fused, dev, cases=PAIRWISE_CASES,
+                              split_rows=SPLIT_TF32_ROWS):
     """Backward kernel vs plain version in the forward's cases, each run
-    twice and held bitwise equal; returns the timed rows."""
+    twice and held bitwise equal, the timed rows of ``split_rows`` within
+    the split-TF32 budget; returns the timed rows."""
     rows = {}
     for label, kw, clip, timed in cases:
         g, n, h, e, args = case_inputs(kw, kw["n"] + 1, dev)
@@ -626,7 +652,7 @@ def check_pairwise_bwd_kernel(egnn_fused, dev, cases=PAIRWISE_CASES):
                 raise AssertionError(f"{label}: {name} disagrees with the "
                                      f"plain version: {err} > "
                                      f"{KERNEL_RTOL} x {scale}")
-            if timed in SPLIT_TF32_ROWS and err > SPLIT_TF32_RTOL * scale:
+            if timed in split_rows and err > SPLIT_TF32_RTOL * scale:
                 raise AssertionError(f"{label}: {name} relative error "
                                      f"{err / scale} over the split-TF32 "
                                      f"budget {SPLIT_TF32_RTOL}")
@@ -652,7 +678,7 @@ def check_pairwise_bwd_kernel(egnn_fused, dev, cases=PAIRWISE_CASES):
               f"{bounds_text(fp32, tc, ms)}{padded_text}; no single PyTorch "
               f"call computes this function"
               + (f"; relative error within {SPLIT_TF32_RTOL:g}"
-                 if timed in SPLIT_TF32_ROWS else "")
+                 if timed in split_rows else "")
               + (f"; the H=64-only build: "
                  f"{H64_ONLY_SLICE_MS['egnn_pairwise_bwd']} ms"
                  if timed == "slice" else ""), flush=True)
@@ -860,16 +886,23 @@ SLICE_RTOL = 1e-5
 # with 132 SMs (tests/test_torch_cuda.py holds the same): the whole-graph
 # launch, (0, N), keeps those bits
 H64_DIGEST = "33fb1907313fbc658085584579d82703bc32911819bb4164c0b6efeb622d09c4"
-# the same of #1's and #2's H=128 outputs at EGNO's shape, without and with
-# the clip (h128_digest), from the build before the wide route, on an H100
-# SXM: H=128 keeps its code and its bits
-H128_DIGEST = "75185fb2b0ea509830954d5f67f3129962fd67c75d03a724b3af8a7c44621a7a"
+# #1's outputs at H=128 (without and with the clip) and H=256 at EGNO's
+# shape (fwd_digest), from the build before #2's tile route, on an H100 SXM:
+# the tile route leaves #1 as it was
+H128_FWD_DIGEST = \
+    "ef43f8de0953c4dcbf969bbcae59fc3b14aa5bd6d5d27b5ea01595b54b92f94a"
+# #2's outputs on its tile route (tiles_digest: H=128 at EGNO's shape
+# without and with the clip and at the mocap shape, H=256 at EGNO's), from
+# the build that brought the route, on an H100 SXM
+TILES_BWD_DIGEST = \
+    "dde692b7c180943bb8f665e5165e91cbfc355f3102e427d6d6ea58cd8b070188"
 
 
 def h64_digest_check(egnn_fused, dev):
-    """The whole-graph launches' digests against the H=64-only build's (at
-    H=64) and the build's before the wide route (at H=128), on a card of
-    132 SMs (the persistent grids depend on the SM count)."""
+    """The whole-graph launches' digests against the H=64-only build's (#1
+    and #2 at H=64), the build's before the tile route (#1 at H=128 and
+    256) and the tile route's own (#2 at H=128 and 256), on a card of 132
+    SMs (the persistent grids depend on the SM count)."""
     import importlib.util
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -882,15 +915,20 @@ def h64_digest_check(egnn_fused, dev):
     script = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(script)
     for digest_of, want, build in (
-            (script.h64_digest, H64_DIGEST, "the H=64-only build"),
-            (script.h128_digest, H128_DIGEST, "the build before the wide "
-                                              "route (H=128)")):
+            (script.h64_digest, H64_DIGEST, "#1 and #2 at H=64: the H=64-only "
+                                            "build"),
+            (script.fwd_digest, H128_FWD_DIGEST, "#1 at H=128 and 256: the "
+                                                 "build before #2's tile "
+                                                 "route"),
+            (script.tiles_digest, TILES_BWD_DIGEST, "#2 on its tile route at "
+                                                    "H=128 and 256: its "
+                                                    "recorded build")):
         digest = digest_of(sys.modules[__name__], egnn_fused, dev)
         if digest != want:
-            raise AssertionError(f"#1/#2 at (0, N) lost the bits of "
-                                 f"{build}: digest {digest}")
-        print(f"  (0, N): #1 and #2 outputs bitwise those of {build} "
-              f"(sha256 {digest[:16]}...)", flush=True)
+            raise AssertionError(f"at (0, N) {build} lost its bits: digest "
+                                 f"{digest}")
+        print(f"  (0, N): {build}, bitwise (sha256 {digest[:16]}...)",
+              flush=True)
 
 
 def check_slice_kernels(egnn_fused, dev, cases=SLICE_CASES, h=64,
@@ -900,7 +938,7 @@ def check_slice_kernels(egnn_fused, dev, cases=SLICE_CASES, h=64,
     bitwise the launch without a slice; the slices' tot_f, tot_m, dhi and
     defea put side by side bitwise the whole launch's (each row sums over j
     in the same order; for dhi, #2's tiles hold a graph's rows whole at N =
-    10 at H=64, and a receiver's row whole on the wide route); dx, dhj and
+    10 at H=64, and a receiver's row whole on #2's tile route); dx, dhj and
     the weight gradients summed over the slices within SLICE_RTOL x max(1,
     max|whole|); each slice within ``rtol`` of its plain version and bitwise
     over two runs. The second slice (i0 = ni) timed beside its plain
@@ -1025,11 +1063,32 @@ def check_slice_kernels(egnn_fused, dev, cases=SLICE_CASES, h=64,
     return rows
 
 
+def tile_route_row(egnn_fused, mocap, mocap_seed, width, padded, wide):
+    """#2's tile route's kernels-line row: the mocap case's numbers, with
+    every other case of the route under ``cases`` (the clip, x200, N=64 at
+    H=128; H=128, 96 and 100 at EGNO's shape; the wide cases), and its seed
+    axis and receiver slice rows."""
+    cases = {row: mocap[row] for row in ("mocap clip", "mocap x200",
+                                         "N=64 E=3")}
+    cases["H=128"] = width["H=128"]
+    cases.update({w: r for w, r in padded.items()
+                  if egnn_fused.tile_route(int(w[2:]), 2)})
+    cases.update({"H=256": {k: v for k, v in wide.items()
+                            if k not in ("cases", "seed_axis",
+                                         "receiver_slice")},
+                  **wide["cases"]})
+    return dict(mocap["mocap"], width=128, cases=cases,
+                seed_axis={"mocap": mocap_seed["mocap"],
+                           **wide["seed_axis"]},
+                receiver_slice=wide["receiver_slice"])
+
+
 def wide_kernel_rows(egnn_fused, dev):
-    """#1 and #2 on their wide route: WIDE_CASES against their plain
-    versions and timed, the seed axis bitwise two single-seed launches, the
-    receiver slice bitwise the whole launch. Returns {kernel: row}: the
-    H=256 EGNO-shape row, with every other case's row under its label."""
+    """#1 on its wide route and #2 on its tile route: WIDE_CASES against
+    their plain versions and timed, the seed axis bitwise two single-seed
+    launches, the receiver slice bitwise the whole launch. Returns {kernel:
+    row}: the H=256 EGNO-shape row, with every other case's row under its
+    label."""
     fwd = check_pairwise_kernel(egnn_fused, dev, WIDE_CASES)
     bwd = check_pairwise_bwd_kernel(egnn_fused, dev, WIDE_CASES)
     seed = check_seed_axis_kernels(egnn_fused, dev, WIDE_SEED_AXIS_CASES,
@@ -1797,9 +1856,11 @@ def median_step_ms(step, steps=6):
     return 1e3 * float(np.median(walls[1:]))
 
 
-def traced(fn):
+def traced(fn, parts=None):
     """(wall s, device kernel ms, kernel launches, idle share) of ``fn``
-    under torch.profiler, as scripts/profile_torch_training.py counts them."""
+    under torch.profiler, as scripts/profile_torch_training.py counts them;
+    with ``parts`` ({label: name fragments}) also {label: device ms of the
+    kernels whose name holds one of its fragments}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1816,8 +1877,13 @@ def traced(fn):
     device_us = sum(e.self_device_time_total for e in events)
     if not events:
         raise AssertionError("the profiler saw no device time")
-    return (wall, device_us / 1e3, sum(e.count for e in events),
-            1 - device_us / 1e6 / wall)
+    out = (wall, device_us / 1e3, sum(e.count for e in events),
+           1 - device_us / 1e6 / wall)
+    if parts is None:
+        return out
+    return out + ({label: sum(e.self_device_time_total for e in events
+                              if any(f in e.key for f in frags)) / 1e3
+                   for label, frags in parts.items()},)
 
 
 FLEET_SEEDS = (1, 2, 3, 4, 5)
@@ -2340,6 +2406,13 @@ def mocap_split_sizes(data_dir, max_training_samples=200, max_eval=600):
                                           caps)}
 
 
+# the kernels of #1's and #2's calls, by name, in a traced mocap step: #2's
+# call launches the weights' split, the tiles, the weight-gradient sum and
+# the node sums
+MOCAP_KERNEL_PARTS = {"#2": ("egnn_pairwise_bwd", "egnn_split_weights"),
+                      "#1": ("egnn_pairwise_fwd",)}
+
+
 def run_mocap_path(kernels, tmp, dev):
     """``motion_main`` at configs/config_mocap_no.json's width (nf 128, 6
     layers, T=5, batch 12) for 2 epochs on the written run case: #1/#2
@@ -2446,7 +2519,9 @@ def run_mocap_path(kernels, tmp, dev):
     step = lambda i: exp.train_epoch(  # noqa: E731
         ds, windows, perm[i % len(perm)][None])
     step_ms = median_step_ms(step)
-    trace = traced(lambda: step(0))
+    trace = traced(lambda: step(0), MOCAP_KERNEL_PARTS)
+    shares = ", ".join(f"{label} {ms:.3f} ms ({ms / trace[1]:.3f} of it)"
+                       for label, ms in trace[4].items())
     print(f"  mocap train batch 0: loss card {loss_c!r} CPU {loss_h!r}; "
           f"{len(g_h)} parameter gradients, worst relative error "
           f"{worst[0]:.3e} ({worst[1]}; tolerance {GRAD_RTOL:g} x max(1, "
@@ -2454,7 +2529,7 @@ def run_mocap_path(kernels, tmp, dev):
           f"wall (batch {b}, sync-closed) median {step_ms:.3f} ms over steps "
           f"2-6; traced step: wall {1e3 * trace[0]:.3f} ms, device "
           f"{trace[1]:.3f} ms over {trace[2]} launches, idle share "
-          f"{trace[3]:.4f}", flush=True)
+          f"{trace[3]:.4f}; of the device time {shares}", flush=True)
     return launches
 
 
@@ -2713,6 +2788,11 @@ def run_multi_rank_path(nt_main, kernels, data_dir, tmp, dev):
 # clip, zero-padded to the wide route's 256). (EGNO nf, SEGNO nf, samples,
 # test windows) a run.
 WIDTH_RUNS = ((96, 32, 512, 2), (256, 200, 256, 1))
+# the paths that run #1's wide route (EGNO at nf 256 first) and #2's tile
+# route (mocap first, then EGNO at nf 96 and 256)
+WIDE_PATHS = (f"width egno nf{WIDTH_RUNS[-1][0]}",
+              f"width segno nf{WIDTH_RUNS[-1][1]} serving")
+TILE_PATHS = ("mocap", *(f"width egno nf{run[0]}" for run in WIDTH_RUNS))
 
 
 @contextlib.contextmanager
@@ -2807,9 +2887,11 @@ def run_width_path(nt_main, kernels, egnn_fused, data_dir, tmp, egno_nf,
                                  f"{GRAD_RTOL})")
         worst = max(worst, float(np.max(np.abs(a - b) / np.abs(b))))
     hp = egnn_fused.padded_width(egno_nf)
-    route = "the wide route" if egnn_fused.wide_route(egno_nf, 2) else \
-        "an instantiation"
-    print(f"  egno nf {egno_nf} (#1/#2 on {route} at H={hp}"
+    route = ("its wide route" if egnn_fused.wide_route(egno_nf, 2)
+             else "an instantiation") + ", #2 on " + (
+        "its tile route" if egnn_fused.tile_route(egno_nf, 2)
+        else "its H=64 kernel")
+    print(f"  egno nf {egno_nf} (#1 on {route} at H={hp}"
           f"{', zero-padded' if hp != egno_nf else ''}): losses "
           f"{card['train loss']} {card['val loss']} {card['test loss']} on "
           f"the card against {cpu['train loss']} {cpu['val loss']} "
@@ -2958,14 +3040,14 @@ OWN_PATH = {"egnn_pairwise_fwd": "train", "egnn_pairwise_bwd": "train",
             "nbody_gravity_leapfrog": "gravity"}
 
 
-def kernels_line(kernels, rows, paths, mocap_rows, mocap_launches,
-                 wide_rows, wide_paths):
+def kernels_line(kernels, rows, paths, routes):
     """The kernels line's entries: every kernel with its measured ``rows``
     and its launches on its own path and on every path of ``paths``; after
-    #1 and #2, their H=128 instantiations (``<name>_h128``) with the mocap
-    cases' ``mocap_rows`` and their launches on the mocap path, and their
-    wide route (``<name>_wide``) with ``wide_rows``, their launches on the
-    first of ``wide_paths`` (EGNO at nf 256) and on each of them."""
+    each kernel its other routes, ``routes[name]``: (suffix, row, path
+    names) each, an entry ``<name>_<suffix>`` with the row and its launches
+    on the first of its paths and on each of them (#1's H=128
+    instantiation on the mocap path and its wide route on the nf-256 width
+    path; #2's tile route on the mocap path and both width paths)."""
     out = []
     for k in kernels:
         name = k["name"]
@@ -2976,18 +3058,11 @@ def kernels_line(kernels, rows, paths, mocap_rows, mocap_launches,
                     "path": OWN_PATH[name],
                     "launches_by_path": {p: c[name] for p, c in paths.items()},
                     **rows[name]})
-        if name in mocap_rows:
-            out.append({"name": f"{name}_h128", **common,
-                        "launches": mocap_launches[name], "path": "mocap",
-                        "launches_by_path": {"mocap": mocap_launches[name]},
-                        **mocap_rows[name]})
-        if name in wide_rows:
-            out.append({"name": f"{name}_wide", **common,
-                        "launches": paths[wide_paths[0]][name],
-                        "path": wide_paths[0],
-                        "launches_by_path": {p: paths[p][name]
-                                             for p in wide_paths},
-                        **wide_rows[name]})
+        for suffix, row, on in routes.get(name, ()):
+            out.append({"name": f"{name}_{suffix}", **common,
+                        "launches": paths[on[0]][name], "path": on[0],
+                        "launches_by_path": {p: paths[p][name] for p in on},
+                        **row})
     return out
 
 
@@ -3029,17 +3104,15 @@ def main():
                        ragged_shape=r["ragged"], seed_axis=seed_rows[name],
                        receiver_slice=slice_rows[name])
             for name, r in pair_rows.items()}
+    mocap_cases = MOCAP_CASES + TILE_CASES
     mocap_rows = {
         "egnn_pairwise_fwd": check_pairwise_kernel(egnn_fused, dev,
-                                                   MOCAP_CASES),
-        "egnn_pairwise_bwd": check_pairwise_bwd_kernel(egnn_fused, dev,
-                                                       MOCAP_CASES)}
+                                                   mocap_cases),
+        "egnn_pairwise_bwd": check_pairwise_bwd_kernel(
+            egnn_fused, dev, mocap_cases,
+            SPLIT_TF32_ROWS | TILE_SPLIT_TF32_ROWS)}
     mocap_seed = check_seed_axis_kernels(egnn_fused, dev,
                                          MOCAP_SEED_AXIS_CASES)
-    mocap_rows = {name: dict(r["mocap"], width=128,
-                             clip_shape=r["mocap clip"],
-                             seed_axis=mocap_seed[name])
-                  for name, r in mocap_rows.items()}
     width_rows = {
         "egnn_pairwise_fwd": check_pairwise_kernel(egnn_fused, dev,
                                                    WIDTH_CASES),
@@ -3047,13 +3120,33 @@ def main():
                                                        WIDTH_CASES)}
     width_seed = check_seed_axis_kernels(egnn_fused, dev,
                                          WIDTH_SEED_AXIS_CASES)
-    for name, r in width_rows.items():
-        rows[name]["padded_widths"] = {
-            f"H={h}": dict(r[f"H={h}"], clip_shape=r[f"H={h} clip"],
-                           seed_axis=width_seed[name][f"H={h}"])
-            for h in WIDTHS}
-        rows[name]["h128_at_this_shape"] = r["H=128"]
+    padded = {name: {f"H={h}": dict(r[f"H={h}"], clip_shape=r[f"H={h} clip"],
+                                    seed_axis=width_seed[name][f"H={h}"])
+                     for h in WIDTHS}
+              for name, r in width_rows.items()}
+    rows["egnn_pairwise_fwd"].update(
+        padded_widths=padded["egnn_pairwise_fwd"],
+        h128_at_this_shape=width_rows["egnn_pairwise_fwd"]["H=128"])
+    # #2 keeps H=32 (padded to 64, E=2) on its H=64 kernel; every other
+    # width runs on its tile route
+    rows["egnn_pairwise_bwd"]["padded_widths"] = {
+        w: r for w, r in padded["egnn_pairwise_bwd"].items()
+        if not egnn_fused.tile_route(int(w[2:]), 2)}
     wide_rows = wide_kernel_rows(egnn_fused, dev)
+    fwd_mocap = mocap_rows["egnn_pairwise_fwd"]
+    routes = {"egnn_pairwise_fwd": [
+        ("h128", dict(fwd_mocap["mocap"], width=128,
+                      clip_shape=fwd_mocap["mocap clip"],
+                      seed_axis=mocap_seed["egnn_pairwise_fwd"],
+                      cases={row: fwd_mocap[row] for _, _, _, row in
+                             TILE_CASES}), ["mocap"]),
+        ("wide", wide_rows["egnn_pairwise_fwd"], list(WIDE_PATHS))]}
+    tiles = tile_route_row(egnn_fused, mocap_rows["egnn_pairwise_bwd"],
+                           mocap_seed["egnn_pairwise_bwd"],
+                           width_rows["egnn_pairwise_bwd"],
+                           padded["egnn_pairwise_bwd"],
+                           wide_rows["egnn_pairwise_bwd"])
+    routes["egnn_pairwise_bwd"] = [("tiles", tiles, list(TILE_PATHS))]
     rows.update(check_nbody_kernels(dev))
     check_fused_frames(dev)
     phase("kernels", t0)
@@ -3134,7 +3227,7 @@ def main():
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        mocap_launches = run_mocap_path(KERNELS, Path(tmp), dev)
+        paths["mocap"] = run_mocap_path(KERNELS, Path(tmp), dev)
     phase("mocap path", t0)
 
     t0 = time.perf_counter()
@@ -3154,10 +3247,7 @@ def main():
                                          Path(tmp), dev))
     phase("multi-rank path", t0)
 
-    egno_nf, segno_nf = WIDTH_RUNS[-1][:2]
-    out = kernels_line(KERNELS, rows, paths, mocap_rows, mocap_launches,
-                       wide_rows, (f"width egno nf{egno_nf}",
-                                   f"width segno nf{segno_nf} serving"))
+    out = kernels_line(KERNELS, rows, paths, routes)
     print(json.dumps({"kernels": out}), flush=True)
     print(f"total: {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

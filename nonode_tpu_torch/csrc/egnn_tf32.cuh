@@ -3,14 +3,17 @@
 // tensor cores, the SiLU formulas, the weight staging, the persistent grid
 // and the one dispatch on the width H and the edge features E.
 //
-// Two widths are instantiated, for E <= kMaxE; every other width, and any
-// E, takes the wide route (egnn_wide.cuh). H = 64 stages W2 and Wc1 in
-// shared memory as {big, small} pairs (68 KB for both). At H = 128 the pairs
-// would take 2 x 128 x 132 float2 = 270 KB, more than a block's 227 KB, so
-// that route reads the raw fp32 matrices (64 KB each, resident in L1 and L2) from
-// global memory and splits each B element into big and small in registers
-// as it is loaded: the same two TF32 values split_weights would store, so
-// the products are the same whichever route a width takes.
+// The forward instantiates two widths, for E <= kMaxE; every other width,
+// and any E, takes its wide route (egnn_wide.cuh). The backward instantiates
+// H = 64 alone and takes every other (H, E) on its tile route
+// (egnn_fused_bwd.cu), which splits W2 and Wc1 once a call. H = 64 stages W2
+// and Wc1 in shared memory as {big, small} pairs (68 KB for both). At
+// H = 128 the pairs would take 2 x 128 x 132 float2 = 270 KB, more than a
+// block's 227 KB, so the forward reads the raw fp32 matrices (64 KB each,
+// resident in L1 and L2) from global memory and splits each B element into
+// big and small in registers as it is loaded: the same two TF32 values
+// split_weights would store, so the products are the same whichever route
+// a width takes.
 //
 // Split TF32. The JAX package computes the chain's products at
 // Precision.HIGHEST, full fp32. A single TF32 tensor-core pass keeps 10
@@ -271,10 +274,11 @@ inline cudaError_t persistent_grid(Kernel kernel, size_t smem, long long units, 
 // The wide route's tag (egnn_wide.cuh): a width given at run time.
 struct Wide {};
 
-// The one dispatch on the width: f(std::integral_constant<int, H>()) for an
-// instantiated H with e <= kMaxE, f(Wide()) for every other h and e. Both
-// kernels' entry points and their scratch sizes go through it, so a launch
-// and the scratch it is given always agree on the route.
+// The forward's one dispatch on the width: f(std::integral_constant<int,
+// H>()) for an instantiated H with e <= kMaxE, f(Wide()) for every other h
+// and e. Its entry point and its scratch size go through it, so a launch and
+// the scratch it is given always agree on the route (the backward's own is
+// with_bwd_route).
 template <class F>
 inline cudaError_t with_width(int h, int e, F&& f) {
   if (e <= kMaxE) {

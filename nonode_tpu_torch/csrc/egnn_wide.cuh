@@ -1,8 +1,9 @@
-// The wide route of the pairwise-chain kernels (egnn_fused_fwd.cu and
-// egnn_fused_bwd.cu): every width the H = 64 and H = 128 instantiations do
-// not take, and any number E of edge features at any width. The wrapper
-// zero-pads H to a multiple of kCols (ops/kernels/egnn_fused.py:
-// padded_width); H is a runtime value here, so there is no width limit.
+// The wide route of the pairwise chain's forward (egnn_fused_fwd.cu): every
+// width the H = 64 and H = 128 instantiations do not take, and any number E
+// of edge features at any width; and the pieces the backward's tile route
+// (egnn_fused_bwd.cu) shares with it. The wrapper zero-pads H to a multiple
+// of kCols (ops/kernels/egnn_fused.py: padded_width); H is a runtime value
+// here, so there is no width limit.
 //
 // What changes against the instantiated widths, and why:
 // - A row of H columns no longer fits a warp's accumulators (at H = 128 a
@@ -12,35 +13,26 @@
 //   (m16 row tile, column pass), are spread over the block's 8 warps, with
 //   a block barrier between stages instead of a warp owning its rows.
 // - So a product cannot write its output over its own A operand: the
-//   forward keeps a1 and msg in two tiles of [R][H + 4], the backward four
-//   (pre1/a1, pre2/msg, cpre/dcpre/dpre1, sigmoid(cpre)/dpre2), each stage
-//   writing a tile that its product does not read.
+//   forward keeps a1 and msg in two tiles of [R][H + 4], each stage writing
+//   a tile that its product does not read.
 // - W2 and Wc1 are read raw from global memory (L1 and L2 hold them: 4 MB
 //   each at H = 1024) and split into TF32 {big, small} in registers as they
 //   load, as the H = 128 route does; the vectors (wg, b1, b2, bc1, wc2, We)
 //   are read from global memory too, so shared memory holds only the tiles
 //   and the per-row fields.
 // - E is a loop bound everywhere: efea is read from global memory in the
-//   first layer, defea and dpre1 . wg are dot products over H a warp per
-//   row, and dwe is a column sum a thread per column. Nothing is sized by E.
+//   first layer. Nothing is sized by E.
 // - The tile's rows R follow H: the largest multiple of 16 up to 128, and at
 //   least N (a tile holds whole receivers: every receiver's sums over its
 //   senders run inside one tile, in order), whose tiles fit in a block's
 //   227 KB beside the per-row fields. Where even R = roundup(N, 16) does
 //   not fit, the tiles go to the block's slot of a global scratch buffer
 //   (kGlobalRows rows) and the same code reads them through generic
-//   pointers. Crossover at N <= 16 (R >= 16): the forward's two tiles leave
-//   shared memory above H = 1728, the backward's four above H = 832; at
-//   N = 31 (R >= 32) above H = 832 and H = 384; at N = 64 above H = 384 and
-//   H = 192. At H = 256 the forward takes R = 96, the backward R = 48.
-//   A unit of the backward is npt / gcd(npt, ni) whole graphs (npt = R / N
-//   receivers a tile), so that its receivers fill whole tiles.
-// - The backward's per-block slot of partial weight gradients holds 2 H^2 +
-//   (5 + E) H + 1 floats (69 MB over 132 blocks at H = 256, 1.1 GB at
-//   H = 1024). A launch takes no more blocks than keep one seed's slots (and
-//   global tiles) within kScratchFloats, so the buffer and the second
-//   launch's read of it stay bounded; block counts stay a function of the
-//   shapes and the SM count, so the sums keep a fixed order.
+//   pointers: above H = 1728 at N <= 16, above H = 832 at N = 31, above
+//   H = 384 at N = 64. At H = 256 the forward takes R = 96.
+// - A launch takes no more blocks than keep one seed's global tiles within
+//   kScratchFloats, so the buffer stays bounded; block counts stay a
+//   function of the shapes and the SM count.
 // The rules of the instantiated widths hold: no atomics, a static
 // assignment of units to blocks, block (b, s) runs seed s's units, and a
 // receiver slice changes indexing, not tiles.
@@ -158,60 +150,6 @@ __device__ __forceinline__ void rows_times_cols(float (&acc)[kCols / 8][4], cons
   }
 }
 
-// dw[m][n] (+)= sum over the rows k < 8 ksteps of A[k][m] B[k][n] in split
-// TF32, for m in the m16 tile mi and n in [n0, n0 + kCols): A and B per-edge
-// tiles (stride ld), dw [h][h] row-major in global memory. The product
-// starts from zero (a tile's rows at most) and is added in fp32; first
-// writes instead.
-__device__ __forceinline__ void cols_weight_grad(float* dw, int h, const float* a_tile,
-                                                 const float* b_tile, int ld, int ksteps, int mi,
-                                                 int n0, bool first) {
-  constexpr int WT = kCols / 8;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  float pc[WT][4];
-#pragma unroll
-  for (int j = 0; j < WT; ++j) pc[j][0] = pc[j][1] = pc[j][2] = pc[j][3] = 0.0f;
-  // A(m, k) = a_tile[k][m], m = 16 mi + g (+ 8), k = 8 ks + t4 (+ 4);
-  // B(k, n) = b_tile[k][n], n = n0 + 8 j + g
-  const float* ap = a_tile + t4 * ld + 16 * mi + g;
-  const float* bp = b_tile + t4 * ld + n0 + g;
-#pragma unroll 2
-  for (int ks = 0; ks < ksteps; ++ks) {
-    const int k0 = 8 * ks * ld;
-    const float a[4] = {ap[k0], ap[k0 + 8], ap[k0 + 4 * ld], ap[k0 + 4 * ld + 8]};
-    uint32_t a_big[4], a_small[4];
-    split4(a, a_big, a_small);
-#pragma unroll
-    for (int j = 0; j < WT; j += 2) {
-      const float b[4] = {bp[k0 + 8 * j], bp[k0 + 4 * ld + 8 * j], bp[k0 + 8 * j + 8],
-                          bp[k0 + 4 * ld + 8 * j + 8]};
-      uint32_t b_big[4], b_small[4];
-      split4(b, b_big, b_small);
-      mma_tf32(pc[j], a_small, b_big[0], b_big[1]);
-      mma_tf32(pc[j + 1], a_small, b_big[2], b_big[3]);
-      mma_tf32(pc[j], a_big, b_small[0], b_small[1]);
-      mma_tf32(pc[j + 1], a_big, b_small[2], b_small[3]);
-      mma_tf32(pc[j], a_big, b_big[0], b_big[1]);
-      mma_tf32(pc[j + 1], a_big, b_big[2], b_big[3]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < WT; ++j) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {   // rows g and g + 8
-      float2* q = reinterpret_cast<float2*>(dw + (long long)(16 * mi + g + 8 * hh) * h + n0 +
-                                            8 * j + 2 * t4);
-      float2 v = make_float2(pc[j][2 * hh], pc[j][2 * hh + 1]);
-      if (!first) {
-        const float2 o = *q;
-        v = make_float2(o.x + v.x, o.y + v.y);
-      }
-      *q = v;
-    }
-  }
-}
-
 // pre1 = r2 wg + efea @ we + hi + hj + b1 at columns c .. c + 3 of one edge
 // row (ef: its E features; u, w: its hi and hj columns), in the order of the
 // instantiated kernels; the weights read from global memory one float at a
@@ -239,11 +177,6 @@ __device__ __forceinline__ void quad_sum(float& lo, float& hi) {
   hi += __shfl_xor_sync(0xffffffffu, hi, 1);
   lo += __shfl_xor_sync(0xffffffffu, lo, 2);
   hi += __shfl_xor_sync(0xffffffffu, hi, 2);
-}
-
-// v (+)= s at a slot the calling thread alone owns.
-__device__ __forceinline__ void add_to(float* v, float s, bool first) {
-  *v = first ? s : *v + s;
 }
 
 }  // namespace egnn_tc

@@ -37,12 +37,15 @@ vmaps the ordinary modules over stacked parameters (parallel/fleet.py)
 launches each kernel once per call for all its seeds. A slice other than the
 whole graph takes one weight set.
 
-Widths and edge features. The kernels are instantiated for H = 64 and
-H = 128 with E <= 4; every other width, and any E, takes their wide route
+Widths and edge features. The forward is instantiated for H = 64 and
+H = 128 with E <= 4; every other width, and any E, takes its wide route
 (``csrc/egnn_wide.cuh``: products in passes of 64 output columns, H and E
-given at run time), so no width and no E raises. A width is run at
-``padded_width``: 64 up to 64, 128 up to 128, else the next multiple of the
-wide route's 64 columns. A width below it runs zero-padded (``pad_width``):
+given at run time). The backward is instantiated for H = 64 with E <= 4 and
+takes every other width and E on its tile route (``tile_route``; units of
+one tile each, weights split once a call, ``csrc/egnn_fused_bwd.cu``). So no
+width and no E raises. A width is run at ``padded_width``: 64 up to 64, 128
+up to 128, else the next multiple of 64 columns (the products' passes). A
+width below it runs zero-padded (``pad_width``):
 hi, hj and the weights take zero columns (and W2, Wc1, wc2 zero rows) up to
 the padded width, and the outputs and gradients are cut back
 (``cut_width``). This is exact: a padded unit's pre-activation is 0 and
@@ -63,9 +66,10 @@ from .build import load
 SOURCE = "egnn_fused_fwd.cu"
 BWD_SOURCE = "egnn_fused_bwd.cu"
 CLIP = 100.0
-# the widths the kernels are instantiated for (with E <= NATIVE_EDGE_FEATURES);
-# every other width runs on the wide route, padded to a multiple of
-# WIDE_COLUMNS (``padded_width``)
+# the widths the forward is instantiated for (with E <= NATIVE_EDGE_FEATURES;
+# the backward the first alone); every other width runs on the forward's wide
+# route and the backward's tile route, padded to a multiple of WIDE_COLUMNS
+# (``padded_width``)
 HIDDEN = (64, 128)
 NATIVE_EDGE_FEATURES = 4
 WIDE_COLUMNS = 64
@@ -240,9 +244,17 @@ def padded_width(h: int) -> int:
 
 
 def wide_route(h: int, e: int) -> bool:
-    """Whether a launch of width H (after padding) and E edge features
-    takes the wide route rather than an instantiation of ``HIDDEN``."""
+    """Whether a forward launch of width H (after padding) and E edge
+    features takes the wide route rather than an instantiation of
+    ``HIDDEN``."""
     return padded_width(h) not in HIDDEN or e > NATIVE_EDGE_FEATURES
+
+
+def tile_route(h: int, e: int) -> bool:
+    """Whether a backward launch of width H (after padding) and E edge
+    features takes the tile route: every (H, E) but H = 64 with E <= 4,
+    which keeps its own kernel."""
+    return padded_width(h) != HIDDEN[0] or e > NATIVE_EDGE_FEATURES
 
 
 def pad_width(weights, hi, hj, hp):
@@ -380,9 +392,11 @@ def pairwise_message_fwd(clip_edges, x, hi, hj, efea, mask, weights, i0=0):
 def pairwise_message_bwd(clip_edges, x, hi, hj, efea, mask, weights, gtotf,
                          gtotm, i0=0):
     """(dx, dhi, dhj, defea, dweights) of the chain for the cotangents
-    (gtotf, gtotm): the backward kernel for CUDA tensors (its two launches,
-    the persistent blocks' pass and the fixed-order sum of their partial
-    weight gradients, count as one), the plain version for CPU tensors.
+    (gtotf, gtotm): the backward kernel for CUDA tensors (its launches, the
+    persistent blocks' pass and the fixed-order sums of their partial
+    weight gradients, and on the tile route the weights' split before and
+    the node sums of graphs that span tiles after, count as one), the plain
+    version for CPU tensors.
     With K stacked weight sets the weight gradients come stacked too. On a
     receiver slice [i0, i0 + ni), dx and dhj hold the slice's contributions
     to all N nodes."""
@@ -417,7 +431,8 @@ def pairwise_message_bwd(clip_edges, x, hi, hj, efea, mask, weights, gtotf,
     if g > 0:
         fn, scratch_floats = _bind_bwd()
         with torch.cuda.device(dev):
-            # one slot per block of the launch's grid on this device
+            # one slot per block of the launch's grid on this device (on
+            # the tile route also the split weights and the tiles' records)
             size = scratch_floats(g, n, hp, e, k, ni)
             if size < 0:
                 raise RuntimeError("egnn_pairwise_bwd: no launch grid for "

@@ -7,6 +7,7 @@ writes, the mocap path's launch count and the kernels line."""
 
 import json
 import pickle
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -433,12 +434,14 @@ def test_mocap_path_launches_are_what_its_splits_ask(tmp_path, monkeypatch):
         "MotionDynamicsDataset"
 
 
-def test_kernels_line_names_the_h128_instantiations():
-    """#1 and #2 appear three times: at H=64 with their launches on the
-    N-body paths, as <name>_h128 with the mocap cases' numbers and their
-    launches on the mocap path, and as <name>_wide with the wide route's
-    numbers and their launches on the nf-256 width path; every entry has
-    the contract's keys."""
+def test_kernels_line_names_each_route():
+    """#1 appears three times: at H=64 with its launches on the N-body
+    paths, as egnn_pairwise_fwd_h128 with the mocap cases' numbers and its
+    launches on the mocap path, and as egnn_pairwise_fwd_wide with the
+    wide route's numbers and its launches on the nf-256 width path; #2
+    twice: at H=64, and as egnn_pairwise_bwd_tiles with its tile route's
+    numbers and its launches on the mocap path and both EGNO width paths;
+    every entry has the contract's keys."""
     from nonode_tpu_torch.ops.kernels import KERNELS
 
     keys = {"max_abs_err": 1e-6, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.1,
@@ -447,47 +450,163 @@ def test_kernels_line_names_the_h128_instantiations():
     paths = {"train": {k["name"]: 7 for k in KERNELS},
              "stretch": {k["name"]: 1 for k in KERNELS},
              "gravity": {k["name"]: 2 for k in KERNELS},
+             "mocap": {k["name"]: 432 if k["name"].endswith("fwd") else 192
+                       for k in KERNELS},
              "width egno nf96": {k["name"]: 5 for k in KERNELS},
              "width egno nf256": {k["name"]: 9 for k in KERNELS},
              "width segno nf200 serving": {k["name"]: 3 for k in KERNELS}}
-    mocap_rows = {n: dict(keys, width=128, ms=3.0)
-                  for n in ("egnn_pairwise_fwd", "egnn_pairwise_bwd")}
-    mocap = {"egnn_pairwise_fwd": 432, "egnn_pairwise_bwd": 192}
-    wide_rows = {n: dict(keys, width=256, ms=4.0)
-                 for n in ("egnn_pairwise_fwd", "egnn_pairwise_bwd")}
-    out = chip_smoke.kernels_line(
-        KERNELS, rows, paths, mocap_rows, mocap, wide_rows,
-        ("width egno nf256", "width segno nf200 serving"))
+    routes = {"egnn_pairwise_fwd": [
+        ("h128", dict(keys, width=128, ms=3.0), ["mocap"]),
+        ("wide", dict(keys, width=256, ms=4.0), list(chip_smoke.WIDE_PATHS))],
+        "egnn_pairwise_bwd": [("tiles", dict(keys, width=128, ms=0.7),
+                               list(chip_smoke.TILE_PATHS))]}
+    out = chip_smoke.kernels_line(KERNELS, rows, paths, routes)
     assert [e["name"] for e in out] == [
         "egnn_pairwise_fwd", "egnn_pairwise_fwd_h128",
         "egnn_pairwise_fwd_wide", "egnn_pairwise_bwd",
-        "egnn_pairwise_bwd_h128", "egnn_pairwise_bwd_wide",
-        "nbody_charged_force", "nbody_gravity_accel",
-        "nbody_charged_leapfrog", "nbody_gravity_leapfrog"]
+        "egnn_pairwise_bwd_tiles", "nbody_charged_force",
+        "nbody_gravity_accel", "nbody_charged_leapfrog",
+        "nbody_gravity_leapfrog"]
     contract = {"name", "route", "source", "replaces", "launches", *keys}
     assert all(contract <= set(e) for e in out)
-    h128 = {e["name"]: e for e in out if e["name"].endswith("_h128")}
-    assert h128["egnn_pairwise_fwd_h128"]["launches"] == 432
-    assert h128["egnn_pairwise_bwd_h128"]["launches_by_path"] == {
-        "mocap": 192}
-    assert h128["egnn_pairwise_fwd_h128"]["width"] == 128 and \
-        h128["egnn_pairwise_fwd_h128"]["ms"] == 3.0
+    by = {e["name"]: e for e in out}
+    assert by["egnn_pairwise_fwd_h128"]["launches"] == 432
+    assert by["egnn_pairwise_fwd_h128"]["launches_by_path"] == {"mocap": 432}
+    assert by["egnn_pairwise_fwd_h128"]["width"] == 128 and \
+        by["egnn_pairwise_fwd_h128"]["ms"] == 3.0
     assert out[0]["launches"] == 7 and out[0]["width"] == 64
-    wide = {e["name"]: e for e in out if e["name"].endswith("_wide")}
-    assert wide["egnn_pairwise_bwd_wide"]["launches"] == 9
-    assert wide["egnn_pairwise_fwd_wide"]["launches_by_path"] == {
+    assert by["egnn_pairwise_fwd_wide"]["launches_by_path"] == {
         "width egno nf256": 9, "width segno nf200 serving": 3}
-    assert wide["egnn_pairwise_fwd_wide"]["ms"] == 4.0 and \
-        wide["egnn_pairwise_fwd_wide"]["route"] == "cuda"
+    assert by["egnn_pairwise_fwd_wide"]["ms"] == 4.0 and \
+        by["egnn_pairwise_fwd_wide"]["route"] == "cuda"
+    tiles = by["egnn_pairwise_bwd_tiles"]
+    assert (tiles["launches"], tiles["path"]) == (192, "mocap")
+    assert tiles["launches_by_path"] == {"mocap": 192, "width egno nf96": 5,
+                                         "width egno nf256": 9}
+    assert tiles["source"] == "nonode_tpu_torch/csrc/egnn_fused_bwd.cu"
     json.dumps({"kernels": out})
+
+
+def test_tile_route_row_gathers_every_case_of_the_route():
+    """The tile route's kernels-line row: the mocap case's numbers, and
+    under ``cases`` every other case #2 runs on that route (the mocap clip
+    and x200 cases, N=64, H=128 and the padded 96 and 100 at EGNO's shape,
+    the wide cases), with the seed axis at the mocap shape and H=256 and
+    the receiver slice at H=256; H=32, which #2 runs on its H=64 kernel,
+    is not among them."""
+    from nonode_tpu_torch.ops.kernels import egnn_fused
+
+    def row(ms):
+        return {"ms": ms, "max_abs_err": 1e-6, "bound_ms": 0.01}
+
+    mocap = {label: row(i) for i, label in enumerate(
+        ("mocap", "mocap clip", "mocap x200", "N=64 E=3"))}
+    width = {"H=128": row(5)}
+    padded = {f"H={h}": row(h) for h in chip_smoke.WIDTHS}
+    wide = dict(row(6), width=256, cases={r: row(7) for r in
+                                          chip_smoke.WIDE_ROWS
+                                          if r != "H=256"},
+                seed_axis={"H=256": row(8)}, receiver_slice={"s": row(9)})
+    got = chip_smoke.tile_route_row(egnn_fused, mocap, {"mocap": row(10)},
+                                    width, padded, wide)
+    assert got["ms"] == 0 and got["width"] == 128
+    assert set(got["cases"]) == {
+        "mocap clip", "mocap x200", "N=64 E=3", "H=128", "H=96", "H=100",
+        *chip_smoke.WIDE_ROWS}
+    assert got["cases"]["H=256"] == dict(row(6), width=256)
+    assert set(got["seed_axis"]) == {"mocap", "H=256"}
+    assert got["receiver_slice"] == {"s": row(9)}
+    assert not egnn_fused.tile_route(32, 2)
+
+
+def test_tile_cases_take_the_tile_route_at_their_shapes():
+    """#2's new kernels-phase cases: the mocap shape with hi and hj x200
+    (the same seeded inputs scaled) and N=64 graphs at H=128 with E=3 over
+    2 x 132 + 7 graphs; both on the tile route and held, with the mocap
+    case, to the split-TF32 budget; every H=128, padded and wide case is
+    on the tile route too. Each one's split-TF32 bound counts the edges its
+    mask keeps: 12 H^2 multiply-adds of products a kept edge, three times
+    over, at the TF32 peak."""
+    from nonode_tpu_torch.ops.kernels import egnn_fused
+
+    cpu = torch.device("cpu")
+    (l1, kw1, clip1, row1), (l2, kw2, clip2, row2) = chip_smoke.TILE_CASES
+    assert (row1, row2) == ("mocap x200", "N=64 E=3") and not clip1 and \
+        not clip2
+    assert {row1, row2, "mocap"} == chip_smoke.TILE_SPLIT_TF32_ROWS
+    g, n, h, e, args = chip_smoke.case_inputs({**kw1, "g": 2}, 31, cpu)
+    plain = chip_smoke.case_inputs({**chip_smoke.MOCAP_CASES[0][1], "g": 2},
+                                   31, cpu)[4]
+    assert torch.equal(args[1], 200.0 * plain[1]) and \
+        torch.equal(args[2], 200.0 * plain[2]) and \
+        torch.equal(args[3], plain[3])
+    assert (kw2["g"], kw2["n"], kw2["h"], kw2["e"]) == (271, 64, 128, 3)
+    for _, kw, _, _ in (*chip_smoke.TILE_CASES, *chip_smoke.MOCAP_CASES,
+                        *chip_smoke.WIDE_CASES):
+        assert egnn_fused.tile_route(kw["h"], kw.get("e", 2))
+    assert [egnn_fused.tile_route(h, 2) for h in chip_smoke.WIDTHS] == [
+        False, True, True]
+    off = 1.0 - torch.eye(64)
+    bound, pipe = chip_smoke.pairwise_tc_bound_ms(271, off, 128, 3,
+                                                  backward=True)
+    products = 271 * 64 * 63 * 3 * 12 * 128 * 128
+    assert pipe == "tensor cores" and abs(
+        bound - 1e3 * products / chip_smoke.PEAK_TF32_FLOPS) < 1e-12
+    mask = chip_smoke.mocap_mask(cpu)
+    assert chip_smoke.pairwise_tc_bound_ms(60, mask, 128, 1, True)[0] == \
+        pytest.approx(1e3 * 60 * 130 * 3 * 12 * 128 * 128
+                      / chip_smoke.PEAK_TF32_FLOPS)
+
+
+def test_split_digests_hold_each_kernel_to_its_own_build():
+    """The H=128 digest of both kernels is split: #1's outputs at H=128
+    and 256 (fwd_digest, recorded from the build before the tile route)
+    and #2's tile route's (tiles_digest, recorded from its own build);
+    chip_smoke.py and the card tests hold the same three sha256 values, and
+    the timing script computes each."""
+    import importlib.util
+    import re
+
+    root = Path(chip_smoke.__file__).resolve().parent
+    card = (root / "tests" / "test_torch_cuda.py").read_text()
+    for name in ("H64_DIGEST", "H128_FWD_DIGEST", "TILES_BWD_DIGEST"):
+        value = getattr(chip_smoke, name)
+        assert re.fullmatch(r"[0-9a-f]{64}", value), name
+        assert re.search(rf'{name} = (\\\n\s*)?"{value}"', card), name
+    assert chip_smoke.H128_FWD_DIGEST != chip_smoke.TILES_BWD_DIGEST
+    spec = importlib.util.spec_from_file_location(
+        "time_pairwise", root / "scripts" / "time_pairwise_kernels.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    assert callable(script.fwd_digest) and callable(script.tiles_digest)
+    assert not hasattr(script, "h128_digest")
+    assert {"fwd H=128 mocap", "bwd H=256 EGNO", "bwd E=6 H=64 EGNO",
+            "bwd H=1024 EGNO"} <= {c[0] for c in script.ROUTE_CASES}
+
+
+def test_mocap_step_names_the_kernels_of_each_call():
+    """The traced mocap step splits its device time by the kernels of #1's
+    and #2's calls: every fragment names a kernel of the sources, and #2's
+    cover the split, the tiles, the weight-gradient sum and the node
+    sums."""
+    root = Path(chip_smoke.__file__).resolve().parent / "nonode_tpu_torch" \
+        / "csrc"
+    bwd = (root / "egnn_fused_bwd.cu").read_text()
+    fwd = (root / "egnn_fused_fwd.cu").read_text()
+    for kernel in ("egnn_split_weights", "egnn_pairwise_bwd_tiles",
+                   "egnn_pairwise_bwd_reduce", "egnn_pairwise_bwd_node_reduce"):
+        assert f"__global__" in bwd and kernel in bwd
+        assert any(f in kernel for f in chip_smoke.MOCAP_KERNEL_PARTS["#2"])
+    assert all(f in fwd for f in chip_smoke.MOCAP_KERNEL_PARTS["#1"])
 
 
 def test_wide_cases_take_the_wide_route():
     """The wide route's cases: H=256 at EGNO's serving shape with and
     without the clip, H=200 padded to 256, H=512 and H=1024, E=6 at H=64
-    and H=256, the mocap shape at H=256; every one on the wide route, and
-    all but the clip held to the split-TF32 budget; the seed axis (two sets
-    over G = 2 x 1280) and the slice (rows 5-9 of N=10) at H=256."""
+    and H=256, the mocap shape at H=256; every one on #1's wide route and
+    #2's tile route, and all but the clip held to the split-TF32 budget;
+    the seed axis (two sets over G = 2 x 1280) and the slice (rows 5-9 of
+    N=10) at H=256."""
     from nonode_tpu_torch.ops.kernels import egnn_fused
 
     cpu = torch.device("cpu")
@@ -496,6 +615,7 @@ def test_wide_cases_take_the_wide_route():
         kw = {**kw, "g": 2}             # the shapes, at two graphs
         g, n, h, e, args = chip_smoke.case_inputs(kw, kw["n"], cpu)
         assert egnn_fused.wide_route(h, e), label
+        assert egnn_fused.tile_route(h, e), label
         assert args[1].shape == (2, n, h) and args[3].shape == (2, n, n, e)
         shapes[timed] = (n, h, e, clip)
         assert (timed in chip_smoke.SPLIT_TF32_ROWS) == (not clip)

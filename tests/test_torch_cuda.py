@@ -12,12 +12,14 @@ runs on the card's machine, which has neither:
 Tolerance: max|kernel - plain| <= 1e-4 x max(1, max|plain|); both are fp32
 (the EGNO kernels' products in split TF32, fp32-class), with sums of up to
 128 products (the N-body kernels: up to N pair terms, and up to 100
-micro-steps) taken in another order. #1/#2 are held at both widths they
-are built for, H=64 and H=128 (mocap's, on the skeleton mask of
-chip_smoke.py's written CMU skeleton), at widths that run on them
-zero-padded (H=32, 96, 100), and on their wide route (every width above 128,
-any E: H=129 to 1024, E=6, its seed axis and receiver slices); H=64 also to
-the bits of the build that had H=64 alone, H=128 to those of its parent.
+micro-steps) taken in another order. #1/#2 are held at H=64, at H=128
+(mocap's, on the skeleton mask of chip_smoke.py's written CMU skeleton; #1's
+second instantiation, #2's tile route), at widths that run zero-padded
+(H=32, 96, 100), and on #1's wide route and #2's tile route (every width
+above 128, any E: H=129 to 1280, E=6, their seed axis and receiver slices,
+graphs over many tiles, non-finite inputs); H=64 also to the bits of the
+build that had H=64 alone, #1 at H=128 and 256 to those of its parent, #2's
+tile route to its own recorded digest.
 """
 
 from pathlib import Path
@@ -37,9 +39,13 @@ RTOL = 1e-4
 # sha256 of the H=64 outputs of #1 and #2 (scripts/time_pairwise_kernels.py:
 # h64_digest) from the build that instantiated H=64 alone, on an H100 SXM
 H64_DIGEST = "33fb1907313fbc658085584579d82703bc32911819bb4164c0b6efeb622d09c4"
-# and of the H=128 outputs at EGNO's shape (h128_digest) from the build
-# before the wide route, on an H100 SXM
-H128_DIGEST = "75185fb2b0ea509830954d5f67f3129962fd67c75d03a724b3af8a7c44621a7a"
+# of #1's outputs at H=128 and H=256 at EGNO's shape (fwd_digest) from the
+# build before the tile route, and of #2's on its tile route (tiles_digest)
+# from its own build, on an H100 SXM (chip_smoke.py holds the same)
+H128_FWD_DIGEST = \
+    "ef43f8de0953c4dcbf969bbcae59fc3b14aa5bd6d5d27b5ea01595b54b92f94a"
+TILES_BWD_DIGEST = \
+    "dde692b7c180943bb8f665e5165e91cbfc355f3102e427d6d6ea58cd8b070188"
 
 
 @pytest.fixture
@@ -231,11 +237,13 @@ def test_split_tf32_kernels_on_the_persistent_grid(dev, case):
     (9, 64, 3, True, 10, 1.0),             # N at the gate's limit, E=3
     (60, 31, 1, False, "skeleton", 200.0),   # activations of order 10^2
 ])
-def test_h128_kernels_match_plain_versions(dev, g, n, e, clip, isolated,
-                                           scale):
-    """#1 and #2 at H=128 (weights read from global memory and split as
-    they load; #2 on 64-row tiles of 4 warps): within RTOL of the plain
-    versions, two runs bitwise equal, one launch each."""
+def test_h128_forward_and_tile_route_backward_match_plain_versions(
+        dev, g, n, e, clip, isolated, scale):
+    """#1 at H=128 (weights read from global memory and split as they load)
+    and #2 on its tile route at H=128 (128-row tiles of whole receivers,
+    weights split once a call): within RTOL of the plain versions, two runs
+    bitwise equal, one launch each."""
+    assert not egnn_fused.wide_route(128, e) and egnn_fused.tile_route(128, e)
     (x, hi, hj, efea, mask, weights), cot = _bwd_inputs(
         g, n, e, clip, isolated, dev, h=128)
     args = (x, hi * scale, hj * scale, efea, mask, weights)
@@ -348,18 +356,19 @@ def test_bad_slices_and_unpadded_widths_are_refused_on_the_card(dev):
     (256, 5, 200, 2, True, None),      # zero-padded to 256 (nf 200)
     (7, 5, 129, 2, False, None),       # zero-padded to 192, ragged tiles
     (64, 5, 512, 2, False, None),
-    (16, 5, 1024, 2, False, None),     # #2's tiles in global memory
+    (16, 5, 1024, 2, False, None),     # #2 on 16-row tiles of 3 receivers
     (2560, 5, 64, 6, False, None),     # E > 4 at an instantiated width
     (256, 5, 256, 6, True, None),
     (60, 31, 256, 1, False, "skeleton"),   # mocap's shape at H=256
-    (9, 64, 256, 3, True, 10),         # N at the gate's limit: #2 global
-    (3, 64, 512, 2, False, None),      # #1's tiles in global memory too
+    (9, 64, 256, 3, True, 10),         # N at the gate's limit: a receiver a tile
+    (3, 64, 512, 2, False, None),      # #1's tiles global; #2's rows split
 ])
-def test_wide_route_kernels_match_plain_versions(dev, g, n, h, e, clip,
-                                                 isolated):
-    """#1 and #2 on the wide route (csrc/egnn_wide.cuh): within RTOL of
-    their plain versions, two runs bitwise equal, one launch each."""
-    assert egnn_fused.wide_route(h, e)
+def test_wide_forward_and_tile_route_backward_match_plain_versions(
+        dev, g, n, h, e, clip, isolated):
+    """#1 on its wide route (csrc/egnn_wide.cuh) and #2 on its tile route:
+    within RTOL of their plain versions, two runs bitwise equal, one launch
+    each."""
+    assert egnn_fused.wide_route(h, e) and egnn_fused.tile_route(h, e)
     x, hi, hj, efea, mask, weights = _inputs(
         g, n, h, e, seed=n + h + e, dev=dev,
         coord_scale=400.0 if clip else 1.0, isolated=isolated)
@@ -393,10 +402,77 @@ def test_wide_route_kernels_match_plain_versions(dev, g, n, h, e, clip,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["N=64 H=128 E=3", "N=64 H=512 E=2",
+                                  "N=31 H=1024 E=1", "N=31 H=1280 E=2",
+                                  "N=7 H=1024 E=30"])
+def test_tile_route_graphs_over_many_tiles_give_the_node_sums(dev, case):
+    """#2's tile route where a graph spans many tiles on many blocks: N=64
+    at H=128 (2 receivers a 128-row tile, 32 tiles a graph), at H=512 and
+    at H=1024 (a receiver's senders over 2 or 4 tiles of 32 or 16 rows),
+    at H=1280 (the tiles in global memory, 64 rows) and at H=1024 with 30
+    edge features (the tiles in global memory, 16 rows). The node sums
+    (dx, dhi, dhj), which the tiles write as records and a second launch
+    adds in tile order, and every other output within RTOL of the plain
+    version; two runs bitwise equal; one launch."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n, h, e = {"N=64 H=128 E=3": (64, 128, 3), "N=64 H=512 E=2": (64, 512, 2),
+               "N=31 H=1024 E=1": (31, 1024, 1),
+               "N=31 H=1280 E=2": (31, 1280, 2),
+               "N=7 H=1024 E=30": (7, 1024, 30)}[case]
+    g = 2 * sms + 7 if h == 128 else 5
+    (x, hi, hj, efea, mask, w), cot = _bwd_inputs(
+        g, n, e, True, 10 if n > 10 else None, dev, h=h)
+    before = egnn_fused.pairwise_message_bwd.launches
+    got = _flat(egnn_fused.pairwise_message_bwd(True, x, hi, hj, efea, mask,
+                                                w, *cot))
+    again = _flat(egnn_fused.pairwise_message_bwd(True, x, hi, hj, efea,
+                                                  mask, w, *cot))
+    torch.cuda.synchronize()
+    assert egnn_fused.pairwise_message_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = _flat(egnn_fused.pairwise_message_bwd_reference(
+        True, x, hi, hj, efea, mask, w, *cot))
+    assert [a.shape for a in got] == [b.shape for b in want]
+    _assert_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [128, 256])
+def test_tile_route_keeps_the_plain_versions_non_finite_pattern(dev, h):
+    """A NaN in efea at a masked pair (the diagonal) and an inf in one
+    node's h: #2's tile route still computes the masked pair and multiplies
+    by the mask, as the plain version does, so dx, dhi, dhj, defea and
+    every weight gradient are non-finite exactly where the plain version's
+    are, and finite elsewhere within RTOL of it."""
+    (x, hi, hj, efea, mask, w), cot = _bwd_inputs(12, 31, 1, False, 3, dev,
+                                                  h=h)
+    efea = efea.clone()
+    hj = hj.clone()
+    efea[2, 4, 4, 0] = float("nan")            # mask[4, 4] = 0
+    hj[7, 11, 5] = float("inf")
+    assert mask[4, 4] == 0
+    got = _flat(egnn_fused.pairwise_message_bwd(False, x, hi, hj, efea, mask,
+                                                w, *cot))
+    torch.cuda.synchronize()
+    want = _flat(egnn_fused.pairwise_message_bwd_reference(
+        False, x, hi, hj, efea, mask, w, *cot))
+    nonfinite = 0
+    for a, b in zip(got, want):
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        assert torch.equal(fa, fb)
+        nonfinite += int((~fb).sum())
+        if fb.any():
+            err = float((a[fa] - b[fb]).abs().max())
+            assert err <= RTOL * max(1.0, float(b[fb].abs().max())), err
+    assert nonfinite > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("g,n,space,clip,h", [
     (50, 10, 2, False, 64),      # the --dp 2 --space 2 path: a rank's batch
     (50, 10, 2, True, 64),       # SEGNO's clip
     (7, 31, 3, False, 128),      # H=128, slices of 10, 10 and 11 receivers
+    (60, 31, 2, False, 128),     # the tile route at mocap's shape
     (3, 64, 4, True, 64),        # N at the gate's limit
     (500, 10, 2, False, 256),    # the wide route: --space at nf 256
     (3, 64, 4, True, 256),       # the wide route with #2's tiles global
@@ -406,9 +482,10 @@ def test_receiver_slices_give_the_whole_launch(dev, g, n, space, clip, h):
     plain version; the slices' tot_f, tot_m and defea side by side bitwise
     the whole launch's (#1's tile is whole receiver rows; defea is per
     edge); their dhi side by side and their dx, dhj and weight gradients
-    summed within 1e-5 of it (#2's tiles cut a graph of N > 11 (H=64) or
-    N > 8 (H=128) elsewhere in a slice, and a row's sum over j adds the
-    tiles' parts; the sums over i are taken in parts)."""
+    summed within 1e-5 of it (#2's H=64 tiles cut a graph of N > 11
+    elsewhere in a slice, and a row's sum over j adds the tiles' parts; the
+    tile route's tiles hold whole receivers, so there dhi is bitwise too;
+    the sums over i are taken in parts)."""
     (x, hi, hj, efea, mask, w), cot = _bwd_inputs(g, n, 2, clip, None, dev,
                                                   h=h)
     bounds = np.linspace(0, n, space + 1).astype(int)
@@ -433,7 +510,7 @@ def test_receiver_slices_give_the_whole_launch(dev, g, n, space, clip, h):
     for k in range(2):
         assert torch.equal(torch.cat([f[k] for f in fwd], 1), whole[k])
     assert torch.equal(torch.cat([b[3] for b in bwd], 1), bwhole[3])
-    if egnn_fused.wide_route(h, 2):     # its tiles hold whole receivers
+    if egnn_fused.tile_route(h, 2):     # its tiles hold whole receivers
         assert torch.equal(torch.cat([b[1] for b in bwd], 1), bwhole[1])
     for k in range(len(bwhole)):                 # dx, dhi, dhj, weights
         if k == 3:
@@ -448,13 +525,18 @@ def test_receiver_slices_give_the_whole_launch(dev, g, n, space, clip, h):
 def test_h64_kernels_keep_the_bits_of_the_h64_only_build(dev):
     """The H=64 outputs of #1 and #2 (scripts/time_pairwise_kernels.py's
     digest: the slice and SEGNO shapes, N=31 with E=1, two stacked weight
-    sets) are the bits of the build that instantiated H=64 alone, and the
-    H=128 outputs at EGNO's shape those of the build before the wide route,
-    recorded on an H100 SXM (132 SMs: the persistent grid, and with it #2's
-    sum of its per-block weight gradients, depends on the SM count)."""
+    sets) are the bits of the build that instantiated H=64 alone, recorded
+    on an H100 SXM (132 SMs: the persistent grid, and with it #2's sum of
+    its per-block weight gradients, depends on the SM count)."""
+    import chip_smoke
+    script = _timing_script(dev)
+    assert script.h64_digest(chip_smoke, egnn_fused, dev) == H64_DIGEST
+
+
+def _timing_script(dev):
+    """scripts/time_pairwise_kernels.py, on a card of 132 SMs (else skip)."""
     import importlib.util
 
-    import chip_smoke
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if sms != 132:
         pytest.skip(f"the digest was recorded on 132 SMs; this card has "
@@ -464,8 +546,20 @@ def test_h64_kernels_keep_the_bits_of_the_h64_only_build(dev):
     spec = importlib.util.spec_from_file_location("time_pairwise", path)
     script = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(script)
-    assert script.h64_digest(chip_smoke, egnn_fused, dev) == H64_DIGEST
-    assert script.h128_digest(chip_smoke, egnn_fused, dev) == H128_DIGEST
+    return script
+
+
+@pytest.mark.cuda
+def test_forward_keeps_its_bits_and_the_tile_route_its_digest(dev):
+    """#1's outputs at H=128 (without and with the clip) and H=256 at EGNO's
+    shape are the bits of the build before the tile route (fwd_digest: the
+    tile route leaves #1 as it was); #2's outputs on the tile route are
+    those recorded from its own build (tiles_digest), on an H100 SXM."""
+    import chip_smoke
+    script = _timing_script(dev)
+    assert script.fwd_digest(chip_smoke, egnn_fused, dev) == H128_FWD_DIGEST
+    assert script.tiles_digest(chip_smoke, egnn_fused, dev) == \
+        TILES_BWD_DIGEST
 
 
 @pytest.mark.cuda
@@ -629,8 +723,9 @@ def _seed_axis(k, b, n, e, clip, dev, h=64):
     (2, 3, 64, 3, False, 64),        # graphs over several tiles, E=3
     (1, 9, 5, 2, False, 64),         # one stacked set
     (2, 30, 31, 1, True, 128),       # mocap's width and shape, two seeds
+    (2, 30, 31, 1, False, 128),      # the same without the clip
     (2, 1280, 5, 2, False, 256),     # the wide route: fleet_main at nf 256
-    (3, 7, 5, 6, True, 64),          # the wide route at E=6
+    (3, 7, 5, 6, True, 64),          # the tile route at E=6
 ])
 def test_seed_axis_kernels_give_the_bits_of_single_seed_launches(
         dev, k, b, n, e, clip, h):

@@ -72,16 +72,34 @@ def _mask(n, sparse):
     return mask
 
 
-@pytest.mark.parametrize("sparse", [False, True])
-@pytest.mark.parametrize("clip_edges", [False, True])
-def test_plain_backward_matches_pallas_vjp(clip_edges, sparse):
+# (g, n, h, e, mask): the model_confs shape at a small width, then the card
+# kernels' tile-route cases: a graph over many tiles (N=64, H=128, E=3) and
+# mocap's shape at H=256 on the skeleton + 2-hop mask of chip_smoke.py's
+# written CMU skeleton
+SMALL_CHAIN = (6, 5, 16, 2, None)
+_TILE_CHAINS = {"N=64 H=128 E=3": (2, 64, 128, 3, None),
+                "N=31 H=256 E=1 skeleton": (2, 31, 256, 1, "skeleton")}
+
+
+@pytest.mark.parametrize("clip_edges,sparse,shape", [
+    pytest.param(clip, sparse, SMALL_CHAIN, id=f"{clip}-{sparse}")
+    for sparse in (False, True) for clip in (False, True)] + [
+    pytest.param(clip, False, shape, id=f"{label}-{clip}")
+    for label, shape in _TILE_CHAINS.items() for clip in (False, True)])
+def test_plain_backward_matches_pallas_vjp(clip_edges, sparse, shape):
     """pairwise_message_bwd_reference against jax.vjp of the Pallas op (its
     hand-written _bwd_kernel, interpret mode) and against torch.autograd
-    through the plain forward."""
-    g, n, h, e = 6, 5, 16, 2
+    through the plain forward, within assert_close_scaled's 1e-5 (at N=64
+    and H=256 too: the weight gradients sum 8,192 or 1,922 edge terms in
+    fp32 on both sides, about 1e-6 of their scale)."""
+    g, n, h, e, shape_mask = shape
     x, hi, hj, efea, weights, gtotf, gtotm = _chain_inputs(
         g, n, h, e, seed=7, coord_scale=400.0 if clip_edges else 1.0)
-    mask = _mask(n, sparse)
+    if shape_mask == "skeleton":
+        import chip_smoke
+        mask = chip_smoke.mocap_mask(torch.device("cpu")).numpy()
+    else:
+        mask = _mask(n, sparse)
     prim = (*map(jnp.asarray, (x, hi, hj, efea, mask)),
             tuple(map(jnp.asarray, weights)))
     _, vjp = jax.vjp(lambda *a: jax_pairwise(clip_edges, *a), *prim)
