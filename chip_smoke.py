@@ -24,13 +24,13 @@ Phases, each timed on its own line:
    with the clip (SEGNO) in one launch: bitwise equal to 5 single-seed
    launches and over two runs, within 1e-4 x max(1, max|plain|) of the
    plain seed-axis version, timed beside the 5 single-seed launches.
-   #1 at H=128 (its second width, weights read from global memory) and #2
-   on its tile route (csrc/egnn_fused_bwd.cu: every (H, E) but H=64 with
-   E <= 4) at the mocap path's shape: G=60, N=31, E=1 on the written
+   #1 and #2 on their tile routes (csrc/egnn_fused_fwd.cu with wgmma and
+   csrc/egnn_fused_bwd.cu: every (H, E) but H=64 with E <= 4) at the mocap
+   path's shape (H=128): G=60, N=31, E=1 on the written
    skeleton's skeleton + 2-hop mask, without and with the clip, with hi
    and hj x200, and K=2 weight sets over G = 2 x 30; and at N=64 with E=3
    over G=271 graphs (a graph over 32 tiles, on every block); each against
-   its plain version, twice bitwise equal, timed beside its bound (#2's
+   its plain version, twice bitwise equal, timed beside its bound (the
    cases without the clip within the split-TF32 budget). #1 and #2 on
    receiver slices (the particle axis over --space): N=10 in two slices of
    5 receivers at G=50 (with and without the clip) and G=500; the
@@ -40,20 +40,20 @@ Phases, each timed on its own line:
    defea side by side bitwise the whole launch's, their dx, dhj and weight
    gradients summed within 1e-5 of it; each slice against its plain
    version and timed beside its bound. #1 and #2 at widths they are not
-   built for, H=32, 96 and 100, zero-padded to 64 or 128 in the wrappers:
-   at EGNO's serving shape within the split-TF32 budget of the slice
-   shape, with the clip engaged, and with two weight sets over G = 2 x
-   1280; each against its plain version at the native width, timed beside
-   its bound at that width and at the padded one, and beside H=128 at
-   EGNO's shape (#2 at H=96, 100 and 128 on its tile route); #1's outputs
-   at H=128 and 256 at EGNO's shape bitwise those of the build before #2's
-   tile route, #2's those recorded from its own build (two sha256s). #1 on
-   its wide route (csrc/egnn_wide.cuh) and #2 on its tile route (every
-   width above 128, any E): H=256 at EGNO's shape
-   without and with the clip, H=200 zero-padded to 256, H=512 and H=1024,
-   E=6 at H=64 and H=256, the mocap shape at H=256, two weight sets over
-   G = 2 x 1280 bitwise two single-seed launches, and a receiver slice
-   (rows 5-9 of N=10, G=500) side by side bitwise the whole launch; each
+   built for, H=32, 96 and 100 (zero-padded to 64 in the wrappers, or to
+   128: by #2's wrapper, inside #1's tile route): at EGNO's serving shape
+   within the split-TF32 budget of the slice shape, with the clip engaged,
+   and with two weight sets over G = 2 x 1280; each against its plain
+   version at the native width, timed beside its bound at that width and
+   at the padded one, and beside H=128 at EGNO's shape; #1's and #2's
+   outputs on their tile routes at H=128 and 256 bitwise those recorded
+   from their builds (two sha256s). #1 and #2 on their tile routes at every
+   width above 128 and any E: H=256 at EGNO's shape without and with the
+   clip, H=200 zero-padded to 256, H=512 and H=1024, E=6 at H=64 and
+   H=256, the mocap shape at H=256, two weight sets over G = 2 x 1280
+   bitwise two single-seed launches, and receiver slices (rows 5-9 of
+   N=10, G=500) at H=256 and H=128 side by side bitwise the whole launch;
+   #1 also at SEGNO's nf-200 serving shape (G=256, H=200, the clip); each
    against its plain version within the split-TF32 budget (1e-4 with the
    clip), twice bitwise, timed beside its bound;
 4. main path: ``nonode_tpu_torch.main --model egno --only_test true`` on the
@@ -137,9 +137,8 @@ Phases, each timed on its own line:
    the CPU from the same seed, every loss within 1e-3 relative, the
    checkpoint at that width, #1/#2 launched as the run asks; then SEGNO
    serving at nf 32 (padded to 64) as phase 7 checks it; then the same at
-   nf 256 (EGNO, #1 on its wide route, #2 on its tile route) and nf 200
-   (SEGNO serving with the clip, padded to 256); no plain version of #1/#2
-   handed a CUDA tensor;
+   nf 256 (EGNO) and nf 200 (SEGNO serving with the clip), #1 and #2 on
+   their tile routes; no plain version of #1/#2 handed a CUDA tensor;
 21. baselines: GNN, LinearDynamics, RFVel, EquivariantScalarNet, EGMN and
    FullMLP at hidden 64 and 4 layers on 100 graphs of the committed test
    split: a forward and one backward on the card against the port's CPU
@@ -161,8 +160,8 @@ Every kernel's time is its device time alone (CUDA events around one call,
 the stream held busy while the host enqueues it), median of repeats. Then it
 prints the kernels line (each kernel's launches on its own path, and on
 every path, the multi-rank paths' summed over their ranks; #1 and #2 with
-their receiver-slice cases; #1 as its H=128 instantiation with the mocap
-path's launches and as its wide route with the nf-256 path's; #2 as its
+their receiver-slice cases; #1 as its tile route with its launches on the
+mocap path, the EGNO width paths and SEGNO serving at nf 200; #2 as its
 tile route with its launches on the mocap path and the EGNO width paths)
 and, last, one JSON line with the device. It exits non-zero,
 with no result, without CUDA, outside the repository, or when the checkout
@@ -443,8 +442,8 @@ TILE_SPLIT_TF32_ROWS = {"mocap", "mocap x200", "N=64 E=3"}
 # the seed-axis form of the padded widths: two weight sets over G = 2 x 1280
 WIDTH_SEED_AXIS_CASES = [
     (f"H={h}", 1280, False, 1.0, dict(k=2, h=h)) for h in WIDTHS]
-# #1 on its wide route (csrc/egnn_wide.cuh) and #2 on its tile route
-# (csrc/egnn_fused_bwd.cu): every width above 128 and any E. EGNO's serving
+# #1 and #2 on their tile routes at every width above 128 and any E
+# (csrc/egnn_fused_fwd.cu, csrc/egnn_fused_bwd.cu). EGNO's serving
 # shape at H=256 without and with the clip, H=200 zero-padded to 256, H=512
 # and H=1024 (#2 on 16-row tiles of 3 receivers), E=6 at H=64 and H=256,
 # and the mocap shape at H=256; each against
@@ -472,11 +471,18 @@ WIDE_CASES = [
                                             skeleton=True), False,
      "mocap H=256"),
 ]
-# the wide route's seed axis (fleet_main at nf 256): two weight sets over
-# G = 2 x 1280, bitwise two single-seed launches
+# the seed axis at nf 256 (fleet_main): two weight sets over G = 2 x 1280,
+# bitwise two single-seed launches
 WIDE_SEED_AXIS_CASES = [("H=256", WIDE_G // 2, False, 1.0, dict(k=2, h=256))]
-# and its receiver slice (--space at nf 256): rows 5-9 of N=10, G=500
+# and the receiver slice (--space) at nf 256 and at mocap's 128: rows 5-9
+# of N=10, G=500
 WIDE_SLICE_CASES = [("slice G=500 N=10 ni=5 H=256", 500, False, 1.0)]
+TILE_SLICE_CASES = [("slice G=500 N=10 ni=5 H=128", 500, False, 1.0)]
+# #1 at SEGNO's nf-200 serving shape (the width path's SEGNO run at nf 200:
+# G=256, N=5, E=2, the clip, H=200 zero-padded to 256 inside the kernel)
+SEGNO_WIDE_CASES = [
+    ("SEGNO nf 200 G=256 N=5 H=200 E=2 clip_edges=True",
+     dict(g=256, n=5, h=200, coord_scale=400.0), True, "SEGNO H=200")]
 WIDE_ROWS = [case[3] for case in WIDE_CASES]
 SPLIT_TF32_ROWS = SPLIT_TF32_ROWS | {row for row in WIDE_ROWS
                                      if "clip" not in row}
@@ -498,9 +504,13 @@ def case_inputs(kw, seed, dev):
     return g, n, h, e, (x, hi * scale, hj * scale, *rest)
 
 
-def check_pairwise_kernel(egnn_fused, dev, cases=PAIRWISE_CASES):
-    """Kernel vs plain version in ``cases``; returns the timed rows
-    ({"slice": ..., "segno": ..., "ragged": ...} of PAIRWISE_CASES)."""
+def check_pairwise_kernel(egnn_fused, dev, cases=PAIRWISE_CASES,
+                          split_rows=None):
+    """Kernel vs plain version in ``cases``, the rows of ``split_rows``
+    (default SPLIT_TF32_ROWS) held to the split-TF32 budget; returns the
+    timed rows ({"slice": ..., "segno": ..., "ragged": ...} of
+    PAIRWISE_CASES)."""
+    split_rows = SPLIT_TF32_ROWS if split_rows is None else split_rows
     rows = {}
     for label, kw, clip, timed in cases:
         g, n, h, e, args = case_inputs(kw, kw["n"], dev)
@@ -530,7 +540,7 @@ def check_pairwise_kernel(egnn_fused, dev, cases=PAIRWISE_CASES):
                 raise AssertionError(f"{label}: {name} disagrees with the "
                                      f"plain version: {err} > "
                                      f"{KERNEL_RTOL} x {scale}")
-            if timed in SPLIT_TF32_ROWS and err > SPLIT_TF32_RTOL * scale:
+            if timed in split_rows and err > SPLIT_TF32_RTOL * scale:
                 raise AssertionError(f"{label}: {name} relative error "
                                      f"{err / scale} over the split-TF32 "
                                      f"budget {SPLIT_TF32_RTOL}")
@@ -551,7 +561,7 @@ def check_pairwise_kernel(egnn_fused, dev, cases=PAIRWISE_CASES):
               f"computes the {g * n * n - kept} masked-out edge rows; no "
               f"single PyTorch call computes this function"
               + (f"; relative error within {SPLIT_TF32_RTOL:g}"
-                 if timed in SPLIT_TF32_ROWS else "")
+                 if timed in split_rows else "")
               + (f"; the H=64-only build: "
                  f"{H64_ONLY_SLICE_MS['egnn_pairwise_fwd']} ms"
                  if timed == "slice" else ""), flush=True)
@@ -886,11 +896,11 @@ SLICE_RTOL = 1e-5
 # with 132 SMs (tests/test_torch_cuda.py holds the same): the whole-graph
 # launch, (0, N), keeps those bits
 H64_DIGEST = "33fb1907313fbc658085584579d82703bc32911819bb4164c0b6efeb622d09c4"
-# #1's outputs at H=128 (without and with the clip) and H=256 at EGNO's
-# shape (fwd_digest), from the build before #2's tile route, on an H100 SXM:
-# the tile route leaves #1 as it was
+# #1's outputs on its tile route at H=128 (without and with the clip) and
+# H=256 at EGNO's shape (fwd_digest), from the build that brought the
+# route, on an H100 SXM
 H128_FWD_DIGEST = \
-    "ef43f8de0953c4dcbf969bbcae59fc3b14aa5bd6d5d27b5ea01595b54b92f94a"
+    "a2fa7dea51b3832af4d553d2a4fdd8319b9ae3cfa840abe2ea136ec5ab3f9540"
 # #2's outputs on its tile route (tiles_digest: H=128 at EGNO's shape
 # without and with the clip and at the mocap shape, H=256 at EGNO's), from
 # the build that brought the route, on an H100 SXM
@@ -900,9 +910,8 @@ TILES_BWD_DIGEST = \
 
 def h64_digest_check(egnn_fused, dev):
     """The whole-graph launches' digests against the H=64-only build's (#1
-    and #2 at H=64), the build's before the tile route (#1 at H=128 and
-    256) and the tile route's own (#2 at H=128 and 256), on a card of 132
-    SMs (the persistent grids depend on the SM count)."""
+    and #2 at H=64) and the tile routes' own (#1 and #2 at H=128 and 256),
+    on a card of 132 SMs (the persistent grids depend on the SM count)."""
     import importlib.util
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -917,9 +926,9 @@ def h64_digest_check(egnn_fused, dev):
     for digest_of, want, build in (
             (script.h64_digest, H64_DIGEST, "#1 and #2 at H=64: the H=64-only "
                                             "build"),
-            (script.fwd_digest, H128_FWD_DIGEST, "#1 at H=128 and 256: the "
-                                                 "build before #2's tile "
-                                                 "route"),
+            (script.fwd_digest, H128_FWD_DIGEST, "#1 on its tile route at "
+                                                 "H=128 and 256: its "
+                                                 "recorded build"),
             (script.tiles_digest, TILES_BWD_DIGEST, "#2 on its tile route at "
                                                     "H=128 and 256: its "
                                                     "recorded build")):
@@ -1063,11 +1072,13 @@ def check_slice_kernels(egnn_fused, dev, cases=SLICE_CASES, h=64,
     return rows
 
 
-def tile_route_row(egnn_fused, mocap, mocap_seed, width, padded, wide):
-    """#2's tile route's kernels-line row: the mocap case's numbers, with
-    every other case of the route under ``cases`` (the clip, x200, N=64 at
-    H=128; H=128, 96 and 100 at EGNO's shape; the wide cases), and its seed
-    axis and receiver slice rows."""
+def tile_route_row(egnn_fused, mocap, mocap_seed, width, padded, wide,
+                   more=None, slices=None):
+    """A tile route's kernels-line row (#1's or #2's): the mocap case's
+    numbers, with every other case of the route under ``cases`` (the clip,
+    x200, N=64 at H=128; H=128, 96 and 100 at EGNO's shape; the wide
+    cases; ``more``), and its seed axis and receiver slice rows (``slices``
+    beside the wide ones)."""
     cases = {row: mocap[row] for row in ("mocap clip", "mocap x200",
                                          "N=64 E=3")}
     cases["H=128"] = width["H=128"]
@@ -1076,19 +1087,19 @@ def tile_route_row(egnn_fused, mocap, mocap_seed, width, padded, wide):
     cases.update({"H=256": {k: v for k, v in wide.items()
                             if k not in ("cases", "seed_axis",
                                          "receiver_slice")},
-                  **wide["cases"]})
+                  **wide["cases"], **(more or {})})
     return dict(mocap["mocap"], width=128, cases=cases,
                 seed_axis={"mocap": mocap_seed["mocap"],
                            **wide["seed_axis"]},
-                receiver_slice=wide["receiver_slice"])
+                receiver_slice={**wide["receiver_slice"], **(slices or {})})
 
 
 def wide_kernel_rows(egnn_fused, dev):
-    """#1 on its wide route and #2 on its tile route: WIDE_CASES against
-    their plain versions and timed, the seed axis bitwise two single-seed
-    launches, the receiver slice bitwise the whole launch. Returns {kernel:
-    row}: the H=256 EGNO-shape row, with every other case's row under its
-    label."""
+    """#1 and #2 on their tile routes above H=128 and at E > 4: WIDE_CASES
+    against their plain versions and timed, the seed axis bitwise two
+    single-seed launches, the receiver slice bitwise the whole launch.
+    Returns {kernel: row}: the H=256 EGNO-shape row, with every other
+    case's row under its label."""
     fwd = check_pairwise_kernel(egnn_fused, dev, WIDE_CASES)
     bwd = check_pairwise_bwd_kernel(egnn_fused, dev, WIDE_CASES)
     seed = check_seed_axis_kernels(egnn_fused, dev, WIDE_SEED_AXIS_CASES,
@@ -2408,9 +2419,9 @@ def mocap_split_sizes(data_dir, max_training_samples=200, max_eval=600):
 
 # the kernels of #1's and #2's calls, by name, in a traced mocap step: #2's
 # call launches the weights' split, the tiles, the weight-gradient sum and
-# the node sums
+# the node sums; #1's the weights' split and the tiles
 MOCAP_KERNEL_PARTS = {"#2": ("egnn_pairwise_bwd", "egnn_split_weights"),
-                      "#1": ("egnn_pairwise_fwd",)}
+                      "#1": ("egnn_pairwise_fwd", "egnn_fwd_split")}
 
 
 def run_mocap_path(kernels, tmp, dev):
@@ -2788,11 +2799,10 @@ def run_multi_rank_path(nt_main, kernels, data_dir, tmp, dev):
 # clip, zero-padded to the wide route's 256). (EGNO nf, SEGNO nf, samples,
 # test windows) a run.
 WIDTH_RUNS = ((96, 32, 512, 2), (256, 200, 256, 1))
-# the paths that run #1's wide route (EGNO at nf 256 first) and #2's tile
-# route (mocap first, then EGNO at nf 96 and 256)
-WIDE_PATHS = (f"width egno nf{WIDTH_RUNS[-1][0]}",
-              f"width segno nf{WIDTH_RUNS[-1][1]} serving")
+# the paths that run #2's tile route (mocap first, then EGNO at nf 96 and
+# 256) and #1's (those and SEGNO serving at nf 200)
 TILE_PATHS = ("mocap", *(f"width egno nf{run[0]}" for run in WIDTH_RUNS))
+FWD_TILE_PATHS = (*TILE_PATHS, f"width segno nf{WIDTH_RUNS[-1][1]} serving")
 
 
 @contextlib.contextmanager
@@ -2887,11 +2897,9 @@ def run_width_path(nt_main, kernels, egnn_fused, data_dir, tmp, egno_nf,
                                  f"{GRAD_RTOL})")
         worst = max(worst, float(np.max(np.abs(a - b) / np.abs(b))))
     hp = egnn_fused.padded_width(egno_nf)
-    route = ("its wide route" if egnn_fused.wide_route(egno_nf, 2)
-             else "an instantiation") + ", #2 on " + (
-        "its tile route" if egnn_fused.tile_route(egno_nf, 2)
-        else "its H=64 kernel")
-    print(f"  egno nf {egno_nf} (#1 on {route} at H={hp}"
+    route = ("their tile routes" if egnn_fused.tile_route(egno_nf, 2)
+             else "their H=64 kernels")
+    print(f"  egno nf {egno_nf} (#1/#2 on {route} at H={hp}"
           f"{', zero-padded' if hp != egno_nf else ''}): losses "
           f"{card['train loss']} {card['val loss']} {card['test loss']} on "
           f"the card against {cpu['train loss']} {cpu['val loss']} "
@@ -3045,9 +3053,8 @@ def kernels_line(kernels, rows, paths, routes):
     and its launches on its own path and on every path of ``paths``; after
     each kernel its other routes, ``routes[name]``: (suffix, row, path
     names) each, an entry ``<name>_<suffix>`` with the row and its launches
-    on the first of its paths and on each of them (#1's H=128
-    instantiation on the mocap path and its wide route on the nf-256 width
-    path; #2's tile route on the mocap path and both width paths)."""
+    on the first of its paths and on each of them (#1's and #2's tile
+    routes on the mocap path and the width paths)."""
     out = []
     for k in kernels:
         name = k["name"]
@@ -3106,8 +3113,9 @@ def main():
             for name, r in pair_rows.items()}
     mocap_cases = MOCAP_CASES + TILE_CASES
     mocap_rows = {
-        "egnn_pairwise_fwd": check_pairwise_kernel(egnn_fused, dev,
-                                                   mocap_cases),
+        "egnn_pairwise_fwd": check_pairwise_kernel(
+            egnn_fused, dev, mocap_cases,
+            SPLIT_TF32_ROWS | TILE_SPLIT_TF32_ROWS),
         "egnn_pairwise_bwd": check_pairwise_bwd_kernel(
             egnn_fused, dev, mocap_cases,
             SPLIT_TF32_ROWS | TILE_SPLIT_TF32_ROWS)}
@@ -3124,29 +3132,24 @@ def main():
                                     seed_axis=width_seed[name][f"H={h}"])
                      for h in WIDTHS}
               for name, r in width_rows.items()}
-    rows["egnn_pairwise_fwd"].update(
-        padded_widths=padded["egnn_pairwise_fwd"],
-        h128_at_this_shape=width_rows["egnn_pairwise_fwd"]["H=128"])
-    # #2 keeps H=32 (padded to 64, E=2) on its H=64 kernel; every other
-    # width runs on its tile route
-    rows["egnn_pairwise_bwd"]["padded_widths"] = {
-        w: r for w, r in padded["egnn_pairwise_bwd"].items()
-        if not egnn_fused.tile_route(int(w[2:]), 2)}
+    # both keep H=32 (padded to 64, E=2) on their H=64 kernels; every other
+    # width runs on their tile routes
+    for name, r in padded.items():
+        rows[name]["padded_widths"] = {
+            w: row for w, row in r.items()
+            if not egnn_fused.tile_route(int(w[2:]), 2)}
     wide_rows = wide_kernel_rows(egnn_fused, dev)
-    fwd_mocap = mocap_rows["egnn_pairwise_fwd"]
-    routes = {"egnn_pairwise_fwd": [
-        ("h128", dict(fwd_mocap["mocap"], width=128,
-                      clip_shape=fwd_mocap["mocap clip"],
-                      seed_axis=mocap_seed["egnn_pairwise_fwd"],
-                      cases={row: fwd_mocap[row] for _, _, _, row in
-                             TILE_CASES}), ["mocap"]),
-        ("wide", wide_rows["egnn_pairwise_fwd"], list(WIDE_PATHS))]}
-    tiles = tile_route_row(egnn_fused, mocap_rows["egnn_pairwise_bwd"],
-                           mocap_seed["egnn_pairwise_bwd"],
-                           width_rows["egnn_pairwise_bwd"],
-                           padded["egnn_pairwise_bwd"],
-                           wide_rows["egnn_pairwise_bwd"])
-    routes["egnn_pairwise_bwd"] = [("tiles", tiles, list(TILE_PATHS))]
+    segno_wide = check_pairwise_kernel(egnn_fused, dev, SEGNO_WIDE_CASES)
+    h128_slices = check_slice_kernels(egnn_fused, dev, TILE_SLICE_CASES,
+                                      h=128, rtol=SPLIT_TF32_RTOL)
+    routes = {}
+    for name, paths_of, more in (
+            ("egnn_pairwise_fwd", FWD_TILE_PATHS, segno_wide),
+            ("egnn_pairwise_bwd", TILE_PATHS, {})):
+        row = tile_route_row(egnn_fused, mocap_rows[name], mocap_seed[name],
+                             width_rows[name], padded[name], wide_rows[name],
+                             more, h128_slices[name])
+        routes[name] = [("tiles", row, list(paths_of))]
     rows.update(check_nbody_kernels(dev))
     check_fused_frames(dev)
     phase("kernels", t0)

@@ -101,7 +101,7 @@ __host__ __device__ constexpr long long slot_floats(int h, int e) {
 // warp) and its threads.
 template <int H>
 __host__ __device__ constexpr int warps_of() {
-  static_assert(kStaged<H>, "the H = 64 route stages its weights");
+  static_assert(H == 64, "the H = 64 route stages its weights");
   return kWarps;
 }
 template <int H>
@@ -824,15 +824,6 @@ cudaError_t launch(const float* x, const float* hi, const float* hj, const float
 
 constexpr int kTileMaxRows = 128;
 
-// msg = silu(pre2) as cpre's and dWc1's A operand is loaded, every element
-// once for each column pass: with the fast exponential and division (2 ulp
-// each, inside the split-TF32 products' 2^-22; -0 where exp(-v) overflows,
-// NaN for a NaN or -inf, as silu).
-struct FastSilu {
-  __device__ __forceinline__ float operator()(float v) const {
-    return __fdividef(v, 1.0f + __expf(-v));
-  }
-};
 constexpr int kColParts = 4 * kThreads;             // column sums' partials
 constexpr long long kTileScratchFloats = 1LL << 29;  // one seed's slots (2 GB)
 

@@ -1,19 +1,13 @@
 // Pieces shared by the pairwise-chain kernels (egnn_fused_fwd.cu and
-// egnn_fused_bwd.cu): the tile shape, the split ("3x") TF32 products on the
-// tensor cores, the SiLU formulas, the weight staging, the persistent grid
-// and the one dispatch on the width H and the edge features E.
+// egnn_fused_bwd.cu): the tile shape of their H = 64 kernels, the split
+// ("3x") TF32 products on the tensor cores, the SiLU formulas, the weight
+// staging, the persistent grid and #1's one dispatch on the width H and the
+// edge features E.
 //
-// The forward instantiates two widths, for E <= kMaxE; every other width,
-// and any E, takes its wide route (egnn_wide.cuh). The backward instantiates
-// H = 64 alone and takes every other (H, E) on its tile route
-// (egnn_fused_bwd.cu), which splits W2 and Wc1 once a call. H = 64 stages W2
-// and Wc1 in shared memory as {big, small} pairs (68 KB for both). At
-// H = 128 the pairs would take 2 x 128 x 132 float2 = 270 KB, more than a
-// block's 227 KB, so the forward reads the raw fp32 matrices (64 KB each,
-// resident in L1 and L2) from global memory and splits each B element into
-// big and small in registers as it is loaded: the same two TF32 values
-// split_weights would store, so the products are the same whichever route
-// a width takes.
+// Both kernels instantiate H = 64 alone, for E <= kMaxE; every other (H, E)
+// takes their tile routes (#1's in egnn_fused_fwd.cu, wgmma; #2's in
+// egnn_fused_bwd.cu, mma.sync), which split W2 and Wc1 once a call. H = 64
+// stages W2 and Wc1 in shared memory as {big, small} pairs (68 KB for both).
 //
 // Split TF32. The JAX package computes the chain's products at
 // Precision.HIGHEST, full fp32. A single TF32 tensor-core pass keeps 10
@@ -31,6 +25,8 @@
 //   A (16 x 8, row):  a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
 //   B (8 x 8, col):   b0 (t, g), b1 (t + 4, g)
 //   C (16 x 8):       c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+// (wgmma's m64nNk8 TF32 takes A from registers and gives C in the same
+// layouts, warp w of its warpgroup holding rows 16 w .. 16 w + 15.)
 // Knowing where each accumulator sits lets the kernels add biases, take
 // SiLUs and sum rows on the accumulators themselves, with no pass through
 // shared memory. Rows padded to H + 4 floats (4 mod 32) make every fragment
@@ -56,10 +52,6 @@ constexpr float kClip = 100.0f;
 // by 4 floats: the fragment loads then touch 32 distinct banks.
 template <int H>
 __host__ __device__ constexpr int padded() { return H + 4; }
-
-// Whether width H stages its weights in shared memory (see the top).
-template <int H>
-constexpr bool kStaged = H == 64;
 
 __device__ __forceinline__ float to_tf32(float v) {
   uint32_t r;
@@ -99,6 +91,14 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&a_big)[4],
 
 __device__ __forceinline__ float sigmoid(float z) { return 1.0f / (1.0f + expf(-z)); }
 __device__ __forceinline__ float silu(float z) { return z / (1.0f + expf(-z)); }
+// silu with the fast exponential and division (2 ulp each, inside the
+// split-TF32 products' 2^-22; -0 where exp(-v) overflows, NaN for a NaN or
+// -inf, as silu): the tile routes' SiLUs on their products' operands
+struct FastSilu {
+  __device__ __forceinline__ float operator()(float v) const {
+    return __fdividef(v, 1.0f + __expf(-v));
+  }
+};
 // silu'(z) from s = sigmoid(z)
 __device__ __forceinline__ float dsilu(float z, float s) { return s * (1.0f + z * (1.0f - s)); }
 
@@ -166,38 +166,14 @@ struct Silu {
   __device__ __forceinline__ float operator()(float v) const { return silu(v); }
 };
 
-// The B operand of the products, W [H][H] ([in][out]) as {big, small}
-// pairs at element offset `at`: staged in shared memory in padded rows, or
-// read raw from global memory and split as it is loaded.
+// The B operand of the H = 64 products: W [H][H] ([in][out]) staged in
+// shared memory as {big, small} pairs in padded rows, at element offset `at`.
 template <int H>
 struct StagedWeight {
   static constexpr int kLd = padded<H>();
   const float2* w;
   __device__ __forceinline__ float2 operator()(int at) const { return w[at]; }
 };
-
-template <int H>
-struct GlobalWeight {
-  static constexpr int kLd = H;
-  const float* w;
-  __device__ __forceinline__ float2 operator()(int at) const {
-    const float v = __ldg(w + at);
-    const float b = to_tf32(v);
-    return make_float2(b, to_tf32(v - b));
-  }
-};
-
-template <int H>
-using Weight = std::conditional_t<kStaged<H>, StagedWeight<H>, GlobalWeight<H>>;
-
-// Width H's operand of one weight: the staged pairs, or the raw matrix.
-template <int H>
-__device__ __forceinline__ Weight<H> weight_of(const float2* staged, const float* raw) {
-  if constexpr (kStaged<H>)
-    return Weight<H>{staged};
-  else
-    return Weight<H>{raw};
-}
 
 // acc = op(act) @ W (or @ W^T) in split TF32 over the warp's 16 rows of act
 // ([16][LD], row-major): acc[nt] is the m16 n8 tile of output columns
@@ -271,27 +247,22 @@ inline cudaError_t persistent_grid(Kernel kernel, size_t smem, long long units, 
   return cudaSuccess;
 }
 
-// The wide route's tag (egnn_wide.cuh): a width given at run time.
-struct Wide {};
+// #1's tile route's tag (egnn_fused_fwd.cu): a width given at run time.
+struct FwdTiles {};
 
-// The forward's one dispatch on the width: f(std::integral_constant<int,
-// H>()) for an instantiated H with e <= kMaxE, f(Wide()) for every other h
-// and e. Its entry point and its scratch size go through it, so a launch and
-// the scratch it is given always agree on the route (the backward's own is
-// with_bwd_route).
+// The width #1 runs at: 64 up to 64, else h rounded up to a multiple of
+// kCols (the tile route's product passes).
+inline int fwd_padded(int h) { return h <= kCols ? kCols : (h + kCols - 1) / kCols * kCols; }
+
+// #1's one dispatch on the padded width hp: f(std::integral_constant<int,
+// 64>()) for hp = 64 with e <= kMaxE (the H = 64 kernel), f(FwdTiles()) for
+// every other hp and e. Its entry point and its scratch size go through it,
+// so a launch and the scratch it is given always agree on the route (the
+// backward's own is with_bwd_route).
 template <class F>
-inline cudaError_t with_width(int h, int e, F&& f) {
-  if (e <= kMaxE) {
-    switch (h) {
-      case 64:
-        return f(std::integral_constant<int, 64>());
-      case 128:
-        return f(std::integral_constant<int, 128>());
-      default:
-        break;
-    }
-  }
-  return f(Wide());
+inline cudaError_t with_width(int hp, int e, F&& f) {
+  if (hp == 64 && e <= kMaxE) return f(std::integral_constant<int, 64>());
+  return f(FwdTiles());
 }
 
 // The shapes #1 and #2 both take: G = K * B graphs of 1..kMaxN nodes (the

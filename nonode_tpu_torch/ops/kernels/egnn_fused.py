@@ -37,21 +37,21 @@ vmaps the ordinary modules over stacked parameters (parallel/fleet.py)
 launches each kernel once per call for all its seeds. A slice other than the
 whole graph takes one weight set.
 
-Widths and edge features. The forward is instantiated for H = 64 and
-H = 128 with E <= 4; every other width, and any E, takes its wide route
-(``csrc/egnn_wide.cuh``: products in passes of 64 output columns, H and E
-given at run time). The backward is instantiated for H = 64 with E <= 4 and
-takes every other width and E on its tile route (``tile_route``; units of
-one tile each, weights split once a call, ``csrc/egnn_fused_bwd.cu``). So no
-width and no E raises. A width is run at ``padded_width``: 64 up to 64, 128
-up to 128, else the next multiple of 64 columns (the products' passes). A
-width below it runs zero-padded (``pad_width``):
-hi, hj and the weights take zero columns (and W2, Wc1, wc2 zero rows) up to
-the padded width, and the outputs and gradients are cut back
-(``cut_width``). This is exact: a padded unit's pre-activation is 0 and
-SiLU(0) = 0, so it is 0 in the forward, the zero rows keep it from every
-real unit, its upstream gradient is 0 in the backward, and zeros split
-exactly into TF32 halves.
+Widths and edge features. Both kernels are instantiated for H = 64 with
+E <= 4 and take every other width and E on their tile routes
+(``tile_route``; H and E given at run time, weights split once a call:
+``csrc/egnn_fused_fwd.cu`` with its products on wgmma,
+``csrc/egnn_fused_bwd.cu``). So no width and no E raises. A width is run at
+``padded_width``: 64 up to 64, else the next multiple of 64 columns (the
+products' passes). The forward's tile route takes the native width itself:
+it reads hi and hj at width H, runs at the padded width with every column
+from H on zero, and writes tot_m at width H. Elsewhere a width below the
+padded one runs zero-padded in the wrapper (``pad_width``): hi, hj and the
+weights take zero columns (and W2, Wc1, wc2 zero rows) up to the padded
+width, and the outputs and gradients are cut back (``cut_width``). Both are
+exact: a padded unit's pre-activation is 0 and SiLU(0) = 0, so it is 0 in
+the forward, the zero rows keep it from every real unit, its upstream
+gradient is 0 in the backward, and zeros split exactly into TF32 halves.
 """
 
 from __future__ import annotations
@@ -66,11 +66,10 @@ from .build import load
 SOURCE = "egnn_fused_fwd.cu"
 BWD_SOURCE = "egnn_fused_bwd.cu"
 CLIP = 100.0
-# the widths the forward is instantiated for (with E <= NATIVE_EDGE_FEATURES;
-# the backward the first alone); every other width runs on the forward's wide
-# route and the backward's tile route, padded to a multiple of WIDE_COLUMNS
-# (``padded_width``)
-HIDDEN = (64, 128)
+# the width both kernels are instantiated for (with E <=
+# NATIVE_EDGE_FEATURES); every other width runs on their tile routes, padded
+# to a multiple of WIDE_COLUMNS (``padded_width``)
+HIDDEN = 64
 NATIVE_EDGE_FEATURES = 4
 WIDE_COLUMNS = 64
 MAX_NODES = 64            # N * N <= 4096, as the TPU kernel's gate
@@ -85,7 +84,7 @@ def supported(n: int, hidden: int, dtype, act, flat: bool, norm: bool,
               tanh: bool = False) -> bool:
     """Config gate, the TPU kernel's (nonode_tpu/ops/pallas/egnn_fused.py:
     355-360). It has no width limit and no E limit: on the card every width
-    and E runs (``padded_width``, ``wide_route``)."""
+    and E runs (``padded_width``, ``tile_route``)."""
     from ...nn import silu
     return (dtype == torch.float32 and not flat and not norm and not tanh
             and act is silu and n <= MAX_NODES)
@@ -233,28 +232,18 @@ def _weight_shapes(h, e):
 
 
 def padded_width(h: int) -> int:
-    """The width H runs at: the first of ``HIDDEN`` that holds it, else H
-    rounded up to a multiple of ``WIDE_COLUMNS`` (the wide route's)."""
+    """The width H runs at: ``HIDDEN`` up to it, else H rounded up to a
+    multiple of ``WIDE_COLUMNS`` (the tile routes')."""
     if h < 1:
         raise ValueError(f"unsupported width H={h}")
-    for hp in HIDDEN:
-        if h <= hp:
-            return hp
-    return -(-h // WIDE_COLUMNS) * WIDE_COLUMNS
-
-
-def wide_route(h: int, e: int) -> bool:
-    """Whether a forward launch of width H (after padding) and E edge
-    features takes the wide route rather than an instantiation of
-    ``HIDDEN``."""
-    return padded_width(h) not in HIDDEN or e > NATIVE_EDGE_FEATURES
+    return max(HIDDEN, -(-h // WIDE_COLUMNS) * WIDE_COLUMNS)
 
 
 def tile_route(h: int, e: int) -> bool:
-    """Whether a backward launch of width H (after padding) and E edge
-    features takes the tile route: every (H, E) but H = 64 with E <= 4,
-    which keeps its own kernel."""
-    return padded_width(h) != HIDDEN[0] or e > NATIVE_EDGE_FEATURES
+    """Whether a launch of width H (after padding) and E edge features
+    takes the kernels' tile routes: every (H, E) but H = 64 with E <= 4,
+    which keeps the H = 64 kernels."""
+    return padded_width(h) != HIDDEN or e > NATIVE_EDGE_FEATURES
 
 
 def pad_width(weights, hi, hj, hp):
@@ -359,32 +348,34 @@ def pairwise_message_fwd(clip_edges, x, hi, hj, efea, mask, weights, i0=0):
         raise ValueError(f"pairwise_message: unsupported device {x.device}")
     (g, n, h, e, k, ni), weights = _checked_inputs(x, hi, hj, efea, mask,
                                                    weights, i0)
-    hp = padded_width(h)
-    if hp != h:
-        weights, hi, hj = pad_width(weights, hi, hj, hp)
+    # the tile route takes the native width; the H=64 kernel takes 64 only
+    hk = h if tile_route(h, e) else HIDDEN
+    if hk != h:
+        weights, hi, hj = pad_width(weights, hi, hj, hk)
     dev = x.device
     totf = torch.empty((g, ni, 3), dtype=torch.float32, device=dev)
-    totm = torch.empty((g, ni, hp), dtype=torch.float32, device=dev)
+    totm = torch.empty((g, ni, hk), dtype=torch.float32, device=dev)
     if g > 0:
         fn, scratch_floats = _bind_fwd()
         with torch.cuda.device(dev):
-            # the wide route's tiles where they leave shared memory (none:
-            # an empty tensor, a null pointer)
-            size = scratch_floats(g, n, hp, e, k, ni)
+            # the tile route's split weights and padded vectors, and its
+            # tiles where they leave shared memory (none on the H=64
+            # kernel: an empty tensor, a null pointer)
+            size = scratch_floats(g, n, hk, e, k, ni)
             if size < 0:
                 raise RuntimeError("egnn_pairwise_fwd: no launch grid for "
-                                   f"N={n}, H={hp}, E={e} on {dev}")
+                                   f"N={n}, H={hk}, E={e} on {dev}")
             scratch = torch.empty(size, dtype=torch.float32, device=dev)
             err = fn(*(t.data_ptr() for t in (x, hi, hj, efea, mask,
                                               *weights, totf, totm,
                                               scratch)),
-                     g, n, hp, e, k, int(bool(clip_edges)), ni, i0,
+                     g, n, hk, e, k, int(bool(clip_edges)), ni, i0,
                      _stream(dev))
         if err != 0:
             raise RuntimeError(
                 f"egnn_pairwise_fwd launch failed: cudaError {err}")
         pairwise_message.launches += 1
-    if hp != h:
+    if hk != h:
         (totm,), _ = cut_width(h, e, (totm,))
     return totf, totm
 

@@ -10,16 +10,19 @@ unpacked with ``git archive``) can be compared in one call, in turns:
 parent, change, change, parent. Shapes and inputs are chip_smoke.py's: the
 EGNO slice (G=2560, N=5, H=64, E=2) and SEGNO's (G=256, the per-edge clip
 engaged). Each time is the median of 50 calls by CUDA events
-(``chip_smoke.device_ms``). ``--routes`` adds the other routes' shapes
-(``ROUTE_CASES``: #1 at H=128 and 256, #2 on its tile route from H=64 with
-E=6 to H=1024), each the median of fewer calls, with the bytes of scratch
-each #2 call takes on this card (``routes_scratch_bytes``). Prints one JSON
-line with the card's name and power limit and three digests, so that two
-trees that must give the same bits can be held to them: ``digest``, the
-sha256 of both
-kernels' outputs at H=64 on those inputs, on a 31-node sparse graph with
-E=1 and on a 2-seed weight stack; ``fwd_digest``, #1's outputs at H=128 and
-H=256 at EGNO's serving shape (H=128 without and with the clip);
+(``chip_smoke.device_ms``). ``--routes`` adds the tile routes' shapes
+(``ROUTE_CASES``: #1 and #2 from H=64 with E=6 to H=1024, and #1 at
+SEGNO's nf-200 serving shape), each the median of fewer calls, with the
+bytes of scratch each #2 call takes on this card (``routes_scratch_bytes``)
+and each #1 call's scratch and shared memory a block
+(``routes_fwd_scratch_bytes``, ``routes_fwd_smem_bytes``; a tree whose
+library has no ``egnn_pairwise_fwd_smem_bytes`` reports none). Prints one
+JSON line with the card's name and power limit and three digests, so that
+two trees that must give the same bits can be held to them: ``digest``,
+the sha256 of both kernels' outputs at H=64 on those inputs, on a 31-node
+sparse graph with E=1 and on a 2-seed weight stack; ``fwd_digest``, #1's
+outputs at H=128 and H=256 at EGNO's serving shape (H=128 without and with
+the clip);
 ``tiles_digest``, #2's outputs on its tile route at those shapes and at
 the mocap shape (G=60, N=31, H=128, E=1, a sparse mask).
 """
@@ -27,6 +30,7 @@ the mocap shape (G=60, N=31, H=128, E=1, a sparse mask).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import json
 import sys
@@ -38,11 +42,17 @@ REPO = Path(__file__).resolve().parents[1]
 
 # (label, kernel, G, N, H, E, clip_edges, calls timed): the routes other
 # than H=64's, at chip_smoke.py's shapes (the mocap shape on a random sparse
-# mask of about its density)
+# mask of about its density; SEGNO's nf-200 serving shape with the clip
+# engaged)
 ROUTE_CASES = (
     ("fwd H=128 mocap", "fwd", 60, 31, 128, 1, False, 50),
     ("fwd H=128 EGNO", "fwd", 2560, 5, 128, 2, False, 50),
+    ("fwd H=96 EGNO", "fwd", 2560, 5, 96, 2, False, 50),
     ("fwd H=256 EGNO", "fwd", 2560, 5, 256, 2, False, 50),
+    ("fwd H=512 EGNO", "fwd", 2560, 5, 512, 2, False, 10),
+    ("fwd H=1024 EGNO", "fwd", 2560, 5, 1024, 2, False, 5),
+    ("fwd E=6 H=64 EGNO", "fwd", 2560, 5, 64, 6, False, 50),
+    ("fwd SEGNO nf200", "fwd", 256, 5, 200, 2, True, 50),
     ("bwd H=128 mocap", "bwd", 60, 31, 128, 1, False, 20),
     ("bwd H=128 EGNO", "bwd", 2560, 5, 128, 2, False, 20),
     ("bwd H=96 EGNO", "bwd", 2560, 5, 96, 2, False, 20),
@@ -93,10 +103,32 @@ def main(argv=None):
                                       n)
             for label, which, g, n, h, e, _, _ in ROUTE_CASES
             if which == "bwd"}
+        out.update(fwd_route_bytes(egnn_fused))
     out["digest"] = h64_digest(chip_smoke, egnn_fused, dev)
     out["fwd_digest"] = fwd_digest(chip_smoke, egnn_fused, dev)
     out["tiles_digest"] = tiles_digest(chip_smoke, egnn_fused, dev)
     print(json.dumps(out), flush=True)
+
+
+def fwd_route_bytes(egnn_fused):
+    """Bytes of scratch and of shared memory a block of each #1 call of
+    ROUTE_CASES on this card (the shared memory where the tree's library
+    reports it)."""
+    lib = egnn_fused.load(egnn_fused.SOURCE)
+    _, scratch_floats = egnn_fused._bind_fwd()
+    cases = [(label, g, n, h, e) for label, which, g, n, h, e, _, _ in
+             ROUTE_CASES if which == "fwd"]
+    out = {"routes_fwd_scratch_bytes": {
+        label: 4 * scratch_floats(g, n, egnn_fused.padded_width(h), e, 1, n)
+        for label, g, n, h, e in cases}}
+    smem = getattr(lib, "egnn_pairwise_fwd_smem_bytes", None)
+    if smem is not None:
+        smem.argtypes = scratch_floats.argtypes
+        smem.restype = ctypes.c_longlong
+        out["routes_fwd_smem_bytes"] = {
+            label: smem(g, n, egnn_fused.padded_width(h), e, 1, n)
+            for label, g, n, h, e in cases}
+    return out
 
 
 def route_times(chip_smoke, egnn_fused, dev):
@@ -104,7 +136,8 @@ def route_times(chip_smoke, egnn_fused, dev):
     times = {}
     for label, which, g, n, h, e, clip, iters in ROUTE_CASES:
         x, hi, hj, efea, mask, weights = chip_smoke.pairwise_inputs(
-            g, n, h, e, seed=g + n, dev=dev, isolated=3 if n > 5 else None)
+            g, n, h, e, seed=g + n, dev=dev, isolated=3 if n > 5 else None,
+            coord_scale=400.0 if clip else 1.0)
         rng = torch.Generator().manual_seed(g + h)
         cot = (torch.randn(g, n, 3, generator=rng).to(dev),
                torch.randn(g, n, h, generator=rng).to(dev))

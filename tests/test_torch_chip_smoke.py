@@ -435,13 +435,11 @@ def test_mocap_path_launches_are_what_its_splits_ask(tmp_path, monkeypatch):
 
 
 def test_kernels_line_names_each_route():
-    """#1 appears three times: at H=64 with its launches on the N-body
-    paths, as egnn_pairwise_fwd_h128 with the mocap cases' numbers and its
-    launches on the mocap path, and as egnn_pairwise_fwd_wide with the
-    wide route's numbers and its launches on the nf-256 width path; #2
-    twice: at H=64, and as egnn_pairwise_bwd_tiles with its tile route's
-    numbers and its launches on the mocap path and both EGNO width paths;
-    every entry has the contract's keys."""
+    """#1 and #2 appear twice each: at H=64 with their launches on their
+    own paths, and as egnn_pairwise_fwd_tiles and egnn_pairwise_bwd_tiles
+    with their tile routes' numbers and their launches on the mocap path
+    and the width paths (#1's also on SEGNO serving at nf 200); every entry
+    has the contract's keys."""
     from nonode_tpu_torch.ops.kernels import KERNELS
 
     keys = {"max_abs_err": 1e-6, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.1,
@@ -456,29 +454,28 @@ def test_kernels_line_names_each_route():
              "width egno nf256": {k["name"]: 9 for k in KERNELS},
              "width segno nf200 serving": {k["name"]: 3 for k in KERNELS}}
     routes = {"egnn_pairwise_fwd": [
-        ("h128", dict(keys, width=128, ms=3.0), ["mocap"]),
-        ("wide", dict(keys, width=256, ms=4.0), list(chip_smoke.WIDE_PATHS))],
+        ("tiles", dict(keys, width=128, ms=3.0),
+         list(chip_smoke.FWD_TILE_PATHS))],
         "egnn_pairwise_bwd": [("tiles", dict(keys, width=128, ms=0.7),
                                list(chip_smoke.TILE_PATHS))]}
     out = chip_smoke.kernels_line(KERNELS, rows, paths, routes)
     assert [e["name"] for e in out] == [
-        "egnn_pairwise_fwd", "egnn_pairwise_fwd_h128",
-        "egnn_pairwise_fwd_wide", "egnn_pairwise_bwd",
+        "egnn_pairwise_fwd", "egnn_pairwise_fwd_tiles", "egnn_pairwise_bwd",
         "egnn_pairwise_bwd_tiles", "nbody_charged_force",
         "nbody_gravity_accel", "nbody_charged_leapfrog",
         "nbody_gravity_leapfrog"]
     contract = {"name", "route", "source", "replaces", "launches", *keys}
     assert all(contract <= set(e) for e in out)
     by = {e["name"]: e for e in out}
-    assert by["egnn_pairwise_fwd_h128"]["launches"] == 432
-    assert by["egnn_pairwise_fwd_h128"]["launches_by_path"] == {"mocap": 432}
-    assert by["egnn_pairwise_fwd_h128"]["width"] == 128 and \
-        by["egnn_pairwise_fwd_h128"]["ms"] == 3.0
+    fwd = by["egnn_pairwise_fwd_tiles"]
+    assert (fwd["launches"], fwd["path"]) == (432, "mocap")
+    assert fwd["launches_by_path"] == {
+        "mocap": 432, "width egno nf96": 5, "width egno nf256": 9,
+        "width segno nf200 serving": 3}
+    assert fwd["width"] == 128 and fwd["ms"] == 3.0 and \
+        fwd["route"] == "cuda"
+    assert fwd["source"] == "nonode_tpu_torch/csrc/egnn_fused_fwd.cu"
     assert out[0]["launches"] == 7 and out[0]["width"] == 64
-    assert by["egnn_pairwise_fwd_wide"]["launches_by_path"] == {
-        "width egno nf256": 9, "width segno nf200 serving": 3}
-    assert by["egnn_pairwise_fwd_wide"]["ms"] == 4.0 and \
-        by["egnn_pairwise_fwd_wide"]["route"] == "cuda"
     tiles = by["egnn_pairwise_bwd_tiles"]
     assert (tiles["launches"], tiles["path"]) == (192, "mocap")
     assert tiles["launches_by_path"] == {"mocap": 192, "width egno nf96": 5,
@@ -488,12 +485,13 @@ def test_kernels_line_names_each_route():
 
 
 def test_tile_route_row_gathers_every_case_of_the_route():
-    """The tile route's kernels-line row: the mocap case's numbers, and
-    under ``cases`` every other case #2 runs on that route (the mocap clip
-    and x200 cases, N=64, H=128 and the padded 96 and 100 at EGNO's shape,
-    the wide cases), with the seed axis at the mocap shape and H=256 and
-    the receiver slice at H=256; H=32, which #2 runs on its H=64 kernel,
-    is not among them."""
+    """A tile route's kernels-line row: the mocap case's numbers, and
+    under ``cases`` every other case the kernel runs on that route (the
+    mocap clip and x200 cases, N=64, H=128 and the padded 96 and 100 at
+    EGNO's shape, the wide cases, and for #1 SEGNO's nf-200 case), with the
+    seed axis at the mocap shape and H=256 and the receiver slices at H=256
+    (and H=128); H=32, which both run on their H=64 kernels, is not among
+    them."""
     from nonode_tpu_torch.ops.kernels import egnn_fused
 
     def row(ms):
@@ -517,6 +515,11 @@ def test_tile_route_row_gathers_every_case_of_the_route():
     assert set(got["seed_axis"]) == {"mocap", "H=256"}
     assert got["receiver_slice"] == {"s": row(9)}
     assert not egnn_fused.tile_route(32, 2)
+    fwd = chip_smoke.tile_route_row(egnn_fused, mocap, {"mocap": row(10)},
+                                    width, padded, wide,
+                                    {"SEGNO H=200": row(11)}, {"t": row(12)})
+    assert set(fwd["cases"]) == set(got["cases"]) | {"SEGNO H=200"}
+    assert fwd["receiver_slice"] == {"s": row(9), "t": row(12)}
 
 
 def test_tile_cases_take_the_tile_route_at_their_shapes():
@@ -559,11 +562,11 @@ def test_tile_cases_take_the_tile_route_at_their_shapes():
 
 
 def test_split_digests_hold_each_kernel_to_its_own_build():
-    """The H=128 digest of both kernels is split: #1's outputs at H=128
-    and 256 (fwd_digest, recorded from the build before the tile route)
-    and #2's tile route's (tiles_digest, recorded from its own build);
-    chip_smoke.py and the card tests hold the same three sha256 values, and
-    the timing script computes each."""
+    """The H=128 digest of both kernels is split: #1's tile route's outputs
+    at H=128 and 256 (fwd_digest) and #2's (tiles_digest), each recorded
+    from the build that brought the route; chip_smoke.py and the card tests
+    hold the same three sha256 values, and the timing script computes each
+    and times every forward case of the tile route."""
     import importlib.util
     import re
 
@@ -581,7 +584,11 @@ def test_split_digests_hold_each_kernel_to_its_own_build():
     assert callable(script.fwd_digest) and callable(script.tiles_digest)
     assert not hasattr(script, "h128_digest")
     assert {"fwd H=128 mocap", "bwd H=256 EGNO", "bwd E=6 H=64 EGNO",
-            "bwd H=1024 EGNO"} <= {c[0] for c in script.ROUTE_CASES}
+            "bwd H=1024 EGNO", "fwd H=96 EGNO", "fwd H=512 EGNO",
+            "fwd H=1024 EGNO", "fwd E=6 H=64 EGNO", "fwd SEGNO nf200"} <= {
+        c[0] for c in script.ROUTE_CASES}
+    segno = [c for c in script.ROUTE_CASES if c[0] == "fwd SEGNO nf200"][0]
+    assert segno[1:7] == ("fwd", 256, 5, 200, 2, True)
 
 
 def test_mocap_step_names_the_kernels_of_each_call():
@@ -601,12 +608,13 @@ def test_mocap_step_names_the_kernels_of_each_call():
 
 
 def test_wide_cases_take_the_wide_route():
-    """The wide route's cases: H=256 at EGNO's serving shape with and
-    without the clip, H=200 padded to 256, H=512 and H=1024, E=6 at H=64
-    and H=256, the mocap shape at H=256; every one on #1's wide route and
-    #2's tile route, and all but the clip held to the split-TF32 budget;
+    """The cases above H=128 and at E > 4: H=256 at EGNO's serving shape
+    with and without the clip, H=200 padded to 256, H=512 and H=1024, E=6
+    at H=64 and H=256, the mocap shape at H=256; every one on #1's and
+    #2's tile routes, and all but the clip held to the split-TF32 budget;
     the seed axis (two sets over G = 2 x 1280) and the slice (rows 5-9 of
-    N=10) at H=256."""
+    N=10) at H=256, a slice at H=128 too; #1 also at SEGNO's nf-200 serving
+    shape (G=256, the clip engaged, H=200 on the tile route at 256)."""
     from nonode_tpu_torch.ops.kernels import egnn_fused
 
     cpu = torch.device("cpu")
@@ -614,7 +622,6 @@ def test_wide_cases_take_the_wide_route():
     for label, kw, clip, timed in chip_smoke.WIDE_CASES:
         kw = {**kw, "g": 2}             # the shapes, at two graphs
         g, n, h, e, args = chip_smoke.case_inputs(kw, kw["n"], cpu)
-        assert egnn_fused.wide_route(h, e), label
         assert egnn_fused.tile_route(h, e), label
         assert args[1].shape == (2, n, h) and args[3].shape == (2, n, n, e)
         shapes[timed] = (n, h, e, clip)
@@ -630,21 +637,37 @@ def test_wide_cases_take_the_wide_route():
     assert (shape["k"] * b, shape["h"]) == (2560, 256) and not clip
     (label, g, clip, _), = chip_smoke.WIDE_SLICE_CASES
     assert (g, chip_smoke.SLICE_N, chip_smoke.SLICE_SPACE) == (500, 10, 2)
+    (label, g, clip, _), = chip_smoke.TILE_SLICE_CASES
+    assert g == 500 and not clip and "H=128" in label
+    (label, kw, clip, timed), = chip_smoke.SEGNO_WIDE_CASES
+    assert (kw["g"], kw["n"], kw["h"], clip, timed) == (256, 5, 200, True,
+                                                       "SEGNO H=200")
+    g, n, h, e, args = chip_smoke.case_inputs({**kw, "g": 2}, 5, cpu)
+    assert egnn_fused.tile_route(h, e) and args[1].shape == (2, 5, 200)
+    assert timed not in chip_smoke.SPLIT_TF32_ROWS
+    off = 1.0 - torch.eye(5)
+    assert chip_smoke.pairwise_tc_bound_ms(256, off, 200, 2)[0] == \
+        pytest.approx(1e3 * 256 * 20 * 3 * 4 * 200 * 200
+                      / chip_smoke.PEAK_TF32_FLOPS)
 
 
 def test_width_runs_take_an_instantiation_and_the_wide_route():
-    """The width path's runs: EGNO nf 96 and SEGNO nf 32 padded to the
-    instantiated 128 and 64; EGNO nf 256 on the wide route (cut to one
-    training batch and one test window) and SEGNO nf 200 padded to its
-    256."""
+    """The width path's runs: SEGNO nf 32 padded to the instantiated 64;
+    EGNO nf 96 (at 128), EGNO nf 256 (cut to one training batch and one
+    test window) and SEGNO nf 200 (at 256) on the tile routes; #1 on the
+    paths of each of those, #2 on the EGNO ones."""
     from nonode_tpu_torch.ops.kernels import egnn_fused
 
     assert chip_smoke.WIDTH_RUNS == ((96, 32, 512, 2), (256, 200, 256, 1))
     assert [(egnn_fused.padded_width(a), egnn_fused.padded_width(b))
             for a, b, _, _ in chip_smoke.WIDTH_RUNS] == [(128, 64),
                                                         (256, 256)]
-    assert [egnn_fused.wide_route(nf, 2) for run in chip_smoke.WIDTH_RUNS
-            for nf in run[:2]] == [False, False, True, True]
+    assert [egnn_fused.tile_route(nf, 2) for run in chip_smoke.WIDTH_RUNS
+            for nf in run[:2]] == [True, False, True, True]
+    assert chip_smoke.FWD_TILE_PATHS == (
+        "mocap", "width egno nf96", "width egno nf256",
+        "width segno nf200 serving")
+    assert chip_smoke.TILE_PATHS == chip_smoke.FWD_TILE_PATHS[:3]
     assert [samples // chip_smoke.BATCH for _, _, samples, _ in
             chip_smoke.WIDTH_RUNS] == [2, 1]
 

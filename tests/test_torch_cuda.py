@@ -12,14 +12,13 @@ runs on the card's machine, which has neither:
 Tolerance: max|kernel - plain| <= 1e-4 x max(1, max|plain|); both are fp32
 (the EGNO kernels' products in split TF32, fp32-class), with sums of up to
 128 products (the N-body kernels: up to N pair terms, and up to 100
-micro-steps) taken in another order. #1/#2 are held at H=64, at H=128
-(mocap's, on the skeleton mask of chip_smoke.py's written CMU skeleton; #1's
-second instantiation, #2's tile route), at widths that run zero-padded
-(H=32, 96, 100), and on #1's wide route and #2's tile route (every width
-above 128, any E: H=129 to 1280, E=6, their seed axis and receiver slices,
-graphs over many tiles, non-finite inputs); H=64 also to the bits of the
-build that had H=64 alone, #1 at H=128 and 256 to those of its parent, #2's
-tile route to its own recorded digest.
+micro-steps) taken in another order. #1/#2 are held at H=64, on their tile
+routes at H=128 (mocap's, on the skeleton mask of chip_smoke.py's written
+CMU skeleton), at widths that run zero-padded (H=32, 96, 97, 100: in the
+wrappers, or inside #1's tile route), and at every width above 128 and any
+E (H=129 to 1280, E=6, their seed axis and receiver slices, graphs over
+many tiles, non-finite inputs); H=64 also to the bits of the build that had
+H=64 alone, #1's and #2's tile routes to their own recorded digests.
 """
 
 from pathlib import Path
@@ -39,11 +38,11 @@ RTOL = 1e-4
 # sha256 of the H=64 outputs of #1 and #2 (scripts/time_pairwise_kernels.py:
 # h64_digest) from the build that instantiated H=64 alone, on an H100 SXM
 H64_DIGEST = "33fb1907313fbc658085584579d82703bc32911819bb4164c0b6efeb622d09c4"
-# of #1's outputs at H=128 and H=256 at EGNO's shape (fwd_digest) from the
-# build before the tile route, and of #2's on its tile route (tiles_digest)
-# from its own build, on an H100 SXM (chip_smoke.py holds the same)
+# of #1's outputs on its tile route at H=128 and H=256 at EGNO's shape
+# (fwd_digest), and of #2's on its tile route (tiles_digest), each from the
+# build that brought the route, on an H100 SXM (chip_smoke.py holds the same)
 H128_FWD_DIGEST = \
-    "ef43f8de0953c4dcbf969bbcae59fc3b14aa5bd6d5d27b5ea01595b54b92f94a"
+    "a2fa7dea51b3832af4d553d2a4fdd8319b9ae3cfa840abe2ea136ec5ab3f9540"
 TILES_BWD_DIGEST = \
     "dde692b7c180943bb8f665e5165e91cbfc355f3102e427d6d6ea58cd8b070188"
 
@@ -239,11 +238,10 @@ def test_split_tf32_kernels_on_the_persistent_grid(dev, case):
 ])
 def test_h128_forward_and_tile_route_backward_match_plain_versions(
         dev, g, n, e, clip, isolated, scale):
-    """#1 at H=128 (weights read from global memory and split as they load)
-    and #2 on its tile route at H=128 (128-row tiles of whole receivers,
-    weights split once a call): within RTOL of the plain versions, two runs
-    bitwise equal, one launch each."""
-    assert not egnn_fused.wide_route(128, e) and egnn_fused.tile_route(128, e)
+    """#1 and #2 on their tile routes at H=128 (tiles of whole receivers,
+    weights split once a call; #1's products on wgmma): within RTOL of the
+    plain versions, two runs bitwise equal, one launch each."""
+    assert egnn_fused.tile_route(128, e)
     (x, hi, hj, efea, mask, weights), cot = _bwd_inputs(
         g, n, e, clip, isolated, dev, h=128)
     args = (x, hi * scale, hj * scale, efea, mask, weights)
@@ -271,13 +269,16 @@ def test_h128_forward_and_tile_route_backward_match_plain_versions(
 @pytest.mark.parametrize("h", [32, 96, 100])
 @pytest.mark.parametrize("form", ["EGNO G=2560", "clip", "seed axis K=2"])
 def test_widths_not_instantiated_run_padded_on_the_card(dev, h, form):
-    """H=32, 96 and 100 (not a multiple of 4) run on the H=64 and H=128
-    kernels, zero-padded in the wrappers: #1 and #2 within RTOL of their
-    plain versions at the native width, two runs bitwise equal, one launch
-    each; at EGNO's serving shape, with the clip engaged, and with two
-    stacked weight sets. The raw entry points still refuse such a width
-    (cudaErrorInvalidValue, and no scratch size): the one dispatch on the
-    width that both kernels and the scratch share."""
+    """H=32, 96 and 100 (not a multiple of 4) run zero-padded: H=32 on the
+    H=64 kernels, padded in the wrappers; 96 and 100 on the tile routes,
+    padded to 128 by #2's wrapper and inside #1's route, which takes the
+    native width. #1 and #2 within RTOL of their plain versions at the
+    native width, two runs bitwise equal, one launch each; at EGNO's
+    serving shape, with the clip engaged, and with two stacked weight sets.
+    The raw entry points refuse what their dispatch does not take
+    (cudaErrorInvalidValue, and no scratch size): #2 every width that is
+    not a multiple of 64, #1 a width below 64 at E <= 4 (the H=64 kernel
+    takes 64 alone); #1's scratch at 96 and 100 is that of 128."""
     clip = form == "clip"
     (x, hi, hj, efea, mask, weights), cot = _bwd_inputs(
         2560, 5, 2, clip, None, dev, h=h)
@@ -316,37 +317,42 @@ def test_widths_not_instantiated_run_padded_on_the_card(dev, h, form):
     # g, n, h, e, k, clip, the receiver slice (ni, i0), stream
     shape = [4, 5, h, 2, 1, 0, 5, 0, None]
     fwd, fwd_scratch = egnn_fused._bind_fwd()
-    assert fwd(*([None] * 17 + shape)) == invalid
     bwd, scratch = egnn_fused._bind_bwd()
     assert bwd(*([None] * 22 + shape)) == invalid
-    assert scratch(4, 5, h, 2, 1, 5) == -1 and fwd_scratch(4, 5, h, 2, 1,
-                                                           5) == -1
+    assert scratch(4, 5, h, 2, 1, 5) == -1
     assert scratch(4, 5, 128, 2, 1, 5) > 0 and scratch(4, 5, 64, 2, 1, 5) > 0
-    assert fwd_scratch(4, 5, 128, 2, 1, 5) == 0
+    if h < 64:
+        assert fwd(*([None] * 17 + shape)) == invalid
+        assert fwd_scratch(4, 5, h, 2, 1, 5) == -1
+    else:
+        assert fwd_scratch(4, 5, h, 2, 1, 5) == \
+            fwd_scratch(4, 5, 128, 2, 1, 5) > 0
 
 
 @pytest.mark.cuda
 def test_bad_slices_and_unpadded_widths_are_refused_on_the_card(dev):
-    """The entry points refuse a slice out of range, a slice with stacked
-    weights and a width the wrapper has not padded to a multiple of 64
-    (H=160; the wrapper runs it at 192); a width above 128 has a route."""
+    """The entry points refuse a slice out of range and a slice with
+    stacked weights; #2's a width the wrapper has not padded to a multiple
+    of 64 (H=160; the wrapper runs it at 192), which #1's tile route takes
+    as it is (its scratch that of 192). #1's scratch holds each seed's
+    split W2 and Wc1 (4 H^2 floats at the padded width), and its tiles
+    where they leave shared memory: at H=1024, not at H=128."""
     invalid = 1                                  # cudaErrorInvalidValue
     fwd, fwd_scratch = egnn_fused._bind_fwd()
     bwd, scratch = egnn_fused._bind_bwd()
     for ni, i0, k, h in ((3, 3, 1, 64), (0, 0, 1, 64), (2, 0, 2, 64),
-                         (5, 0, 1, 160)):
+                         (3, 3, 1, 160), (2, 0, 2, 160), (5, 0, 1, 160)):
         bad = [4, 5, h, 2, k, 0, ni, i0, None]
-        assert fwd(*([None] * 17 + bad)) == invalid
         assert bwd(*([None] * 22 + bad)) == invalid
-    assert fwd_scratch(4, 5, 160, 2, 1, 5) == scratch(4, 5, 160, 2, 1, 5) \
-        == -1
+        if ni != 5:
+            assert fwd(*([None] * 17 + bad)) == invalid
+    assert scratch(4, 5, 160, 2, 1, 5) == -1
     assert egnn_fused.padded_width(160) == 192
-    assert scratch(4, 5, 192, 2, 1, 5) > 0 and fwd_scratch(4, 5, 192, 2, 1,
-                                                           5) == 0
-    # the forward's tiles stay in shared memory at H=1024 for N=5, and
-    # leave it for N=64
-    assert fwd_scratch(4, 5, 1024, 2, 1, 5) == 0
-    assert fwd_scratch(4, 64, 1024, 2, 1, 64) > 0
+    assert scratch(4, 5, 192, 2, 1, 5) > 0
+    assert fwd_scratch(4, 5, 160, 2, 1, 5) == fwd_scratch(4, 5, 192, 2, 1, 5)
+    assert fwd_scratch(4, 5, 128, 2, 1, 5) == 4 * 128 * 128
+    assert fwd_scratch(4, 5, 1024, 2, 1, 5) > 4 * 1024 * 1024
+    assert fwd_scratch(4, 5, 1024, 2, 2, 5) > 2 * 4 * 1024 * 1024
 
 
 @pytest.mark.cuda
@@ -362,13 +368,15 @@ def test_bad_slices_and_unpadded_widths_are_refused_on_the_card(dev):
     (60, 31, 256, 1, False, "skeleton"),   # mocap's shape at H=256
     (9, 64, 256, 3, True, 10),         # N at the gate's limit: a receiver a tile
     (3, 64, 512, 2, False, None),      # #1's tiles global; #2's rows split
+    (256, 5, 97, 2, False, None),      # #1 at its native odd width (128)
 ])
 def test_wide_forward_and_tile_route_backward_match_plain_versions(
         dev, g, n, h, e, clip, isolated):
-    """#1 on its wide route (csrc/egnn_wide.cuh) and #2 on its tile route:
-    within RTOL of their plain versions, two runs bitwise equal, one launch
-    each."""
-    assert egnn_fused.wide_route(h, e) and egnn_fused.tile_route(h, e)
+    """#1 and #2 on their tile routes at every width above 128, at E > 4
+    and at odd native widths (#1 reads hi and hj at width 97 and runs at
+    128): within RTOL of their plain versions, two runs bitwise equal, one
+    launch each."""
+    assert egnn_fused.tile_route(h, e)
     x, hi, hj, efea, mask, weights = _inputs(
         g, n, h, e, seed=n + h + e, dev=dev,
         coord_scale=400.0 if clip else 1.0, isolated=isolated)
@@ -468,14 +476,47 @@ def test_tile_route_keeps_the_plain_versions_non_finite_pattern(dev, h):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h", [128, 256])
+def test_forward_tile_route_keeps_the_plain_versions_non_finite_pattern(dev,
+                                                                        h):
+    """A NaN in efea at a masked pair (the diagonal) and an inf in one
+    node's h: #1's tile route still computes the masked pair and multiplies
+    by the mask, as the plain version does, so tot_f and tot_m are
+    non-finite exactly where the plain version's are, and finite elsewhere
+    within RTOL of it."""
+    (x, hi, hj, efea, mask, w), _ = _bwd_inputs(12, 31, 1, False, 3, dev,
+                                                h=h)
+    efea = efea.clone()
+    hj = hj.clone()
+    efea[2, 4, 4, 0] = float("nan")            # mask[4, 4] = 0
+    hj[7, 11, 5] = float("inf")
+    assert mask[4, 4] == 0
+    with torch.no_grad():
+        got = egnn_fused.pairwise_message(False, x, hi, hj, efea, mask, w)
+        torch.cuda.synchronize()
+        want = egnn_fused.pairwise_message_reference(False, x, hi, hj, efea,
+                                                     mask, w)
+    nonfinite = 0
+    for a, b in zip(got, want):
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        assert torch.equal(fa, fb)
+        nonfinite += int((~fb).sum())
+        if fb.any():
+            err = float((a[fa] - b[fb]).abs().max())
+            assert err <= RTOL * max(1.0, float(b[fb].abs().max())), err
+    assert nonfinite > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("g,n,space,clip,h", [
     (50, 10, 2, False, 64),      # the --dp 2 --space 2 path: a rank's batch
     (50, 10, 2, True, 64),       # SEGNO's clip
     (7, 31, 3, False, 128),      # H=128, slices of 10, 10 and 11 receivers
     (60, 31, 2, False, 128),     # the tile route at mocap's shape
     (3, 64, 4, True, 64),        # N at the gate's limit
-    (500, 10, 2, False, 256),    # the wide route: --space at nf 256
-    (3, 64, 4, True, 256),       # the wide route with #2's tiles global
+    (500, 10, 2, False, 256),    # --space at nf 256
+    (3, 64, 4, True, 256),       # #2's tiles global
+    (500, 10, 2, False, 128),    # --space at mocap's width
 ])
 def test_receiver_slices_give_the_whole_launch(dev, g, n, space, clip, h):
     """#1/#2 on receiver slices [i0, i0 + ni): each within RTOL of its
@@ -551,10 +592,10 @@ def _timing_script(dev):
 
 @pytest.mark.cuda
 def test_forward_keeps_its_bits_and_the_tile_route_its_digest(dev):
-    """#1's outputs at H=128 (without and with the clip) and H=256 at EGNO's
-    shape are the bits of the build before the tile route (fwd_digest: the
-    tile route leaves #1 as it was); #2's outputs on the tile route are
-    those recorded from its own build (tiles_digest), on an H100 SXM."""
+    """#1's outputs on its tile route at H=128 (without and with the clip)
+    and H=256 at EGNO's shape (fwd_digest) and #2's on its tile route
+    (tiles_digest) are those recorded from the builds that brought the
+    routes, on an H100 SXM."""
     import chip_smoke
     script = _timing_script(dev)
     assert script.fwd_digest(chip_smoke, egnn_fused, dev) == H128_FWD_DIGEST
@@ -612,8 +653,9 @@ def test_egnn_layer_kernel_route_matches_dense_route(dev):
 @pytest.mark.parametrize("h", [32, 96, 100, 200, 256])
 def test_egnn_layer_of_another_width_runs_on_the_card(dev, h):
     """The gate has no width limit, as the TPU's: a layer at a width the
-    kernels are not built for takes them, zero-padded, and its output and
-    every gradient match the dense route of the same layer."""
+    kernels are not built for takes them (zero-padded in the wrappers, or
+    inside #1's tile route), and its output and every gradient match the
+    dense route of the same layer."""
     layer = EGNNLayer(h, 2, with_v=True, fused=True, device=dev,
                       generator=torch.Generator().manual_seed(h))
     rng = np.random.RandomState(h)
@@ -724,7 +766,8 @@ def _seed_axis(k, b, n, e, clip, dev, h=64):
     (1, 9, 5, 2, False, 64),         # one stacked set
     (2, 30, 31, 1, True, 128),       # mocap's width and shape, two seeds
     (2, 30, 31, 1, False, 128),      # the same without the clip
-    (2, 1280, 5, 2, False, 256),     # the wide route: fleet_main at nf 256
+    (2, 1280, 5, 2, False, 256),     # fleet_main at nf 256
+    (2, 50, 10, 2, False, 128),      # the tile routes at N=10
     (3, 7, 5, 6, True, 64),          # the tile route at E=6
 ])
 def test_seed_axis_kernels_give_the_bits_of_single_seed_launches(

@@ -60,22 +60,34 @@ def _mask(n, isolated=None, seed=3):
 
 
 # (H, E) of the chain's tests against JAX: H=16 and the padded H=96 with
-# E=2; H=256 and E=6, which the card runs on the wide route
+# E=2; H=256 and E=6, which the card runs on the tile routes
 WIDTHS_AND_E = [pytest.param(16, 2, id="16"), pytest.param(96, 2, id="96"),
                 pytest.param(256, 2, id="256"),
                 pytest.param(16, 6, id="16-e6"),
                 pytest.param(256, 6, id="256-e6")]
+# (H, E, G, N) against the Pallas op: those widths at G=6, N=5; the mocap
+# path's shape (N=31, H=128, E=1; ``masked`` takes the written CMU
+# skeleton's skeleton + 2-hop mask) and N=64 at H=128 with E=3 on two
+# graphs each
+PALLAS_SHAPES = [pytest.param(*p.values, 6, 5, id=p.id)
+                 for p in WIDTHS_AND_E] + [
+    pytest.param(128, 1, 2, 31, id="mocap"),
+    pytest.param(128, 3, 2, 64, id="n64-e3")]
 
 
-@pytest.mark.parametrize("h,e", WIDTHS_AND_E)
+@pytest.mark.parametrize("h,e,g,n", PALLAS_SHAPES)
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("clip_edges", [False, True])
-def test_plain_version_matches_pallas_interpret(clip_edges, masked, h, e):
-    g, n = 6, 5
+def test_plain_version_matches_pallas_interpret(clip_edges, masked, h, e, g,
+                                                n):
     # a large coordinate head makes per-edge forces exceed the +-100 clip
     x, hi, hj, efea, weights = _chain_inputs(
         g, n, h, e, seed=0, coord_scale=400.0 if clip_edges else 1.0)
-    mask = _mask(n, isolated=4 if masked else None)
+    if masked and n == 31:
+        import chip_smoke
+        mask = chip_smoke.mocap_mask(torch.device("cpu")).numpy()
+    else:
+        mask = _mask(n, isolated=4 if masked else None)
     jf, jm = jax_pairwise(clip_edges, *map(jnp.asarray, (x, hi, hj, efea, mask)),
                           tuple(map(jnp.asarray, weights)))
     args = (*map(t, (x, hi, hj, efea, mask)), tuple(map(t, weights)))
@@ -90,7 +102,7 @@ def test_plain_version_matches_pallas_interpret(clip_edges, masked, h, e):
     if clip_edges:
         unclipped, _ = egnn_fused.pairwise_message_reference(False, *args)
         assert (unclipped - tf).abs().max() > 1.0, "the clip never engaged"
-    if masked:
+    if masked and n != 31:
         assert float(tf[:, 4].abs().max()) == 0.0   # isolated: degree clamp
 
 
@@ -164,7 +176,7 @@ def test_padded_width_gives_the_native_width(h, form):
     forms: the whole graph, the per-edge clip engaged, two stacked weight
     sets, receivers 2-4 of 5. With the clip, tot_f is a mean of per-edge
     forces of up to the clip's 100 each, so its scale includes 100. H=200
-    pads to the wide route's 256."""
+    pads to the tile routes' 256."""
     hp = egnn_fused.padded_width(h)
     assert hp == (64 if h <= 64 else 128 if h <= 128 else 256)
     clip = form == "clip"
@@ -199,14 +211,14 @@ def test_padded_width_gives_the_native_width(h, form):
 
 @pytest.mark.parametrize("h", [1, 64, 100, 128, 129, 200, 256, 1000])
 def test_every_width_has_a_route(h):
-    """Every width runs on the card: at 64 or 128 (their instantiations,
-    E <= 4) or at the wide route's width, H rounded up to 64 columns; the
-    wrapper's checks take it with E = 2 and E = 6, and pad and cut it."""
+    """Every width runs on the card: at 64 (the H=64 kernels, E <= 4) or on
+    the tile routes, at H rounded up to 64 columns; the wrapper's checks
+    take it with E = 2 and E = 6, and pad and cut it."""
     hp = egnn_fused.padded_width(h)
     assert hp == {1: 64, 64: 64, 100: 128, 128: 128, 129: 192, 200: 256,
                   256: 256, 1000: 1024}[h]
-    assert egnn_fused.wide_route(h, 2) == (hp > 128)
-    assert egnn_fused.wide_route(h, 6)          # E > 4: the wide route
+    assert egnn_fused.tile_route(h, 2) == (hp > 64)
+    assert egnn_fused.tile_route(h, 6)          # E > 4: the tile routes
     for e in (2, 6):
         x, hi, hj, efea, weights = _chain_inputs(2, 5, h, e, seed=h)
         args = (*map(t, (x, hi, hj, efea, _mask(5))), tuple(map(t, weights)))

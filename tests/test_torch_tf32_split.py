@@ -11,10 +11,16 @@ CPU at the kernels' shapes (rows x 64 @ 64 x 64, and the weight gradients'
 64 x rows @ rows x 64), with the weights and activation scales of
 chip_smoke.pairwise_inputs, and holds it to a float64 product: split TF32
 stays within 1e-5 x max(1, max|ref|), the kernels' fp32-parity budget, and a
-single TF32 pass does not. The same holds at the wide route's widths (H = 256
-and 1024, csrc/egnn_wide.cuh), where a product's K steps over H: the budget
-the card's wide-route cases are held to.
+single TF32 pass does not. The same holds at the tile routes' widths (H =
+256 and 1024), where a product's K steps over H: the budget the card's
+cases there are held to. #1's tile route reads W2 and Wc1 as slabs that a
+split pass writes once a call, in wgmma's shared-memory layout
+(csrc/egnn_wgmma.cuh): the last tests rebuild a product from that layout,
+read as the descriptors read it, and hold it to the same budget.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -164,9 +170,143 @@ def test_split_tf32_chain_meets_the_budget_at_every_width(h):
     the accumulation rounded to nearest, against the fp32 plain version:
     within the budget at every width, the depth of the contraction
     notwithstanding (what the wide route's chunked accumulation keeps on
-    the card, csrc/egnn_wide.cuh)."""
+    the card, csrc/egnn_wide.cuh: each 64-deep chunk of K from zero)."""
     inputs = chip_smoke.pairwise_inputs(32, 5, h, 2, seed=5, dev="cpu")
     plain = chain_tot_f(*inputs, lambda a, b: a @ b)
     split = chain_tot_f(*inputs, lambda a, b: tc_product(a, b, 3))
     bound = TOL * max(1.0, float(plain.abs().max()))
     assert float((split - plain).abs().max()) <= bound
+
+
+WGMMA_HEADER = Path(__file__).resolve().parents[1] / "nonode_tpu_torch" / \
+    "csrc" / "egnn_wgmma.cuh"
+
+
+def slab_constants():
+    """kPanel, kLbo, kSbo and kStepBytes as csrc/egnn_wgmma.cuh defines
+    them."""
+    text = WGMMA_HEADER.read_text()
+    out = {}
+    for name in ("kPanel", "kLbo", "kSbo", "kStepBytes"):
+        m = re.search(rf"constexpr \w+ {name} = ([^;]+);", text)
+        out[name] = eval(m.group(1), {}, dict(out))
+    return out
+
+
+def fwd_slabs(w, hp):
+    """One weight [h][h] ([in][out]) as #1's split pass (egnn_fwd_split)
+    writes it at padded width hp: slab (pass, chunk) at pass * NP + chunk,
+    its big part then its small part, element (n, k) of B(k, n) =
+    W[64 chunk + k][64 pass + n] at ((n / 8) * 16 + k / 4) * 32 + (n % 8) *
+    4 + k % 4; zero from row or column h."""
+    c = slab_constants()
+    panel = c["kPanel"]
+    np_ = hp // panel
+    h = w.shape[0]
+    wp = torch.zeros(hp, hp)
+    wp[:h, :h] = w
+    f = torch.arange(hp * hp)
+    slab, within = f // (panel * panel), f % (panel * panel)
+    pas, chunk = slab // np_, slab % np_
+    cm = within >> 5
+    n = (cm >> 4) * 8 + ((within & 31) >> 2)
+    k = (cm & 15) * 4 + (within & 3)
+    big, small = split(wp[chunk * panel + k, pas * panel + n])
+    out = torch.zeros(np_ * np_, 2, panel * panel)
+    out[slab, 0, within] = big
+    out[slab, 1, within] = small
+    return out
+
+
+def descriptor_read(part, ks):
+    """B(k, n), k < 8 and n < 64, of k step ks of one slab part, read as
+    wgmma reads a K-major operand without swizzle through slab_desc: the
+    start advanced ks x kStepBytes; core matrices of 8 rows n and 16 bytes
+    (4 k each), the two along k kLbo bytes apart, the 8-row groups along n
+    kSbo bytes apart."""
+    c = slab_constants()
+    n = torch.arange(c["kPanel"])[None, :]
+    k = torch.arange(8)[:, None]
+    byte = (ks * c["kStepBytes"] + (n // 8) * c["kSbo"] + (n % 8) * 16
+            + (k // 4) * c["kLbo"] + (k % 4) * 4)
+    return part[byte // 4]
+
+
+def slab_product(a, slabs, hp):
+    """a @ W over every pass as #1's tile route takes it from the slabs:
+    per 64-column pass, each 64-deep chunk of K from zero in 8-deep steps
+    (small * big, big * small, big * big), the chunks added in fp32."""
+    panel = slab_constants()["kPanel"]
+    np_ = hp // panel
+    ap = torch.zeros(a.shape[0], hp)
+    ap[:, :a.shape[1]] = a
+    out = torch.zeros(a.shape[0], hp)
+    for pas in range(np_):
+        run = torch.zeros(a.shape[0], panel)
+        for chunk in range(np_):
+            part = torch.zeros(a.shape[0], panel)
+            for ks in range(8):
+                k0 = chunk * panel + 8 * ks
+                a_big, a_small = split(ap[:, k0:k0 + 8])
+                slab = slabs[pas * np_ + chunk]
+                b_big = descriptor_read(slab[0], ks)
+                b_small = descriptor_read(slab[1], ks)
+                part = part + a_small @ b_big
+                part = part + a_big @ b_small
+                part = part + a_big @ b_big
+            run = run + part
+        out[:, pas * panel:(pas + 1) * panel] = run
+    return out
+
+
+def test_slab_layout_constants_describe_one_k_step():
+    """A k step is two core matrices along k (kStepBytes = 2 kLbo), a
+    slab's 8 n-groups are kSbo apart, and a slab part of 64 x 64 floats
+    holds 16 k-groups of 8 core matrices each: every float of a part is
+    read exactly once over the 8 k steps."""
+    c = slab_constants()
+    assert (c["kPanel"], c["kLbo"], c["kSbo"], c["kStepBytes"]) == \
+        (64, 128, 2048, 256)
+    part = torch.arange(64 * 64, dtype=torch.float32)
+    seen = torch.cat([descriptor_read(part, ks).flatten() for ks in range(8)])
+    assert torch.equal(seen.sort().values, part)
+
+
+@pytest.mark.parametrize("h", [64, 97, 128, 200, 256])
+def test_slabs_read_through_the_descriptors_give_the_weight(h):
+    """The split pass's slabs, read back through the descriptors' layout,
+    hold every element of W (zero-padded to the padded width) as big +
+    small, and the zero padding exactly."""
+    hp = max(64, -(-h // 64) * 64)
+    w = torch.tensor(np.random.RandomState(h).randn(h, h) / np.sqrt(h),
+                     dtype=torch.float32)
+    slabs = fwd_slabs(w, hp)
+    np_ = hp // 64
+    back = torch.zeros(hp, hp)
+    for pas in range(np_):
+        for chunk in range(np_):
+            for ks in range(8):
+                rows = slice(chunk * 64 + 8 * ks, chunk * 64 + 8 * ks + 8)
+                slab = slabs[pas * np_ + chunk]
+                back[rows, pas * 64:(pas + 1) * 64] = (
+                    descriptor_read(slab[0], ks).double()
+                    + descriptor_read(slab[1], ks).double()).float()
+    assert float((back[:h, :h] - w).abs().max()) <= 2.0 ** -21 * float(
+        w.abs().max())
+    assert not back[h:].any() and not back[:, h:].any()
+
+
+@pytest.mark.parametrize("h", [97, 128, 256])
+@pytest.mark.parametrize("name", ("a1 @ W2", "msg @ Wc1"))
+def test_slab_products_meet_the_fp32_budget(name, h):
+    """The forward's two products as #1's tile route takes them from the
+    slabs (native width h, run at the padded width): within the split-TF32
+    budget of the float64 product at every column, the padded columns
+    exactly zero."""
+    hp = max(64, -(-h // 64) * 64)
+    a, w = chain_products(1.0, h, g=4)[name]
+    got = slab_product(a, fwd_slabs(w, hp), hp)
+    ref = a.double() @ w.double()
+    bound = TOL * max(1.0, float(ref.abs().max()))
+    assert float((got[:, :h].double() - ref).abs().max()) <= bound
+    assert not got[:, h:].any()
