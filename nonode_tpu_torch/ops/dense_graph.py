@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..nn import MLP, Act, Linear, silu, xavier_uniform
+from ..utils.profiling import span
 from .kernels import egnn_fused
 
 
@@ -212,41 +213,42 @@ class EGNNLayer(nn.Module):
         edge_mask: optional [..., N, N] 0/1 mask restricting the graph;
         defaults to the complete graph. ``rows`` (ReceiverRows): x, h hold
         the receivers [i0, i0 + ni) and edge_fea [..., ni, N, E]."""
-        ni = x.shape[-2]
-        xs, hs, n, i0 = sender_view(x, h, rows)
-        mask = offdiag_mask(n, x.dtype, x.device, i0,
-                            None if rows is None else ni)
-        if edge_mask is not None:
-            mask = mask * edge_mask[..., i0:i0 + ni, :]
+        with span("egnn.layer"):
+            ni = x.shape[-2]
+            xs, hs, n, i0 = sender_view(x, h, rows)
+            mask = offdiag_mask(n, x.dtype, x.device, i0,
+                                None if rows is None else ni)
+            if edge_mask is not None:
+                mask = mask * edge_mask[..., i0:i0 + ni, :]
 
-        if self._use_fused(x, edge_mask, n):
-            # the edge MLP's input order: [||r_ij||^2, h_i, h_j, edge_fea]
-            tot_f, tot_message = fused_chain(
-                False, x, h, edge_fea, mask, self.edge_net.mlp[0],
-                self.edge_net.mlp[2], self.coord_net.mlp[0],
-                self.coord_net.mlp[2], radial_col=0, hi_col=1, xs=xs, hs=hs,
-                i0=i0)
-        else:
-            rij = pairwise_diff(x, xs)
-            r2 = (rij * rij).sum(dim=-1, keepdim=True)
-            gram = _l2_normalize(r2) if self.norm else r2
-            pre = first_edge_linear(
-                self.edge_net.mlp[0],
-                [(gram, "pair"), (h, "i"), (hs, "j"), (edge_fea, "pair")])
-            message = self.edge_net.from_preact(pre)
-            coord_w = self.coord_net(message)
-            tot_f = masked_mean_j(rij * coord_w, mask)
-            tot_message = masked_sum_j(message, mask)
-        tot_f = tot_f.clamp(-100.0, 100.0)
+            if self._use_fused(x, edge_mask, n):
+                # the edge MLP's input order: [||r_ij||^2, h_i, h_j, edge_fea]
+                tot_f, tot_message = fused_chain(
+                    False, x, h, edge_fea, mask, self.edge_net.mlp[0],
+                    self.edge_net.mlp[2], self.coord_net.mlp[0],
+                    self.coord_net.mlp[2], radial_col=0, hi_col=1, xs=xs,
+                    hs=hs, i0=i0)
+            else:
+                rij = pairwise_diff(x, xs)
+                r2 = (rij * rij).sum(dim=-1, keepdim=True)
+                gram = _l2_normalize(r2) if self.norm else r2
+                pre = first_edge_linear(
+                    self.edge_net.mlp[0],
+                    [(gram, "pair"), (h, "i"), (hs, "j"), (edge_fea, "pair")])
+                message = self.edge_net.from_preact(pre)
+                coord_w = self.coord_net(message)
+                tot_f = masked_mean_j(rij * coord_w, mask)
+                tot_message = masked_sum_j(message, mask)
+            tot_f = tot_f.clamp(-100.0, 100.0)
 
-        if v is not None:
-            x = x + self.node_v_net(h) * v + tot_f
-        else:
-            x = x + tot_f
+            if v is not None:
+                x = x + self.node_v_net(h) * v + tot_f
+            else:
+                x = x + tot_f
 
-        if self.h_update:
-            h = self.node_net(torch.cat([h, tot_message], dim=-1))
-        return x, v, h
+            if self.h_update:
+                h = self.node_net(torch.cat([h, tot_message], dim=-1))
+            return x, v, h
 
 
 class SEGNOGCL(nn.Module):
@@ -317,30 +319,33 @@ class SEGNOGCL(nn.Module):
         h: [..., N, H]; x, v: [..., N, 3]; edge_attr: [..., N, N, E] or None.
         ``rows`` (ReceiverRows): h, x, v hold the receivers [i0, i0 + ni)
         and edge_attr [..., ni, N, E]. Returns (h, x, v)."""
-        ni = x.shape[-2]
-        xs, hs, n, i0 = sender_view(x, h, rows)
-        mask = offdiag_mask(n, x.dtype, x.device, i0,
-                            None if rows is None else ni)
-        if self._use_fused(x, edge_attr, n):
-            tot_trans, msg = fused_chain(
-                True, x, h, edge_attr, mask, self.edge_mlp[0],
-                self.edge_mlp[2], self.coord_mlp[0], self.coord_mlp[2],
-                radial_col=2 * self.hidden_nf, hi_col=0, xs=xs, hs=hs, i0=i0)
-            agg = tot_trans * self.coords_weight
-        else:
-            rij = pairwise_diff(x, xs)
-            radial = (rij * rij).sum(dim=-1, keepdim=True)
-            segs = [(h, "i"), (hs, "j"), (radial, "pair")]
-            if edge_attr is not None and self.in_edge_nf:
-                segs.append((edge_attr, "pair"))
-            pre = first_edge_linear(self.edge_mlp[0], segs)
-            edge_feat = self.act(self.edge_mlp[2](self.act(pre)))
-            trans = (rij * self._coord_head(edge_feat)).clamp(-100.0, 100.0)
-            agg = masked_mean_j(trans, mask) * self.coords_weight
-            msg = masked_sum_j(edge_feat, mask)
+        with span("segno.gcl"):
+            ni = x.shape[-2]
+            xs, hs, n, i0 = sender_view(x, h, rows)
+            mask = offdiag_mask(n, x.dtype, x.device, i0,
+                                None if rows is None else ni)
+            if self._use_fused(x, edge_attr, n):
+                tot_trans, msg = fused_chain(
+                    True, x, h, edge_attr, mask, self.edge_mlp[0],
+                    self.edge_mlp[2], self.coord_mlp[0], self.coord_mlp[2],
+                    radial_col=2 * self.hidden_nf, hi_col=0, xs=xs, hs=hs,
+                    i0=i0)
+                agg = tot_trans * self.coords_weight
+            else:
+                rij = pairwise_diff(x, xs)
+                radial = (rij * rij).sum(dim=-1, keepdim=True)
+                segs = [(h, "i"), (hs, "j"), (radial, "pair")]
+                if edge_attr is not None and self.in_edge_nf:
+                    segs.append((edge_attr, "pair"))
+                pre = first_edge_linear(self.edge_mlp[0], segs)
+                edge_feat = self.act(self.edge_mlp[2](self.act(pre)))
+                trans = (rij * self._coord_head(edge_feat)).clamp(-100.0,
+                                                                  100.0)
+                agg = masked_mean_j(trans, mask) * self.coords_weight
+                msg = masked_sum_j(edge_feat, mask)
 
-        v = v + agg * inv_steps
-        x = x + v * inv_steps
-        out = self.node_mlp(torch.cat([h, msg], dim=-1))
-        h = h + out if self.recurrent else out
-        return h, x, v
+            v = v + agg * inv_steps
+            x = x + v * inv_steps
+            out = self.node_mlp(torch.cat([h, msg], dim=-1))
+            h = h + out if self.recurrent else out
+            return h, x, v

@@ -61,6 +61,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ...utils.profiling import span
 from .build import load
 
 SOURCE = "egnn_fused_fwd.cu"
@@ -475,13 +476,14 @@ class _PairwiseMessage(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gtotf, gtotm):
-        x, hi, hj, efea, mask, *weights = ctx.saved_tensors
-        dx, dhi, dhj, defea, dweights = pairwise_message_bwd(
-            ctx.clip_edges, x, hi, hj, efea, mask, tuple(weights),
-            gtotf.contiguous(), gtotm.contiguous(), ctx.i0)
-        grads = (dx, dhi, dhj, defea, None, *dweights)
-        return (None, None, *(gr if need else None for gr, need in
-                              zip(grads, ctx.needs_input_grad[2:])))
+        with span("kernel.pairwise_bwd"):
+            x, hi, hj, efea, mask, *weights = ctx.saved_tensors
+            dx, dhi, dhj, defea, dweights = pairwise_message_bwd(
+                ctx.clip_edges, x, hi, hj, efea, mask, tuple(weights),
+                gtotf.contiguous(), gtotm.contiguous(), ctx.i0)
+            grads = (dx, dhi, dhj, defea, None, *dweights)
+            return (None, None, *(gr if need else None for gr, need in
+                                  zip(grads, ctx.needs_input_grad[2:])))
 
     @staticmethod
     def vmap(info, in_dims, clip_edges, i0, x, hi, hj, efea, mask, *weights):
@@ -517,10 +519,12 @@ def pairwise_message(clip_edges, x, hi, hj, efea, mask, weights, i0=0):
     [K, ...] over G = K * B graphs (graph g on set g // B, the whole graph
     only). ni = N, i0 = 0: the whole graph.
     """
-    if len(weights) != N_WEIGHTS:
-        raise ValueError(f"expected {N_WEIGHTS} weights, got {len(weights)}")
-    return _PairwiseMessage.apply(bool(clip_edges), int(i0), x, hi, hj, efea,
-                                  mask, *weights)
+    with span("kernel.pairwise_fwd"):
+        if len(weights) != N_WEIGHTS:
+            raise ValueError(f"expected {N_WEIGHTS} weights, got "
+                             f"{len(weights)}")
+        return _PairwiseMessage.apply(bool(clip_edges), int(i0), x, hi, hj,
+                                      efea, mask, *weights)
 
 
 pairwise_message.launches = 0

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..runtime import seed_everything
 from ..train.loop import make_perm, zero_missing_grads
+from ..utils.profiling import span
 
 
 def eval_shard_indices(n: int, world_size: int, rank: int,
@@ -147,12 +148,15 @@ class SeedFleet:
             self.exp.device)
         losses, last = [], []
         for b in range(perms.shape[1]):
-            loss, per_frame = self._losses(params, ds, windows, b,
-                                           perms[:, b], per_seed_windows)
-            opt.zero_grad(set_to_none=True)
-            loss.sum().backward()        # the sum: see ``optimizer``
-            zero_missing_grads(params.values())
-            opt.step()
+            with span("step.forward"):
+                loss, per_frame = self._losses(params, ds, windows, b,
+                                               perms[:, b], per_seed_windows)
+            with span("step.backward"):
+                opt.zero_grad(set_to_none=True)
+                loss.sum().backward()        # the sum: see ``optimizer``
+            with span("step.optimizer"):
+                zero_missing_grads(params.values())
+                opt.step()
             losses.append(loss.detach())
             last.append(per_frame[:, -1].detach())
         return torch.stack(losses, 1), torch.stack(last, 1)

@@ -40,6 +40,7 @@ import torch
 from ..data.nbody import NBodyDataset
 from ..models.egno import EGNO
 from ..models.segno import SEGNO
+from ..utils.profiling import span
 from .metrics import conserved_energy, pearson_correlation_batch
 
 
@@ -143,12 +144,14 @@ class _Experiment:
                                 weight_decay=self.weight_decay)
 
     def _adam_step(self, loss):
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.mesh is not None:
-            self.mesh.all_reduce_grads(self.model.parameters())
-        zero_missing_grads(self.model.parameters())
-        self.optimizer.step()
+        with span("step.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("step.optimizer"):
+            if self.mesh is not None:
+                self.mesh.all_reduce_grads(self.model.parameters())
+            zero_missing_grads(self.model.parameters())
+            self.optimizer.step()
 
     # ---------- the mesh ----------
 
@@ -185,7 +188,8 @@ class _Experiment:
     def step(self, batch):
         """One Adam-L2 step on a global batch: (loss, per-frame losses),
         this rank's shares, detached."""
-        loss, per_frame = self._loss(self.shard(batch))
+        with span("step.forward"):
+            loss, per_frame = self._loss(self.shard(batch))
         self._adam_step(loss)
         return loss.detach(), per_frame.detach()
 
@@ -360,15 +364,19 @@ class EGNOExperiment(_Experiment):
         rows = torch.arange(fb.shape[0], device=fb.device)[:, None]
         xs, vs = [], []
         for i in range(traj_len):
-            # per-window output timesteps, shifted back by i*T
-            t_out = t_out_all[:, i * t_model:(i + 1) * t_model] - i * t_model
-            x, v, _ = self._forward(loc, vel, charges, w, t_in, t_out)
-            xs.append(x)
-            vs.append(v)
-            loc, vel = x[fb, rows], v[fb, rows]            # [B, L, N, 3]
-        locs_pred = self._gathered(torch.cat(xs), 1, 2)
-        vels = self._gathered(torch.cat(vs), 1, 2)
-        energies = conserved_energy(dataset_kind, locs_pred, vels, batch[2])
+            with span("rollout.window"):
+                # per-window output timesteps, shifted back by i*T
+                t_out = (t_out_all[:, i * t_model:(i + 1) * t_model]
+                         - i * t_model)
+                x, v, _ = self._forward(loc, vel, charges, w, t_in, t_out)
+                xs.append(x)
+                vs.append(v)
+                loc, vel = x[fb, rows], v[fb, rows]        # [B, L, N, 3]
+        with span("rollout.energy"):
+            locs_pred = self._gathered(torch.cat(xs), 1, 2)
+            vels = self._gathered(torch.cat(vs), 1, 2)
+            energies = conserved_energy(dataset_kind, locs_pred, vels,
+                                        batch[2])
         return locs_pred, energies[..., None]
 
     @torch.no_grad()
@@ -378,40 +386,46 @@ class EGNOExperiment(_Experiment):
         artifact = {targets, preds, energy_conservation, test_loss} plus the
         finite-sample companions, as numpy arrays."""
         t_model = self.model.num_timesteps
-        idx_np = self.epoch_index_arrays(ds, rng)
+        with span("rollout.batch"):                   # the call's indices
+            idx_np = self.epoch_index_arrays(ds, rng)
+            idx_arrays = {k: torch.from_numpy(v).to(ds.device)
+                          for k, v in idx_np.items()}
         avail = idx_np["out_frames"].shape[1]
         traj_len = min(ds.traj_len, avail // t_model)
         cut = int(0.4 * ds.traj_len * t_model)
 
         ds_arrays = (ds.loc, ds.vel, ds.charges, ds.edge_weights)
-        idx_arrays = {k: torch.from_numpy(v).to(ds.device)
-                      for k, v in idx_np.items()}
-
         n = len(ds)
         tot_loss = tot_steps = count = 0.0
         targets_l, preds_l, energies_l = [], [], []
         for s0 in range(0, n - batch_size + 1, batch_size):   # drop_last
-            idx = torch.arange(s0, s0 + batch_size, device=ds.device)
-            batch = self._batch(ds_arrays, idx_arrays, idx)
+            with span("rollout.batch"):
+                idx = torch.arange(s0, s0 + batch_size, device=ds.device)
+                batch = self._batch(ds_arrays, idx_arrays, idx)
             locs_pred, energies = self.rollout(batch, traj_len, ds.dataset)
-            loc_true = batch[4]                            # [B, T', N, 3]
-            tcur = locs_pred.shape[0]
-            truth = loc_true.transpose(0, 1)[:tcur]        # [T', B, N, 3]
+            with span("rollout.metrics"):
+                loc_true = batch[4]                        # [B, T', N, 3]
+                tcur = locs_pred.shape[0]
+                truth = loc_true.transpose(0, 1)[:tcur]    # [T', B, N, 3]
 
-            b, nn_ = loc_true.shape[0], loc_true.shape[2]
-            _, avg_steps, _ = pearson_correlation_batch(
-                locs_pred.reshape(tcur, -1, 3), truth.reshape(tcur, -1, 3), nn_)
+                b, nn_ = loc_true.shape[0], loc_true.shape[2]
+                _, avg_steps, _ = pearson_correlation_batch(
+                    locs_pred.reshape(tcur, -1, 3),
+                    truth.reshape(tcur, -1, 3), nn_)
 
-            sup = min(cut, tcur)
-            losses = ((locs_pred[:sup] - truth[:sup]) ** 2).mean(dim=(1, 2, 3))
-            loss = losses.mean()
+                sup = min(cut, tcur)
+                losses = ((locs_pred[:sup] - truth[:sup]) ** 2).mean(
+                    dim=(1, 2, 3))
+                loss = losses.mean()
 
-            tot_loss += float(loss) * b
-            tot_steps += float(avg_steps) * b
-            count += b
-            targets_l.append(truth.transpose(0, 1).cpu().numpy())
-            preds_l.append(locs_pred[:sup].transpose(0, 1).cpu().numpy())
-            energies_l.append(energies[:sup].transpose(0, 1).cpu().numpy())
+            with span("rollout.readback"):
+                tot_loss += float(loss) * b
+                tot_steps += float(avg_steps) * b
+                count += b
+                targets_l.append(truth.transpose(0, 1).cpu().numpy())
+                preds_l.append(locs_pred[:sup].transpose(0, 1).cpu().numpy())
+                energies_l.append(
+                    energies[:sup].transpose(0, 1).cpu().numpy())
 
         test_loss = tot_loss / count
         artifact = {
@@ -560,20 +574,23 @@ class SEGNOExperiment(_Experiment):
         t = self.num_timesteps
         xs, vs = [], []
         for _ in range(traj_len):
-            his, edge_attr = self._features(loc, vel, charges, w, rows)
-            x, _, v = self.model(his, loc, vel, edge_attr, T=t,
-                                 in_steps=in_steps, rows=rows)
-            xs.append(x)
-            vs.append(v)
-            if in_steps:
-                loc = torch.cat([loc[1:], x[None]])
-                vel = torch.cat([vel[1:], v[None]])
-                in_steps = tuple(s - t for s in (*in_steps[1:], t))
-            else:
-                loc, vel = x, v
-        locs_pred = self._gathered(torch.stack(xs), 1, 2)
-        vels = self._gathered(torch.stack(vs), 1, 2)
-        energies = conserved_energy(dataset_kind, locs_pred, vels, batch[2])
+            with span("rollout.window"):
+                his, edge_attr = self._features(loc, vel, charges, w, rows)
+                x, _, v = self.model(his, loc, vel, edge_attr, T=t,
+                                     in_steps=in_steps, rows=rows)
+                xs.append(x)
+                vs.append(v)
+                if in_steps:
+                    loc = torch.cat([loc[1:], x[None]])
+                    vel = torch.cat([vel[1:], v[None]])
+                    in_steps = tuple(s - t for s in (*in_steps[1:], t))
+                else:
+                    loc, vel = x, v
+        with span("rollout.energy"):
+            locs_pred = self._gathered(torch.stack(xs), 1, 2)
+            vels = self._gathered(torch.stack(vs), 1, 2)
+            energies = conserved_energy(dataset_kind, locs_pred, vels,
+                                        batch[2])
         return locs_pred, energies[..., None]
 
     @torch.no_grad()
@@ -596,27 +613,32 @@ class SEGNOExperiment(_Experiment):
         tot_loss = tot_steps = count = 0.0
         targets_l, preds_l, energies_l = [], [], []
         for s0 in range(0, n - batch_size + 1, batch_size):   # drop_last
-            # a window drawn per batch, as the reference's batch loop does
-            frames = self.windows(ds, rng, 1)
-            # targets anchor where the model's input offsets do
-            # (train_nbody.py:104-107,136-137)
-            pred_indices = self._anchor(ds, frames[0]) + np.cumsum([t] * tl)
-            idx = torch.arange(s0, s0 + batch_size, device=ds.device)
-            locs_pred, energies = self.rollout(
-                self.batch(ds, frames, 0, idx), tl, ds.dataset)
-            truth = torch.stack([ds.loc[idx, int(f)] for f in pred_indices])
-
-            b = len(idx)
-            _, avg_steps, _ = pearson_correlation_batch(
-                locs_pred.reshape(tl, -1, 3), truth.reshape(tl, -1, 3),
-                ds.n_balls)
-            loss = ((locs_pred - truth) ** 2).mean(dim=(1, 2, 3)).mean()
-            tot_loss += float(loss) * b
-            tot_steps += float(avg_steps) * b
-            count += b
-            targets_l.append(truth.transpose(0, 1).cpu().numpy())
-            preds_l.append(locs_pred.transpose(0, 1).cpu().numpy())
-            energies_l.append(energies.transpose(0, 1).cpu().numpy())
+            with span("rollout.batch"):
+                # a window drawn per batch, as the reference's batch loop
+                # does
+                frames = self.windows(ds, rng, 1)
+                # targets anchor where the model's input offsets do
+                # (train_nbody.py:104-107,136-137)
+                pred_indices = (self._anchor(ds, frames[0])
+                                + np.cumsum([t] * tl))
+                idx = torch.arange(s0, s0 + batch_size, device=ds.device)
+                batch = self.batch(ds, frames, 0, idx)
+            locs_pred, energies = self.rollout(batch, tl, ds.dataset)
+            with span("rollout.metrics"):
+                truth = torch.stack([ds.loc[idx, int(f)]
+                                     for f in pred_indices])
+                b = len(idx)
+                _, avg_steps, _ = pearson_correlation_batch(
+                    locs_pred.reshape(tl, -1, 3), truth.reshape(tl, -1, 3),
+                    ds.n_balls)
+                loss = ((locs_pred - truth) ** 2).mean(dim=(1, 2, 3)).mean()
+            with span("rollout.readback"):
+                tot_loss += float(loss) * b
+                tot_steps += float(avg_steps) * b
+                count += b
+                targets_l.append(truth.transpose(0, 1).cpu().numpy())
+                preds_l.append(locs_pred.transpose(0, 1).cpu().numpy())
+                energies_l.append(energies.transpose(0, 1).cpu().numpy())
 
         test_loss = tot_loss / count
         artifact = {

@@ -1,1 +1,1 @@
-from .profiling import PhaseTimer, trace, annotate
+from .profiling import PhaseTimer, span

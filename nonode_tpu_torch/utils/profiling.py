@@ -1,10 +1,11 @@
-"""Tracing and phase timing (the port's counterpart of
+"""Spans and phase timing (the port's counterpart of
 nonode_tpu/utils/profiling.py).
 
-- ``trace(dir)``: context manager around ``torch.profiler`` (CPU and, where
-  the build has it, CUDA activity) that writes a TensorBoard-viewable
-  Chrome trace into ``dir``.
-- ``annotate(name)``: named region inside a trace (``record_function``).
+- ``span(name)``: the program's named range ``nonode:<name>`` on
+  torch.profiler's timeline while a profiler records, so that it shares
+  the clock of the device trace; otherwise one shared null context, so
+  that a span left in the program costs a check and nothing else. The
+  profiler keeps the spans with its other events.
 - ``PhaseTimer``: wall-clock phase accounting (data load / train / eval /
   rollout breakdown per run), each window closed on the device.
 """
@@ -18,21 +19,20 @@ from collections import defaultdict
 
 import torch
 
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """Capture a torch.profiler trace into ``log_dir``
-    (``*.pt.trace.json``, one file a trace)."""
-    prof = torch.profiler.profile(
-        activities=list(torch.profiler.supported_activities()),
-        on_trace_ready=torch.profiler.tensorboard_trace_handler(str(log_dir)))
-    with prof:
-        yield prof
+PREFIX = "nonode:"
+_OFF = contextlib.nullcontext()
+# A range that enters the profiler's record directly: ``record_function``
+# goes through two dispatcher ops and costs the traced host about ten
+# times as much a span.
+_RANGE = torch._C._profiler._RecordFunctionFast
 
 
-def annotate(name: str):
-    """Named region visible in profiler traces."""
-    return torch.profiler.record_function(name)
+def span(name: str):
+    """The range ``nonode:<name>`` while a profiler records, else a null
+    context (nothing allocated, nothing entered)."""
+    if torch.autograd._profiler_enabled():
+        return _RANGE(PREFIX + name)
+    return _OFF
 
 
 def _cuda_devices(tree, found: set) -> set:

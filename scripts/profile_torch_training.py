@@ -9,7 +9,10 @@ split, takes one Adam-L2 step on a batch of 256 to warm up, then traces
 ``--steps`` steps with torch.profiler. Prints the host wall time, the summed
 device kernel time, the device idle share (1 - kernel time / wall) and the
 kernels with the most device time, with the card's name and power limit;
-then the untraced wall of as many other steps. With ``--fleet K`` a step is
+then the device time a step by the innermost ``nonode:`` span of the
+program (``utils/profiling.py:span``) around the host op that launched each
+kernel, with the kernels that take the most of it; then the untraced wall
+of as many other steps. With ``--fleet K`` a step is
 a seed fleet's (parallel/fleet.py): K seeds 1 .. K, each on its own batch
 of 256, as fleet_main trains them.
 """
@@ -20,6 +23,7 @@ import argparse
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -32,8 +36,53 @@ from nonode_tpu_torch.data.nbody import NBodyDataset  # noqa: E402
 from nonode_tpu_torch.main import build_experiment, get_args  # noqa: E402
 from nonode_tpu_torch.parallel.fleet import SeedFleet  # noqa: E402
 from nonode_tpu_torch.runtime import resolve_device  # noqa: E402
+from nonode_tpu_torch.utils.profiling import PREFIX  # noqa: E402
 
 BATCH = 256
+BACKWARD = "autograd::engine::evaluate_function"
+
+
+def _innermost_span(e):
+    """(the name of the innermost program span around host event ``e`` on
+    its thread, the op under that span that holds ``e``); (None, None)
+    where there is no span."""
+    op = None
+    while e is not None and not e.name.startswith(PREFIX):
+        e, op = e.cpu_parent, e
+    return (None, None) if e is None else (e.name[len(PREFIX):], op)
+
+
+def device_us_by_span(events):
+    """{span: {kernel: device µs}} of the profiler's ``events``: a kernel
+    counts for the innermost program span around the host op that launched
+    it (the profiler's correlation of a launch with its kernel gives each
+    op its ``kernels``). An op of autograd's backward, which runs outside
+    the forward's spans, counts for the span of the forward op that made
+    its node (their sequence number), as ``<span> (backward of <op>)``,
+    where ``<op>`` is the op directly under that span which made it; "none"
+    where no span is found."""
+    forward = {}
+    for e in events:
+        if e.sequence_nr >= 0 and not e.name.startswith(BACKWARD):
+            span, op = _innermost_span(e)
+            if span is not None:
+                forward.setdefault((e.thread, e.sequence_nr),
+                                   f"{span} (backward of "
+                                   f"{(op or e).name})")
+    by = defaultdict(lambda: defaultdict(float))
+    for e in events:
+        if not e.kernels:
+            continue
+        span, _ = _innermost_span(e)
+        node = e
+        while span is None and node is not None:
+            if node.name.startswith(BACKWARD) and node.sequence_nr >= 0:
+                span = forward.get((node.fwd_thread, node.sequence_nr))
+                break
+            node = node.cpu_parent
+        for k in e.kernels:
+            by[span or "none"][k.name] += k.duration
+    return by
 
 
 def main(argv=None):
@@ -102,6 +151,16 @@ def main(argv=None):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
+    by = device_us_by_span(prof.events())
+    total = sum(sum(k.values()) for k in by.values())
+    print(f"device ms a step by the innermost nonode: span (kernels "
+          f"{total / 1e3 / args.steps:.3f} ms a step):")
+    for span, kernels in sorted(by.items(), key=lambda kv:
+                                -sum(kv[1].values())):
+        print(f"  {sum(kernels.values()) / 1e3 / args.steps:9.3f} ms  "
+              f"{span}")
+        for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:3]:
+            print(f"  {'':9} {us / 1e3 / args.steps:9.3f} ms  {name[:80]}")
     t0 = time.perf_counter()
     steps(perm[1 + args.steps:1 + 2 * args.steps])
     torch.cuda.synchronize()

@@ -14,8 +14,7 @@ to NaN), not close:
 - a reference ``.pt`` pickle (a dict, a ``torch_geometric.data.Data``, a
   PyG-style store, SEGNO's loss/counter layout) loads through the port's
   stub as through JAX's.
-PhaseTimer's counts, totals and schema equal JAX's on one clock; trace
-writes a trace file on the CPU.
+PhaseTimer's counts, totals and schema equal JAX's on one clock.
 """
 
 import json
@@ -330,12 +329,3 @@ def test_phase_timer_reads_block_on_when_the_body_ends():
         out.append((torch.ones(2), {"x": [torch.zeros(1)]}))
     assert timer.counts["step"] == 1
     assert tprofiling._cuda_devices(out, set()) == set()
-
-
-def test_trace_writes_a_trace_file(tmp_path):
-    with tprofiling.trace(tmp_path):
-        with tprofiling.annotate("port_region"):
-            (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
-    files = list(tmp_path.glob("*.pt.trace.json"))
-    assert len(files) == 1
-    assert "port_region" in files[0].read_text()
