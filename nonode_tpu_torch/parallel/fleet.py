@@ -10,6 +10,14 @@ take the K weight sets in one launch each (their vmap rule,
 ops/kernels/egnn_fused.py). Each replica consumes its own batch
 permutation; evaluation batches are shared.
 
+On the card a step's vmapped loss (in training with its backward) is
+captured once as a CUDA graph and replayed for every later step that bakes
+in the same inputs (``SeedFleet._key``): one replay in place of the
+hundreds of host launches of the vmapped forward and backward. The first
+step under a key runs eagerly and warms up, the second captures, later
+ones replay; Adam stays eager after the replay. Everything else, the CPU
+and fleets with per-seed windows included, runs eagerly.
+
 Also here: the padding-free strided evaluation split of the reference's
 DistributedEvalSampler (SEGNO/utils.py:46-93), and early stopping over K
 seeds with the decisions of K sequential EarlyStopping instances.
@@ -21,6 +29,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.kernels import KERNELS
 from ..runtime import seed_everything
 from ..train.loop import make_perm, zero_missing_grads
 from ..utils.profiling import span
@@ -75,6 +84,48 @@ class FleetEarlyStopping:
         return bool(self.stopped.all())
 
 
+def _launch_counts() -> list[int]:
+    return [k["wrapper"].launches for k in KERNELS]
+
+
+def _count_launches(counts) -> None:
+    for k, n in zip(KERNELS, counts):
+        k["wrapper"].launches += n
+
+
+def _layouts(tensors) -> tuple:
+    """What a graph reads of ``tensors``: each one's address and shape."""
+    return tuple((t.data_ptr(), t.shape) for t in tensors)
+
+
+class _StepGraph:
+    """A fleet step captured as a CUDA graph: ``body(idx)`` (the vmapped
+    loss, in training with its backward) on a static index buffer, and its
+    outputs. A replay launches the captured kernels in their order. The
+    tensors the capture reads (``keep``) live as long as the graph, so that
+    no other tensor takes their addresses while the key can match."""
+
+    def __init__(self, key, body, idx, keep):
+        self.key, self.keep = key, keep
+        self.idx = torch.empty(idx.shape, dtype=idx.dtype, device=idx.device)
+        self.graph = torch.cuda.CUDAGraph()
+        before = _launch_counts()
+        with torch.cuda.graph(self.graph):
+            self.out = body(self.idx)
+        # the wrappers counted the kernels as they were captured; the
+        # replays launch them
+        self.launches = [a - b for a, b in zip(_launch_counts(), before)]
+        _count_launches(-n for n in self.launches)
+
+    def replay(self, idx):
+        """The step on the batch ``idx``: its outputs, copied out of the
+        graph's before the next replay overwrites them."""
+        self.idx.copy_(idx)
+        self.graph.replay()
+        _count_launches(self.launches)
+        return tuple(o.clone() for o in self.out)
+
+
 class SeedFleet:
     """Train K independently seeded replicas of an EGNO or SEGNO experiment
     at once. ``exp`` is the experiment of one replica: its model is the
@@ -84,12 +135,22 @@ class SeedFleet:
     backward instead of keeping its activations (nonode_tpu's
     ``jax.checkpoint`` of the EGNO forward). torch.utils.checkpoint does not
     compose inside vmap, so the fleet checkpoints the vmapped loss as a
-    whole: the same recomputation."""
+    whole: the same recomputation.
+
+    ``replays``: the steps (training and validation) that replayed a
+    captured graph."""
+
+    # the devices whose steps are captured and replayed, and the capture
+    _graph_devices = ("cuda",)
+    _step_graph = _StepGraph
 
     def __init__(self, exp, seeds, remat: bool = False):
         self.exp = exp
         self.seeds = list(seeds)
         self.remat = remat
+        self.replays = 0
+        self._graphs = {}      # kind -> its one live _StepGraph
+        self._seen = {}        # kind -> its last key run without a graph
 
     @property
     def k(self) -> int:
@@ -135,8 +196,54 @@ class SeedFleet:
         fn = torch.func.vmap(one, in_dims=(0, 0 if idx.dim() == 2 else None,
                                            0 if per_seed_windows else None))
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(fn, params, idx, w_in, use_reentrant=False)
+            # the loss draws no random numbers: no generator state to keep
+            # for the recomputation (and none can be set inside a capture)
+            return checkpoint(fn, params, idx, w_in, use_reentrant=False,
+                              preserve_rng_state=False)
         return fn(params, idx, w_in)
+
+    def _key(self, params, ds, windows, b, idx, per_seed_windows):
+        """What a captured step of batch ``b`` bakes in: K, B and the index
+        shape, the grad mode, ``remat``, the storage of every parameter
+        leaf, of the dataset's tensors and of the windows' (EGNO's
+        per-sample index arrays), or batch ``b``'s host-integer frames
+        (SEGNO's windows). None where the step runs eagerly: off the card,
+        or with per-seed windows (drawn anew every epoch)."""
+        if per_seed_windows or idx.device.type not in self._graph_devices:
+            return None
+        if isinstance(windows, np.ndarray):
+            frames = tuple(int(f) for f in windows[b])
+        elif isinstance(windows, dict) and all(
+                isinstance(t, torch.Tensor) and t.device == idx.device
+                for t in windows.values()):
+            frames = _layouts(windows.values())
+        else:
+            return None
+        data = [t for t in vars(ds).values() if isinstance(t, torch.Tensor)]
+        return (tuple(idx.shape), torch.is_grad_enabled(), self.remat,
+                _layouts(params.values()), _layouts(data), frames)
+
+    def _graph(self, kind, key, body, idx, keep):
+        """The graph that runs this ``kind`` of step (``train``, ``eval``)
+        under ``key``, or None where it runs eagerly: without a key, and on
+        a key's first use, its warm-up. The second use captures ``body``
+        on ``idx`` (the tensors it reads, ``keep``), and every later one
+        replays. A kind keeps one graph: another key frees the old one."""
+        graph = self._graphs.get(kind)
+        if graph is not None and graph.key != key:
+            del self._graphs[kind]
+            graph = None
+        if graph is None and key is not None:
+            if self._seen.get(kind) == key:
+                graph = self._graphs[kind] = self._step_graph(key, body, idx,
+                                                              keep)
+            self._seen[kind] = key
+        return graph
+
+    def _replay(self, graph, idx):
+        with span("step.replay"):
+            self.replays += 1
+            return graph.replay(idx)
 
     def train_epoch(self, params, opt, ds, windows, perms,
                     per_seed_windows=False):
@@ -148,17 +255,38 @@ class SeedFleet:
             self.exp.device)
         losses, last = [], []
         for b in range(perms.shape[1]):
-            with span("step.forward"):
-                loss, per_frame = self._losses(params, ds, windows, b,
-                                               perms[:, b], per_seed_windows)
-            with span("step.backward"):
-                opt.zero_grad(set_to_none=True)
-                loss.sum().backward()        # the sum: see ``optimizer``
+            idx = perms[:, b]
+
+            def step(i, b=b):
+                """The loss and its backward on the batch ``i``."""
+                with span("step.forward"):
+                    loss, per_frame = self._losses(params, ds, windows, b, i,
+                                                   per_seed_windows)
+                with span("step.backward"):
+                    opt.zero_grad(set_to_none=True)
+                    loss.sum().backward()    # the sum: see ``optimizer``
+                return loss.detach(), per_frame[:, -1].detach()
+
+            graph = self._graph("train", self._key(
+                params, ds, windows, b, idx, per_seed_windows), step, idx,
+                (params, ds, windows))
+            if graph is None:
+                out = step(idx)
+            else:
+                with span("step.forward"):
+                    out = self._replay(graph, idx)
+                with span("step.backward"):
+                    # the replay's backward wrote the gradients into the
+                    # .grad buffers of its capture, which stay the
+                    # parameters' gradients between replays: each replay
+                    # overwrites them, as zero_grad(set_to_none=True) and a
+                    # fresh backward do
+                    pass
             with span("step.optimizer"):
                 zero_missing_grads(params.values())
                 opt.step()
-            losses.append(loss.detach())
-            last.append(per_frame[:, -1].detach())
+            losses.append(out[0])
+            last.append(out[1])
         return torch.stack(losses, 1), torch.stack(last, 1)
 
     @torch.no_grad()
@@ -169,10 +297,20 @@ class SeedFleet:
             self.exp.device)
         losses, last = [], []
         for b in range(perm.shape[0]):
-            loss, per_frame = self._losses(params, ds, windows, b, perm[b],
-                                           per_seed_windows)
-            losses.append(loss)
-            last.append(per_frame[:, -1])
+            idx = perm[b]
+
+            def step(i, b=b):
+                """The loss on the batch ``i``."""
+                loss, per_frame = self._losses(params, ds, windows, b, i,
+                                               per_seed_windows)
+                return loss, per_frame[:, -1]
+
+            graph = self._graph("eval", self._key(
+                params, ds, windows, b, idx, per_seed_windows), step, idx,
+                (params, ds, windows))
+            out = step(idx) if graph is None else self._replay(graph, idx)
+            losses.append(out[0])
+            last.append(out[1])
         return torch.stack(losses, 1), torch.stack(last, 1)
 
     def split(self, params):

@@ -14,7 +14,9 @@ program (``utils/profiling.py:span``) around the host op that launched each
 kernel, with the kernels that take the most of it; then the untraced wall
 of as many other steps. With ``--fleet K`` a step is
 a seed fleet's (parallel/fleet.py): K seeds 1 .. K, each on its own batch
-of 256, as fleet_main trains them.
+of 256, as fleet_main trains them, run eagerly: a fleet step that replays
+its CUDA graph launches every kernel from one host call, which no span
+can attribute.
 """
 
 from __future__ import annotations
@@ -111,6 +113,7 @@ def main(argv=None):
     if args.fleet:
         seeds = list(range(1, args.fleet + 1))
         fleet = SeedFleet(exp, seeds)
+        fleet._graph_devices = ()            # eager: kernels by span
         params, opt = fleet.init(
             lambda g: build_experiment(margs, dev, g).model)
         perms = fleet.make_perms([np.random.RandomState(s) for s in seeds],

@@ -18,7 +18,8 @@ CMU skeleton), at widths that run zero-padded (H=32, 96, 97, 100: in the
 wrappers, or inside #1's tile route), and at every width above 128 and any
 E (H=129 to 1280, E=6, their seed axis and receiver slices, graphs over
 many tiles, non-finite inputs); H=64 also to the bits of the build that had
-H=64 alone, #1's and #2's tile routes to their own recorded digests.
+H=64 alone, #1's and #2's tile routes to their own recorded digests. The
+seed fleet's steps replayed as CUDA graphs hold the eager fleet's bits.
 """
 
 from pathlib import Path
@@ -862,6 +863,144 @@ def test_fleet_step_on_the_card_matches_sequential_steps(dev, model):
                                   exp.optimizer.state.values() if st]))
     for i, j in [(0, 1), (1, 2), (0, 2)]:         # the check has teeth
         assert (moments[i] - moments[j]).norm() > 0.1 * moments[i].norm()
+
+
+FLEET_SEEDS = [1, 2, 3, 4, 5]
+
+
+def _fleet_run(dev, model, graphed, case, tmp):
+    """A fleet of five seeds at the benchmark's fleet shapes (B=256, N=5,
+    the model_confs.yaml model; ``bf16``: its bf16 forward and backward,
+    ``nf128``: at hidden 128, on #1's and #2's tile routes) on the
+    committed charged-5 splits: 3 Adam steps (on the card a key's warm-up,
+    its capture and a replay), with ``take`` 3 more on seeds 0, 2 and 4,
+    then a validation epoch; graphed, or eager (``_graph_devices``
+    emptied). Returns (fleet, step losses, validation losses, params,
+    optimizer)."""
+    from nonode_tpu_torch.data.nbody import NBodyDataset
+    from nonode_tpu_torch.main import build_experiment, get_args
+    from nonode_tpu_torch.parallel.fleet import SeedFleet
+    from nonode_tpu_torch.runtime import seed_everything
+
+    flags = ["--model", model]
+    if case == "bf16":
+        flags += ["--precision", "bf16"]
+    elif case == "nf128":
+        (tmp / "nf128.json").write_text('{"nf": 128}')
+        flags += ["--config_by_file", str(tmp / "nf128.json")]
+    args = get_args(flags)
+    build = lambda g: build_experiment(args, dev, g)              # noqa: E731
+    data, b = Path(__file__).resolve().parents[1] / "data", 256
+    ds = NBodyDataset(data, partition="train", max_samples=3000, device=dev)
+    ds_val = NBodyDataset(data, partition="val", device=dev)
+    fleet = SeedFleet(build(seed_everything(FLEET_SEEDS[0])), FLEET_SEEDS,
+                      remat=case == "remat")
+    if not graphed:
+        fleet._graph_devices = ()
+    params, opt = fleet.init(lambda g: build(g).model)
+    perms = fleet.make_perms([np.random.RandomState(s) for s in FLEET_SEEDS],
+                             len(ds), b)
+    windows = fleet.exp.windows(ds, None, perms.shape[1])
+    vperm = np.arange(len(ds_val) // b * b).reshape(-1, b)
+    vwin = fleet.exp.windows(ds_val, None, len(vperm))
+    losses = [fleet.train_epoch(params, opt, ds, windows, perms[:, :3])]
+    if case == "take":
+        keep = [0, 2, 4]
+        params, opt = fleet.take(params, opt, keep)
+        losses.append(fleet.train_epoch(params, opt, ds, windows,
+                                        perms[keep, 3:6]))
+    val = fleet.eval_epoch(params, ds_val, vwin, vperm)
+    torch.cuda.synchronize()
+    return fleet, losses, val, params, opt
+
+
+def _worst_gaps(got, want):
+    """{what: max |got - want|} over the step losses, the validation
+    losses, the parameters and Adam's moments and step count."""
+    (_, gl, gv, gp, go), (_, wl, wv, wp, wo) = got, want
+    gaps = {}
+
+    def gap(name, a, w):
+        gaps[name] = float((a.double() - w.double()).abs().max())
+
+    for i, (a, w) in enumerate(zip(gl, wl)):
+        gap(f"losses {i}", a[0], w[0])
+        gap(f"last-frame losses {i}", a[1], w[1])
+    gap("validation losses", gv[0], wv[0])
+    gap("validation last-frame losses", gv[1], wv[1])
+    for name in wp:
+        gap(name, gp[name].detach(), wp[name].detach())
+        st, ref = go.state[gp[name]], wo.state[wp[name]]
+        assert set(st) == set(ref), name
+        for key in ref:
+            gap(f"{name} {key}", st[key], ref[key])
+    return gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,case", [
+    ("egno", "plain"), ("segno", "plain"), ("egno", "take"),
+    ("segno", "take"), ("egno", "remat"), ("egno", "bf16"),
+    ("egno", "nf128"), ("segno", "nf128")])
+def test_graphed_fleet_gives_the_eager_fleets_bits(dev, model, case,
+                                                   tmp_path):
+    """The fleet's steps as CUDA graphs against the same fleet run eagerly,
+    at the benchmark's fleet shapes: every step's losses, the validation
+    losses, the parameters and Adam's exp_avg and exp_avg_sq after the
+    steps hold the same bits (the graph runs the eager step's kernels in
+    their order). The graphed run replayed every step after a key's
+    warm-up: training 2 (and 2 after ``take``), validation 6 of 7."""
+    got = _fleet_run(dev, model, True, case, tmp_path)
+    want = _fleet_run(dev, model, False, case, tmp_path)
+    assert got[0].replays == (10 if case == "take" else 8)
+    assert want[0].replays == 0
+    gaps = _worst_gaps(got, want)
+    assert not any(gaps.values()), {k: v for k, v in gaps.items() if v}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["egno", "segno"])
+def test_graphed_fleet_main_gives_the_eager_runs_records(dev, model,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """``fleet_main`` of five seeds for 2 epochs on the committed charged-5
+    splits, graphed and eagerly: the same records (validation and test
+    losses) and the same checkpoints, bit for bit; the graphed run
+    replayed 21 of its 22 training steps (the first warms up) and 6 of
+    its 7 validation batches."""
+    from nonode_tpu_torch import fleet_main
+    from nonode_tpu_torch.parallel.fleet import SeedFleet
+
+    data = Path(__file__).resolve().parents[1] / "data"
+    replayed = []
+    replay = SeedFleet._replay
+
+    def counted(self, graph, idx):
+        replayed.append(idx.shape)
+        return replay(self, graph, idx)
+
+    monkeypatch.setattr(SeedFleet, "_replay", counted)
+
+    def run(out):
+        return fleet_main.main(fleet_main.get_args([
+            "--model", model, "--seeds", ",".join(map(str, FLEET_SEEDS)),
+            "--epochs", "2", "--test_interval", "1", "--traj_len", "2",
+            "--data_dir", str(data), "--outf", str(out)]))
+
+    got = run(tmp_path / "graphed")
+    assert len(replayed) == 27
+    monkeypatch.setattr(SeedFleet, "_graph_devices", ())
+    want = run(tmp_path / "eager")
+    assert len(replayed) == 27
+    np.testing.assert_equal(got, want)
+    ckpts = sorted((tmp_path / "graphed" / "0exp_fleet").glob("*.ckpt"))
+    assert len(ckpts) == len(FLEET_SEEDS)
+    for path in ckpts:
+        a = torch.load(path, weights_only=True)
+        w = torch.load(tmp_path / "eager" / "0exp_fleet" / path.name,
+                       weights_only=True)
+        for name in w:
+            assert torch.equal(a[name], w[name]), (path.name, name)
 
 
 def _charged_state(n, dev, seed=0):

@@ -13,6 +13,9 @@ JAX package's fleet.
   and the multi-input / varDT fleets against the sequential driver per seed
   (best epoch equal, losses within 1e-4), as tests/test_driver.py:147-290
   holds the JAX fleet.
+- The fleet's steps as CUDA graphs, with the capture stubbed on the CPU:
+  which steps warm up, capture and replay, what makes a new key, and the
+  eager fleet's bits (the card's graphs: tests/test_torch_cuda.py).
 """
 
 import jax
@@ -543,3 +546,167 @@ def test_remat_gives_the_same_steps(tiny_data):
     assert torch.equal(l0, l1)
     for name in p0:
         assert torch.equal(p0[name], p1[name])
+
+# ---------- the fleet's steps as CUDA graphs (the capture stubbed) ----------
+
+def _stub_capture(fleet):
+    """Capture and replay on the CPU: the stub keeps the captured step
+    without running it, and each replay runs it on the static index
+    buffer, as a CUDA graph replays the kernels its capture recorded.
+    Returns the list of the keys captured."""
+    captured = []
+
+    class CpuGraph:
+        def __init__(self, key, body, idx, keep):
+            captured.append(key)
+            self.key, self.body = key, body
+            self.idx = torch.empty(idx.shape, dtype=idx.dtype)
+
+        def replay(self, idx):
+            self.idx.copy_(idx)
+            return tuple(o.clone() for o in self.body(self.idx))
+
+    fleet._graph_devices = ("cpu",)
+    fleet._step_graph = CpuGraph
+    return captured
+
+
+def _kind(fleet, captured, run):
+    """Whether ``run()``, one step, ran eagerly, captured or replayed."""
+    c, r = len(captured), fleet.replays
+    run()
+    if len(captured) > c:
+        return "capture"
+    return "replay" if fleet.replays > r else "eager"
+
+
+def _graph_fleet(tiny_data, model, graphed, remat=False):
+    from nonode_tpu_torch.runtime import seed_everything
+    build = _egno_build() if model == "egno" else _segno_build()
+    fleet = SeedFleet(build(seed_everything(SEEDS[0])), SEEDS, remat=remat)
+    captured = _stub_capture(fleet) if graphed else []
+    params, opt = fleet.init(lambda g: build(g).model)
+    ds = _ds(tiny_data, "train", model=model)
+    return fleet, captured, params, opt, ds, fleet.exp.windows(ds, None, 3)
+
+
+def _perms(epochs=2, b=8):
+    rngs = [np.random.RandomState(s) for s in SEEDS]
+    return np.concatenate([np.stack([r.permutation(24).reshape(-1, b)
+                                     for r in rngs]) for _ in range(epochs)],
+                          axis=1)
+
+
+@pytest.mark.parametrize("model", ["egno", "segno"])
+def test_graphed_steps_warm_up_capture_then_replay(tiny_data, model):
+    """A key's first step runs eagerly, its second captures and replays,
+    later ones replay; training and validation each keep their own graph.
+    The graphed fleet's per-batch losses (one per step, all distinct),
+    parameters, Adam moments and validation losses are the eager fleet's,
+    bit for bit."""
+    perms = _perms()
+    runs = []
+    for graphed in (False, True):
+        fleet, captured, params, opt, ds, windows = _graph_fleet(
+            tiny_data, model, graphed)
+        ds_val = _ds(tiny_data, "val", model=model)
+        vwin = fleet.exp.windows(ds_val, None, 2)
+        vperm = np.arange(16).reshape(2, 8)
+        kinds, losses, vals = [], [], []
+
+        def train(b):
+            losses.append(fleet.train_epoch(params, opt, ds, windows,
+                                             perms[:, b:b + 1]))
+
+        def val(b):
+            vals.append(fleet.eval_epoch(params, ds_val, vwin,
+                                         vperm[b:b + 1]))
+
+        for b in range(3):
+            kinds.append(_kind(fleet, captured, lambda: train(b)))
+        for b in (0, 1, 0):
+            kinds.append(_kind(fleet, captured, lambda: val(b)))
+        for b in range(3, 6):
+            kinds.append(_kind(fleet, captured, lambda: train(b)))
+        runs.append((kinds, losses, vals, params, opt))
+    (ek, el, ev, ep, eo), (gk, gl, gv, gp, go) = runs
+    assert ek == ["eager"] * 9
+    assert gk == ["eager", "capture", "replay", "eager", "capture",
+                  "replay", "replay", "replay", "replay"]
+    loss = torch.cat([t[0] for t in gl], 1)
+    assert len(set(loss.flatten().tolist())) == loss.numel() == 6 * len(SEEDS)
+    for a, w in zip(gl + gv, el + ev):
+        assert torch.equal(a[0], w[0]) and torch.equal(a[1], w[1])
+    for name in ep:
+        assert torch.equal(gp[name], ep[name]), name
+        st, want = go.state[gp[name]], eo.state[ep[name]]
+        assert set(st) == set(want), name
+        for key in ("exp_avg", "exp_avg_sq"):
+            if key in want:
+                assert torch.equal(st[key], want[key]), (name, key)
+
+
+@pytest.mark.parametrize("change", ["take", "storage", "batch", "remat"])
+def test_a_changed_key_warms_up_and_captures_again(tiny_data, change):
+    """After ``take`` (K and the storages change), a compaction that keeps
+    every seed (the storages alone), another batch size, or ``remat``
+    switched on, the next step runs eagerly, the one after captures anew
+    (the old graph freed), and later ones replay."""
+    fleet, captured, params, opt, ds, windows = _graph_fleet(
+        tiny_data, "egno", True)
+    state = dict(params=params, opt=opt, perms=_perms())
+
+    def train(b):
+        fleet.train_epoch(state["params"], state["opt"], ds, windows,
+                          state["perms"][:, b:b + 1])
+
+    kinds = [_kind(fleet, captured, lambda: train(b)) for b in range(3)]
+    old = fleet._graphs["train"]
+    if change in ("take", "storage"):
+        keep = [0, 2] if change == "take" else [0, 1, 2]
+        state["params"], state["opt"] = fleet.take(params, opt, keep)
+        state["perms"] = state["perms"][keep]
+    elif change == "batch":
+        state["perms"] = _perms(b=4)
+    else:
+        fleet.remat = True
+    kinds += [_kind(fleet, captured, lambda: train(b)) for b in range(3, 6)]
+    assert kinds == ["eager", "capture", "replay"] * 2
+    assert fleet._graphs["train"] is not old
+    assert captured[0] != captured[1]
+
+
+def test_the_key_holds_the_grad_mode_and_remat(tiny_data):
+    fleet, _, params, _, ds, windows = _graph_fleet(tiny_data, "egno", True)
+    idx = torch.from_numpy(_perms()[:, 0])
+
+    def key():
+        return fleet._key(params, ds, windows, 0, idx, False)
+
+    with torch.no_grad():
+        off = key()
+    on = key()
+    fleet.remat = True
+    assert len({off, on, key()}) == 3
+    assert fleet._key(params, ds, windows, 0, idx[0], False) != on
+
+
+@pytest.mark.parametrize("case", ["per_seed_windows", "cpu"])
+def test_per_seed_windows_and_the_cpu_stay_eager(tiny_data, case):
+    """Per-seed windows (several inputs, varDT) are drawn anew every
+    epoch and never graphed; on the CPU no step is."""
+    from nonode_tpu_torch.runtime import seed_everything
+    per_seed = case == "per_seed_windows"
+    build = _egno_build(3 if per_seed else 1)
+    fleet = SeedFleet(build(seed_everything(SEEDS[0])), SEEDS)
+    captured = _stub_capture(fleet) if per_seed else []
+    params, opt = fleet.init(lambda g: build(g).model)
+    ds = _ds(tiny_data, "train", 3 if per_seed else 1)
+    rngs = [np.random.RandomState(s) for s in SEEDS]
+    for _ in range(2):
+        drawn = [fleet.exp.draw_epoch(ds, r, 8) for r in rngs]
+        windows = (tfleet_main._stack_windows([w for _, w in drawn])
+                   if per_seed else drawn[0][1])
+        fleet.train_epoch(params, opt, ds, windows,
+                          np.stack([p for p, _ in drawn]), per_seed)
+    assert fleet.replays == 0 and not captured and not fleet._graphs
