@@ -376,6 +376,7 @@ def pairwise_message_fwd(clip_edges, x, hi, hj, efea, mask, weights, i0=0):
             raise RuntimeError(
                 f"egnn_pairwise_fwd launch failed: cudaError {err}")
         pairwise_message.launches += 1
+        pairwise_message.tile_launches += tile_route(h, e)
     if hk != h:
         (totm,), _ = cut_width(h, e, (totm,))
     return totf, totm
@@ -438,6 +439,7 @@ def pairwise_message_bwd(clip_edges, x, hi, hj, efea, mask, weights, gtotf,
             raise RuntimeError(
                 f"egnn_pairwise_bwd launch failed: cudaError {err}")
         pairwise_message_bwd.launches += 1
+        pairwise_message_bwd.tile_launches += tile_route(h, e)
     dweights = [None] * N_WEIGHTS
     off = 0
     for w in order:
@@ -527,5 +529,6 @@ def pairwise_message(clip_edges, x, hi, hj, efea, mask, weights, i0=0):
                                       efea, mask, *weights)
 
 
-pairwise_message.launches = 0
-pairwise_message_bwd.launches = 0
+# calls of each kernel; ``tile_launches``: those that took the tile route
+pairwise_message.launches = pairwise_message.tile_launches = 0
+pairwise_message_bwd.launches = pairwise_message_bwd.tile_launches = 0

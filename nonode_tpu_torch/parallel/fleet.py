@@ -84,13 +84,20 @@ class FleetEarlyStopping:
         return bool(self.stopped.all())
 
 
+# the wrappers' launch counters: every kernel's ``launches``, and the
+# ``tile_launches`` of those that have a tile route
+_COUNTERS = [(k["wrapper"], name) for k in KERNELS
+             for name in ("launches", "tile_launches")
+             if hasattr(k["wrapper"], name)]
+
+
 def _launch_counts() -> list[int]:
-    return [k["wrapper"].launches for k in KERNELS]
+    return [getattr(w, name) for w, name in _COUNTERS]
 
 
 def _count_launches(counts) -> None:
-    for k, n in zip(KERNELS, counts):
-        k["wrapper"].launches += n
+    for (w, name), n in zip(_COUNTERS, counts):
+        setattr(w, name, getattr(w, name) + n)
 
 
 def _layouts(tensors) -> tuple:

@@ -207,7 +207,9 @@ class _Experiment:
         are summed over the world once, at the end."""
         losses, last = [], []
         for b, idx in enumerate(self._perm(perm)):
-            loss, per_frame = self.step(self.batch(ds, windows, b, idx))
+            with span("step.batch"):
+                batch = self.batch(ds, windows, b, idx)
+            loss, per_frame = self.step(batch)
             losses.append(loss)
             last.append(per_frame[-1])
         return self._summed(torch.stack(losses), torch.stack(last))
@@ -217,8 +219,9 @@ class _Experiment:
         """``train_epoch``'s per-batch losses without updates."""
         losses, last = [], []
         for b, idx in enumerate(self._perm(perm)):
-            loss, per_frame = self._loss(self.shard(
-                self.batch(ds, windows, b, idx)))
+            with span("step.batch"):
+                batch = self.batch(ds, windows, b, idx)
+            loss, per_frame = self._loss(self.shard(batch))
             losses.append(loss)
             last.append(per_frame[-1])
         return self._summed(torch.stack(losses), torch.stack(last))

@@ -179,7 +179,8 @@ def test_rollout_spans_count_the_work(tiny_data, model):
 @pytest.mark.parametrize("model", MODELS)
 def test_experiment_spans_count_the_work(tiny_data, model):
     """The sequential experiment's steps carry the same phases as the
-    fleet's; its validation batch only the model's spans."""
+    fleet's, and each batch's gather (training and validation) its
+    ``step.batch``; its validation batch no other phase."""
     exp = _experiment(model, seed_everything(0))
     ds = _ds(tiny_data, "train", model)
     perm, windows = exp.draw_epoch(ds, np.random.RandomState(0), B)
@@ -188,7 +189,8 @@ def test_experiment_spans_count_the_work(tiny_data, model):
                          True)
     fwd = _per_forward(model)
     assert spans == Counter(
-        {"step.forward": 2, "step.backward": 2, "step.optimizer": 2,
+        {"step.batch": 3, "step.forward": 2, "step.backward": 2,
+         "step.optimizer": 2,
          "kernel.pairwise_bwd": 2 * fwd["kernel.pairwise_fwd"],
          **{k: 3 * v for k, v in fwd.items()}})
 
