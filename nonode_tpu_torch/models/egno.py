@@ -18,13 +18,16 @@ from ..ops.spectral import TimeConv, TimeConvX, timestep_embedding
 from ..runtime import resolve_device
 
 
-def input_slot_map(num_inputs: int, t: int) -> list[int]:
-    """Slot s -> input index, as repeat_elements_to_exact_shape: each input
-    repeated T//L times in order, remainder slots take the last."""
-    k, rem = divmod(t, num_inputs)
-    idx = [i for i in range(num_inputs) for _ in range(k)]
-    idx += [num_inputs - 1] * rem
-    return idx
+def input_slot_map(num_inputs: int, t: int, device=None) -> torch.Tensor:
+    """Slot s -> input index [T], as repeat_elements_to_exact_shape: each
+    input repeated T//L times in order, remainder slots take the last.
+    Made on ``device``: a host list copied there is a transfer that a CUDA
+    graph cannot capture."""
+    k = t // num_inputs
+    slots = torch.arange(t, device=device)
+    if k == 0:                     # fewer slots than inputs: all the last
+        return torch.full_like(slots, num_inputs - 1)
+    return (slots // k).clamp(max=num_inputs - 1)
 
 
 def effective_num_modes(num_timesteps: int, num_modes: int) -> int:
@@ -92,7 +95,7 @@ class EGNO(nn.Module):
         emb_out = timestep_embedding(timesteps_out, self.time_emb_dim)
 
         if multi:
-            slot = torch.tensor(input_slot_map(self.num_inputs, t), device=dev)
+            slot = input_slot_map(self.num_inputs, t, dev)
             if timesteps_in is None:
                 timesteps_in = torch.arange(
                     -self.num_inputs + 1, 1, dtype=torch.float32,

@@ -12,11 +12,9 @@ permutation; evaluation batches are shared.
 
 On the card a step's vmapped loss (in training with its backward) is
 captured once as a CUDA graph and replayed for every later step that bakes
-in the same inputs (``SeedFleet._key``): one replay in place of the
-hundreds of host launches of the vmapped forward and backward. The first
-step under a key runs eagerly and warms up, the second captures, later
-ones replay; Adam stays eager after the replay. Everything else, the CPU
-and fleets with per-seed windows included, runs eagerly.
+in the same inputs (``SeedFleet._key``; the mechanism is train/graphs.py's,
+which the per-seed loop shares). Everything else, the CPU and fleets with
+per-seed windows included, runs eagerly.
 
 Also here: the padding-free strided evaluation split of the reference's
 DistributedEvalSampler (SEGNO/utils.py:46-93), and early stopping over K
@@ -29,8 +27,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.kernels import KERNELS
 from ..runtime import seed_everything
+from ..train.graphs import StepGraph, StepGraphs, step_key
 from ..train.loop import make_perm, zero_missing_grads
 from ..utils.profiling import span
 
@@ -84,55 +82,6 @@ class FleetEarlyStopping:
         return bool(self.stopped.all())
 
 
-# the wrappers' launch counters: every kernel's ``launches``, and the
-# ``tile_launches`` of those that have a tile route
-_COUNTERS = [(k["wrapper"], name) for k in KERNELS
-             for name in ("launches", "tile_launches")
-             if hasattr(k["wrapper"], name)]
-
-
-def _launch_counts() -> list[int]:
-    return [getattr(w, name) for w, name in _COUNTERS]
-
-
-def _count_launches(counts) -> None:
-    for (w, name), n in zip(_COUNTERS, counts):
-        setattr(w, name, getattr(w, name) + n)
-
-
-def _layouts(tensors) -> tuple:
-    """What a graph reads of ``tensors``: each one's address and shape."""
-    return tuple((t.data_ptr(), t.shape) for t in tensors)
-
-
-class _StepGraph:
-    """A fleet step captured as a CUDA graph: ``body(idx)`` (the vmapped
-    loss, in training with its backward) on a static index buffer, and its
-    outputs. A replay launches the captured kernels in their order. The
-    tensors the capture reads (``keep``) live as long as the graph, so that
-    no other tensor takes their addresses while the key can match."""
-
-    def __init__(self, key, body, idx, keep):
-        self.key, self.keep = key, keep
-        self.idx = torch.empty(idx.shape, dtype=idx.dtype, device=idx.device)
-        self.graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
-        with torch.cuda.graph(self.graph):
-            self.out = body(self.idx)
-        # the wrappers counted the kernels as they were captured; the
-        # replays launch them
-        self.launches = [a - b for a, b in zip(_launch_counts(), before)]
-        _count_launches(-n for n in self.launches)
-
-    def replay(self, idx):
-        """The step on the batch ``idx``: its outputs, copied out of the
-        graph's before the next replay overwrites them."""
-        self.idx.copy_(idx)
-        self.graph.replay()
-        _count_launches(self.launches)
-        return tuple(o.clone() for o in self.out)
-
-
 class SeedFleet:
     """Train K independently seeded replicas of an EGNO or SEGNO experiment
     at once. ``exp`` is the experiment of one replica: its model is the
@@ -149,15 +98,21 @@ class SeedFleet:
 
     # the devices whose steps are captured and replayed, and the capture
     _graph_devices = ("cuda",)
-    _step_graph = _StepGraph
+    _step_graph = StepGraph
 
     def __init__(self, exp, seeds, remat: bool = False):
         self.exp = exp
         self.seeds = list(seeds)
         self.remat = remat
-        self.replays = 0
-        self._graphs = {}      # kind -> its one live _StepGraph
-        self._seen = {}        # kind -> its last key run without a graph
+        self._steps = StepGraphs()
+
+    @property
+    def replays(self) -> int:
+        return self._steps.replays
+
+    @property
+    def _graphs(self) -> dict:
+        return self._steps.graphs
 
     @property
     def k(self) -> int:
@@ -210,47 +165,16 @@ class SeedFleet:
         return fn(params, idx, w_in)
 
     def _key(self, params, ds, windows, b, idx, per_seed_windows):
-        """What a captured step of batch ``b`` bakes in: K, B and the index
-        shape, the grad mode, ``remat``, the storage of every parameter
-        leaf, of the dataset's tensors and of the windows' (EGNO's
-        per-sample index arrays), or batch ``b``'s host-integer frames
-        (SEGNO's windows). None where the step runs eagerly: off the card,
-        or with per-seed windows (drawn anew every epoch)."""
+        """What a captured step of batch ``b`` bakes in (``step_key``, with
+        ``remat``); K and B are in the index shape and the parameters'.
+        None where the step runs eagerly: off the card, or with per-seed
+        windows (drawn anew every epoch)."""
         if per_seed_windows or idx.device.type not in self._graph_devices:
             return None
-        if isinstance(windows, np.ndarray):
-            frames = tuple(int(f) for f in windows[b])
-        elif isinstance(windows, dict) and all(
-                isinstance(t, torch.Tensor) and t.device == idx.device
-                for t in windows.values()):
-            frames = _layouts(windows.values())
-        else:
-            return None
-        data = [t for t in vars(ds).values() if isinstance(t, torch.Tensor)]
-        return (tuple(idx.shape), torch.is_grad_enabled(), self.remat,
-                _layouts(params.values()), _layouts(data), frames)
-
-    def _graph(self, kind, key, body, idx, keep):
-        """The graph that runs this ``kind`` of step (``train``, ``eval``)
-        under ``key``, or None where it runs eagerly: without a key, and on
-        a key's first use, its warm-up. The second use captures ``body``
-        on ``idx`` (the tensors it reads, ``keep``), and every later one
-        replays. A kind keeps one graph: another key frees the old one."""
-        graph = self._graphs.get(kind)
-        if graph is not None and graph.key != key:
-            del self._graphs[kind]
-            graph = None
-        if graph is None and key is not None:
-            if self._seen.get(kind) == key:
-                graph = self._graphs[kind] = self._step_graph(key, body, idx,
-                                                              keep)
-            self._seen[kind] = key
-        return graph
+        return step_key(idx, params.values(), ds, windows, b, self.remat)
 
     def _replay(self, graph, idx):
-        with span("step.replay"):
-            self.replays += 1
-            return graph.replay(idx)
+        return self._steps.replay(graph, idx)
 
     def train_epoch(self, params, opt, ds, windows, perms,
                     per_seed_windows=False):
@@ -274,9 +198,9 @@ class SeedFleet:
                     loss.sum().backward()    # the sum: see ``optimizer``
                 return loss.detach(), per_frame[:, -1].detach()
 
-            graph = self._graph("train", self._key(
-                params, ds, windows, b, idx, per_seed_windows), step, idx,
-                (params, ds, windows))
+            graph = self._steps.get("train", self._key(
+                params, ds, windows, b, idx, per_seed_windows),
+                self._step_graph, step, idx, (params, ds, windows))
             if graph is None:
                 out = step(idx)
             else:
@@ -312,9 +236,9 @@ class SeedFleet:
                                                per_seed_windows)
                 return loss, per_frame[:, -1]
 
-            graph = self._graph("eval", self._key(
-                params, ds, windows, b, idx, per_seed_windows), step, idx,
-                (params, ds, windows))
+            graph = self._steps.get("eval", self._key(
+                params, ds, windows, b, idx, per_seed_windows),
+                self._step_graph, step, idx, (params, ds, windows))
             out = step(idx) if graph is None else self._replay(graph, idx)
             losses.append(out[0])
             last.append(out[1])

@@ -20,6 +20,13 @@ reductions and pointwise ops in fp32 where JAX runs them in bf16. Only
 through ``torch.func.functional_call``), so that a seed fleet can vmap it
 over stacked per-seed parameters (parallel/fleet.py).
 
+On the card a training step (the batch gather, the loss and its backward)
+and a validation step (the gather and the loss) are each captured once as
+a CUDA graph and replayed for every later step that bakes in the same
+inputs (``_Experiment._key``; the mechanism is train/graphs.py's, which
+the seed fleet shares); Adam stays eager after the replay. The CPU and a
+mesh run eagerly.
+
 With a mesh (``--dp``/``--space``, parallel/mesh.py) the experiment's
 batches are global, as one process builds them, and ``shard`` cuts each to
 the rank's rows and particles. ``_loss`` returns the rank's share of the
@@ -41,6 +48,7 @@ from ..data.nbody import NBodyDataset
 from ..models.egno import EGNO
 from ..models.segno import SEGNO
 from ..utils.profiling import span
+from .graphs import StepGraph, StepGraphs, step_key
 from .metrics import conserved_energy, pearson_correlation_batch
 
 
@@ -122,7 +130,14 @@ class _Experiment:
 
     ``mesh`` (parallel/mesh.py ``apply_mesh``): the batches are cut to the
     rank's share (``_shard``, per model) and the losses and gradients
-    summed over the world."""
+    summed over the world.
+
+    ``replays``: the steps (training and validation) that replayed a
+    captured graph."""
+
+    # the devices whose steps are captured and replayed, and the capture
+    _graph_devices = ("cuda",)
+    _step_graph = StepGraph
 
     def __init__(self, model, lr: float, weight_decay: float,
                  compute_dtype: torch.dtype | None = None):
@@ -132,6 +147,11 @@ class _Experiment:
         self.weight_decay = weight_decay
         self.compute_dtype = compute_dtype
         self.mesh = None
+        self._steps = StepGraphs()
+
+    @property
+    def replays(self) -> int:
+        return self._steps.replays
 
     @functools.cached_property
     def optimizer(self) -> torch.optim.Adam:
@@ -143,10 +163,12 @@ class _Experiment:
         return torch.optim.Adam(self.model.parameters(), lr=self.lr,
                                 weight_decay=self.weight_decay)
 
-    def _adam_step(self, loss):
+    def _backward(self, loss):
         with span("step.backward"):
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+
+    def _optimizer_step(self):
         with span("step.optimizer"):
             if self.mesh is not None:
                 self.mesh.all_reduce_grads(self.model.parameters())
@@ -190,7 +212,8 @@ class _Experiment:
         this rank's shares, detached."""
         with span("step.forward"):
             loss, per_frame = self._loss(self.shard(batch))
-        self._adam_step(loss)
+        self._backward(loss)
+        self._optimizer_step()
         return loss.detach(), per_frame.detach()
 
     def draw_epoch(self, ds: NBodyDataset, rng: np.random.RandomState,
@@ -200,6 +223,15 @@ class _Experiment:
         perm = make_perm(rng, len(ds), batch_size, shuffle)
         return perm, self.windows(ds, rng, len(perm))
 
+    def _key(self, ds, windows, b, idx):
+        """What a captured step of batch ``b`` bakes in (``step_key``, with
+        ``compute_dtype``). None where the step runs eagerly: off the card,
+        and with a mesh (its gradient and loss sums stay eager)."""
+        if self.mesh is not None or idx.device.type not in self._graph_devices:
+            return None
+        return step_key(idx, self.model.parameters(), ds, windows, b,
+                        self.compute_dtype)
+
     def train_epoch(self, ds: NBodyDataset, windows, perm):
         """One Adam step per row of ``perm`` [NB, B] on ``windows``. Returns
         the per-batch (loss, reported loss: the last predicted frame's) as
@@ -207,11 +239,32 @@ class _Experiment:
         are summed over the world once, at the end."""
         losses, last = [], []
         for b, idx in enumerate(self._perm(perm)):
-            with span("step.batch"):
-                batch = self.batch(ds, windows, b, idx)
-            loss, per_frame = self.step(batch)
-            losses.append(loss)
-            last.append(per_frame[-1])
+
+            def step(i, b=b):
+                """The loss and its backward on the batch ``i``."""
+                with span("step.batch"):
+                    batch = self.batch(ds, windows, b, i)
+                with span("step.forward"):
+                    loss, per_frame = self._loss(self.shard(batch))
+                self._backward(loss)
+                return loss.detach(), per_frame[-1].detach()
+
+            graph = self._steps.get("train", self._key(ds, windows, b, idx),
+                                    self._step_graph, step, idx, (ds, windows))
+            if graph is None:
+                out = step(idx)
+            else:
+                with span("step.batch"):
+                    pass        # the graph holds the gather
+                with span("step.forward"):
+                    out = self._steps.replay(graph, idx)
+                with span("step.backward"):
+                    # the replay's backward wrote the gradients into the
+                    # .grad buffers of its capture (SeedFleet.train_epoch)
+                    pass
+            self._optimizer_step()
+            losses.append(out[0])
+            last.append(out[1])
         return self._summed(torch.stack(losses), torch.stack(last))
 
     @torch.no_grad()
@@ -219,11 +272,20 @@ class _Experiment:
         """``train_epoch``'s per-batch losses without updates."""
         losses, last = [], []
         for b, idx in enumerate(self._perm(perm)):
-            with span("step.batch"):
-                batch = self.batch(ds, windows, b, idx)
-            loss, per_frame = self._loss(self.shard(batch))
-            losses.append(loss)
-            last.append(per_frame[-1])
+
+            def step(i, b=b):
+                """The loss on the batch ``i``."""
+                with span("step.batch"):
+                    batch = self.batch(ds, windows, b, i)
+                loss, per_frame = self._loss(self.shard(batch))
+                return loss, per_frame[-1]
+
+            graph = self._steps.get("eval", self._key(ds, windows, b, idx),
+                                    self._step_graph, step, idx, (ds, windows))
+            out = step(idx) if graph is None else self._steps.replay(graph,
+                                                                      idx)
+            losses.append(out[0])
+            last.append(out[1])
         return self._summed(torch.stack(losses), torch.stack(last))
 
     def _perm(self, perm):

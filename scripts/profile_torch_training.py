@@ -14,9 +14,9 @@ program (``utils/profiling.py:span``) around the host op that launched each
 kernel, with the kernels that take the most of it; then the untraced wall
 of as many other steps. With ``--fleet K`` a step is
 a seed fleet's (parallel/fleet.py): K seeds 1 .. K, each on its own batch
-of 256, as fleet_main trains them, run eagerly: a fleet step that replays
-its CUDA graph launches every kernel from one host call, which no span
-can attribute.
+of 256, as fleet_main trains them. Both steps run eagerly: a step that
+replays its CUDA graph (train/graphs.py) launches every kernel from one
+host call, which no span can attribute.
 """
 
 from __future__ import annotations
@@ -102,6 +102,7 @@ def main(argv=None):
     print(f"card: {card}")
     margs = get_args(["--model", args.model])
     exp = build_experiment(margs, dev, torch.Generator().manual_seed(42))
+    exp._graph_devices = ()                  # eager: kernels by span
     ds = NBodyDataset(args.data_dir, partition="train", device=dev)
     perm, windows = exp.draw_epoch(ds, np.random.RandomState(42), BATCH)
 

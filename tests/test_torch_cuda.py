@@ -1003,6 +1003,93 @@ def test_graphed_fleet_main_gives_the_eager_runs_records(dev, model,
             assert torch.equal(a[name], w[name]), (path.name, name)
 
 
+def _per_seed_run(dev, case, graphed, tmp):
+    """One seed's experiment (seed 1's weights) at the shapes it trains at:
+    ``mocap`` at the published width on a written run case
+    (``motion_main``: nf 128, 6 layers, batch 12, N=31 on the skeleton
+    mask, #1/#2 on their tile routes), ``egno``, ``egno-multi`` (3 inputs,
+    varDT) and ``segno`` as ``main`` trains them on the committed charged-5
+    splits (batch 256): 3 Adam steps (on the card a key's warm-up, its
+    capture and a replay), then a validation epoch; graphed, or eager
+    (``_graph_devices`` emptied). Returns (experiment, step losses,
+    validation losses, validation batches, the launches and tile launches
+    of #1 and #2 that the run counted)."""
+    from nonode_tpu_torch.runtime import seed_everything
+
+    if case == "mocap":
+        import chip_smoke
+        from nonode_tpu_torch import motion_main
+        from nonode_tpu_torch.data.motion import MotionDynamicsDataset
+
+        chip_smoke.write_mocap_case(tmp)
+        args = motion_main.get_args(["--data_dir", str(tmp)])
+        exp = motion_main.build_experiment(args, dev, seed_everything(1))
+        ds, ds_val = (MotionDynamicsDataset(
+            data_dir=tmp, partition=part, max_samples=n,
+            delta_frame=args.delta_frame, case=args.case,
+            num_timesteps=args.num_timesteps, device=dev) for part, n in (
+                ("train", args.max_training_samples), ("val", 600)))
+    else:
+        from nonode_tpu_torch.data.nbody import NBodyDataset
+        from nonode_tpu_torch.main import build_experiment, get_args
+
+        model, _, multi = case.partition("-")
+        args = get_args(["--model", model] + (
+            ["--num_inputs", "3", "--varDT", "true"] if multi else []))
+        exp = build_experiment(args, dev, seed_everything(1))
+        kw = dict(num_timesteps=args.num_timesteps,
+                  num_inputs=args.num_inputs, device=dev)
+        if model == "egno":
+            kw["varDT"] = bool(args.varDT and args.num_inputs > 1)
+        data = Path(__file__).resolve().parents[1] / "data"
+        ds = NBodyDataset(data, partition="train",
+                          max_samples=args.max_samples, **kw)
+        ds_val = NBodyDataset(data, partition="val", **kw)
+    if not graphed:
+        exp._graph_devices = ()
+    counters = [(f, name) for f in (egnn_fused.pairwise_message,
+                                    egnn_fused.pairwise_message_bwd)
+                for name in ("launches", "tile_launches")]
+    before = [getattr(f, name) for f, name in counters]
+    rng = np.random.RandomState(7)
+    perm, windows = exp.draw_epoch(ds, rng, args.batch_size)
+    losses = exp.train_epoch(ds, windows, perm[:3])
+    vperm, vwin = exp.draw_epoch(ds_val, rng, args.batch_size, shuffle=False)
+    val = exp.eval_epoch(ds_val, vwin, vperm)
+    torch.cuda.synchronize()
+    launches = [getattr(f, name) - b for (f, name), b in zip(counters,
+                                                              before)]
+    return exp, losses, val, len(vperm), launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mocap", "egno", "egno-multi", "segno"])
+def test_graphed_per_seed_step_gives_the_eager_steps_bits(dev, case,
+                                                          tmp_path):
+    """The per-seed loop's steps as CUDA graphs against the same loop run
+    eagerly: every step's losses, the validation losses, the parameters
+    and Adam's exp_avg and exp_avg_sq after the steps hold the same bits,
+    and the launches and tile launches of #1 and #2 read the same totals
+    (a replay counts what its capture recorded). The graphed run replayed
+    2 of its 3 training steps and all but the first validation batch."""
+    got = _per_seed_run(dev, case, True, tmp_path)
+    want = _per_seed_run(dev, case, False, tmp_path)
+    (gexp, gl, gv, nval, glaunch), (wexp, wl, wv, _, wlaunch) = got, want
+    assert gexp.replays == 2 + nval - 1 and wexp.replays == 0
+    assert glaunch == wlaunch, (glaunch, wlaunch)
+    if case == "mocap":                   # 6 layers, 3 steps, 20 batches
+        assert wlaunch == [6 * (3 + nval), 6 * (3 + nval), 18, 18]
+    for a, w in zip(gl + gv, wl + wv):
+        assert torch.equal(a, w)
+    params = dict(gexp.model.named_parameters())
+    for name, p in wexp.model.named_parameters():
+        assert torch.equal(params[name], p), name
+        st, ref = gexp.optimizer.state[params[name]], wexp.optimizer.state[p]
+        assert set(st) == set(ref), name
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(st[key], ref[key]), (name, key)
+
+
 def _charged_state(n, dev, seed=0):
     loc, vel, _, q = ChargedSim(n_balls=n).init_state(
         torch.Generator().manual_seed(seed))

@@ -49,8 +49,9 @@ def _inputs(lead, n, seed):
 
 
 def test_slot_map_and_mode_clamp():
-    assert input_slot_map(3, 10) == [0, 0, 0, 1, 1, 1, 2, 2, 2, 2]
-    assert input_slot_map(1, 4) == [0, 0, 0, 0]
+    assert input_slot_map(3, 10).tolist() == [0, 0, 0, 1, 1, 1, 2, 2, 2, 2]
+    assert input_slot_map(1, 4).tolist() == [0, 0, 0, 0]
+    assert input_slot_map(4, 3).tolist() == [3, 3, 3]
     assert effective_num_modes(10, 2) == 2
     assert effective_num_modes(5, 4) == 3          # the T == 5 clamp
     assert effective_num_modes(4, 6) == 4
