@@ -1596,13 +1596,11 @@ def phase_breakdown(driver, dev, dataset="NBodyDataset", tests=None):
     the artifact write, each closed on ``dev``. Yields the timer; the
     wrapped names are restored on exit."""
     from nonode_tpu_torch.train.checkpoint import EarlyStopping
-    from nonode_tpu_torch.train.loop import (EGNOExperiment, SEGNOExperiment,
-                                             _Experiment)
+    from nonode_tpu_torch.train.loop import _Experiment
     from nonode_tpu_torch.utils.profiling import PhaseTimer
 
     if tests is None:
-        tests = [(EGNOExperiment, "test_rollout", "test rollout"),
-                 (SEGNOExperiment, "test_rollout", "test rollout")]
+        tests = [(_Experiment, "test_rollout", "test rollout")]
 
     timer = PhaseTimer()
     on_device = torch.zeros(1, device=dev)     # every phase waits for dev

@@ -84,6 +84,10 @@ class MotionExperiment(_Experiment):
     def windows(self, ds, rng, num_batches):
         return None
 
+    def _window_key(self, windows, b: int, idx):
+        """A step bakes in nothing of the (absent) windows."""
+        return ()
+
     def batch(self, ds: MotionDynamicsDataset, windows, b: int, idx):
         x0 = ds.x_0[idx]
         return (x0, ds.v_0[idx], ds.node_features(x0), ds.x_t[idx],

@@ -12,8 +12,9 @@ permutation; evaluation batches are shared.
 
 On the card a step's vmapped loss (in training with its backward) is
 captured once as a CUDA graph and replayed for every later step that bakes
-in the same inputs (``SeedFleet._key``; the mechanism is train/graphs.py's,
-which the per-seed loop shares). Everything else, the CPU and fleets with
+in the same inputs: train/graphs.py's step runner, which the per-seed loop
+shares, under ``SeedFleet._key``, which asks the template experiment what
+a step bakes in of its windows. Everything else, the CPU and fleets with
 per-seed windows included, runs eagerly.
 
 Also here: the padding-free strided evaluation split of the reference's
@@ -28,7 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..runtime import seed_everything
-from ..train.graphs import StepGraph, StepGraphs, step_key
+from ..train.graphs import StepGraphs
 from ..train.loop import make_perm, zero_missing_grads
 from ..utils.profiling import span
 
@@ -96,10 +97,6 @@ class SeedFleet:
     ``replays``: the steps (training and validation) that replayed a
     captured graph."""
 
-    # the devices whose steps are captured and replayed, and the capture
-    _graph_devices = ("cuda",)
-    _step_graph = StepGraph
-
     def __init__(self, exp, seeds, remat: bool = False):
         self.exp = exp
         self.seeds = list(seeds)
@@ -109,10 +106,6 @@ class SeedFleet:
     @property
     def replays(self) -> int:
         return self._steps.replays
-
-    @property
-    def _graphs(self) -> dict:
-        return self._steps.graphs
 
     @property
     def k(self) -> int:
@@ -165,16 +158,15 @@ class SeedFleet:
         return fn(params, idx, w_in)
 
     def _key(self, params, ds, windows, b, idx, per_seed_windows):
-        """What a captured step of batch ``b`` bakes in (``step_key``, with
-        ``remat``); K and B are in the index shape and the parameters'.
-        None where the step runs eagerly: off the card, or with per-seed
-        windows (drawn anew every epoch)."""
-        if per_seed_windows or idx.device.type not in self._graph_devices:
+        """What a captured step of batch ``b`` bakes in (``StepGraphs.key``,
+        with ``remat``); K and B are in the index shape and the
+        parameters'. None where the step runs eagerly: off the card, or
+        with per-seed windows (drawn anew every epoch)."""
+        if per_seed_windows:
             return None
-        return step_key(idx, params.values(), ds, windows, b, self.remat)
-
-    def _replay(self, graph, idx):
-        return self._steps.replay(graph, idx)
+        return self._steps.key(idx, params.values(), ds,
+                               self.exp._window_key(windows, b, idx),
+                               self.remat)
 
     def train_epoch(self, params, opt, ds, windows, perms,
                     per_seed_windows=False):
@@ -198,21 +190,9 @@ class SeedFleet:
                     loss.sum().backward()    # the sum: see ``optimizer``
                 return loss.detach(), per_frame[:, -1].detach()
 
-            graph = self._steps.get("train", self._key(
-                params, ds, windows, b, idx, per_seed_windows),
-                self._step_graph, step, idx, (params, ds, windows))
-            if graph is None:
-                out = step(idx)
-            else:
-                with span("step.forward"):
-                    out = self._replay(graph, idx)
-                with span("step.backward"):
-                    # the replay's backward wrote the gradients into the
-                    # .grad buffers of its capture, which stay the
-                    # parameters' gradients between replays: each replay
-                    # overwrites them, as zero_grad(set_to_none=True) and a
-                    # fresh backward do
-                    pass
+            out = self._steps.run("train", self._key(
+                params, ds, windows, b, idx, per_seed_windows), step, idx,
+                (params, ds, windows), ("step.forward", "step.backward"))
             with span("step.optimizer"):
                 zero_missing_grads(params.values())
                 opt.step()
@@ -236,10 +216,9 @@ class SeedFleet:
                                                per_seed_windows)
                 return loss, per_frame[:, -1]
 
-            graph = self._steps.get("eval", self._key(
-                params, ds, windows, b, idx, per_seed_windows),
-                self._step_graph, step, idx, (params, ds, windows))
-            out = step(idx) if graph is None else self._replay(graph, idx)
+            out = self._steps.run("eval", self._key(
+                params, ds, windows, b, idx, per_seed_windows), step, idx,
+                (params, ds, windows))
             losses.append(out[0])
             last.append(out[1])
         return torch.stack(losses, 1), torch.stack(last, 1)

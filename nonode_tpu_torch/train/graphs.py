@@ -1,20 +1,24 @@
 """Training and validation steps captured as CUDA graphs and replayed: the
-one mechanism of the seed fleet's loop (parallel/fleet.py ``SeedFleet``)
-and of the per-seed loop (train/loop.py ``_Experiment``).
+one step runner (``StepGraphs.run``) of the seed fleet's loop
+(parallel/fleet.py ``SeedFleet``) and of the per-seed loop (train/loop.py
+``_Experiment``).
 
 A step is ``body(idx)``: the loss on the batch of the index buffer
 ``idx``, in training with its backward. It is captured once and replayed
 for every later step that bakes in the same inputs (its key,
-``step_key``): one replay in place of the hundreds of host launches of the
-forward and backward. The first step under a key runs eagerly and warms
-up, the second captures, later ones replay (``StepGraphs``). Adam stays
-eager after the replay, which leaves the gradients in the ``.grad``
-buffers of the capture. A loop whose key is None runs eagerly.
+``StepGraphs.key``): one replay in place of the hundreds of host launches
+of the forward and backward. The first step under a key runs eagerly and
+warms up, the second captures, later ones replay. What a step bakes in of
+the loop's windows the experiment says (its ``_window_key``): this layer
+knows no model. Adam stays eager after the replay, which leaves the
+gradients in the ``.grad`` buffers of the capture; they stay the
+parameters' gradients between replays, and each replay overwrites them, as
+``zero_grad(set_to_none=True)`` and a fresh backward do. A step whose key
+is None runs eagerly.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..ops.kernels import KERNELS
@@ -36,33 +40,9 @@ def _count_launches(counts) -> None:
         setattr(w, name, getattr(w, name) + n)
 
 
-def _layouts(tensors) -> tuple:
+def layouts(tensors) -> tuple:
     """What a graph reads of ``tensors``: each one's address and shape."""
     return tuple((t.data_ptr(), t.shape) for t in tensors)
-
-
-def step_key(idx, params, ds, windows, b, *settings):
-    """What a captured step of batch ``b`` on the index buffer ``idx``
-    bakes in: the index shape, the grad mode, ``settings`` (the loop's own:
-    the fleet's ``remat``, an experiment's ``compute_dtype``), the storage
-    of every parameter in ``params`` and of the dataset's tensors, and the
-    windows': the storage of EGNO's per-sample index arrays (device
-    tensors), batch ``b``'s host-integer frames (SEGNO's [NB, L] array), or
-    nothing (mocap's, None). None for windows of another kind (index arrays
-    off ``idx``'s device), whose step runs eagerly."""
-    if windows is None:
-        frames = ()
-    elif isinstance(windows, np.ndarray):
-        frames = tuple(int(f) for f in windows[b])
-    elif isinstance(windows, dict) and all(
-            isinstance(t, torch.Tensor) and t.device == idx.device
-            for t in windows.values()):
-        frames = _layouts(windows.values())
-    else:
-        return None
-    data = [t for t in vars(ds).values() if isinstance(t, torch.Tensor)]
-    return (tuple(idx.shape), torch.is_grad_enabled(), *settings,
-            _layouts(params), _layouts(data), frames)
 
 
 class StepGraph:
@@ -94,30 +74,59 @@ class StepGraph:
 
 
 class StepGraphs:
-    """A loop's captured steps: one live graph for each kind of step
-    (``train``, ``eval``), and ``replays``, the steps that replayed one."""
+    """A loop's steps: one live graph for each kind of step (``train``,
+    ``eval``), and ``replays``, the steps that replayed one. ``devices``:
+    the device types whose steps are captured (empty: every step runs
+    eagerly); ``capture``: how a step is captured."""
+
+    devices = ("cuda",)
+    capture = StepGraph
 
     def __init__(self):
         self.graphs = {}       # kind -> its one live graph
         self.seen = {}         # kind -> its last key run without a graph
         self.replays = 0
 
-    def get(self, kind, key, make, body, idx, keep):
-        """The graph that runs this ``kind`` of step under ``key``, or None
-        where it runs eagerly: without a key, and on a key's first use, its
-        warm-up. The second use captures ``body`` on ``idx`` (the tensors
-        it reads, ``keep``) with ``make`` (``StepGraph``), and every later
-        one replays. A kind keeps one graph: another key frees the old
-        one."""
+    def key(self, idx, params, ds, window, *settings):
+        """What a captured step on the index buffer ``idx`` bakes in: the
+        index shape, the grad mode, ``settings`` (the loop's own: the
+        fleet's ``remat``, an experiment's ``compute_dtype``), the storage
+        of every parameter in ``params`` and of the dataset's tensors, and
+        ``window``, what it bakes in of the windows. None where the step
+        runs eagerly: off ``devices``, or on windows that cannot be
+        captured (``window`` None)."""
+        if window is None or idx.device.type not in self.devices:
+            return None
+        data = [t for t in vars(ds).values() if isinstance(t, torch.Tensor)]
+        return (tuple(idx.shape), torch.is_grad_enabled(), *settings,
+                layouts(params), layouts(data), window)
+
+    def run(self, kind, key, body, idx, keep, spans=()):
+        """``body(idx)``, a step of this ``kind`` under ``key``: eagerly
+        without a key and on a key's first use, its warm-up; the second
+        use captures ``body`` on ``idx`` (the tensors it reads, ``keep``)
+        and replays it, and every later one replays. A kind keeps one
+        graph: another key frees the old one. A replay opens ``spans``,
+        those the eager body opens one after another, empty but for
+        ``step.forward``, which holds the replay's ``step.replay`` (bare
+        where ``spans`` has no forward)."""
         graph = self.graphs.get(kind)
         if graph is not None and graph.key != key:
             del self.graphs[kind]
             graph = None
         if graph is None and key is not None:
             if self.seen.get(kind) == key:
-                graph = self.graphs[kind] = make(key, body, idx, keep)
+                graph = self.graphs[kind] = self.capture(key, body, idx, keep)
             self.seen[kind] = key
-        return graph
+        if graph is None:
+            return body(idx)
+        if "step.forward" not in spans:
+            return self.replay(graph, idx)
+        for name in spans:
+            with span(name):
+                if name == "step.forward":
+                    out = self.replay(graph, idx)
+        return out
 
     def replay(self, graph, idx):
         """``graph``'s step on the batch ``idx``, counted."""

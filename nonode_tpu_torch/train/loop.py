@@ -23,9 +23,14 @@ over stacked per-seed parameters (parallel/fleet.py).
 On the card a training step (the batch gather, the loss and its backward)
 and a validation step (the gather and the loss) are each captured once as
 a CUDA graph and replayed for every later step that bakes in the same
-inputs (``_Experiment._key``; the mechanism is train/graphs.py's, which
-the seed fleet shares); Adam stays eager after the replay. The CPU and a
-mesh run eagerly.
+inputs: train/graphs.py's step runner, which the seed fleet shares, under
+``_Experiment._key``; each model's ``_window_key`` says what a step bakes
+in of its windows. Adam stays eager after the replay. The CPU and a mesh
+run eagerly.
+
+``_Experiment.test_rollout`` is the one test evaluation of both N-body
+models: each gives its batches with their rollout length and truth frames,
+and the predicted frames it keeps (``_rollout_draw``).
 
 With a mesh (``--dp``/``--space``, parallel/mesh.py) the experiment's
 batches are global, as one process builds them, and ``shard`` cuts each to
@@ -48,7 +53,7 @@ from ..data.nbody import NBodyDataset
 from ..models.egno import EGNO
 from ..models.segno import SEGNO
 from ..utils.profiling import span
-from .graphs import StepGraph, StepGraphs, step_key
+from .graphs import StepGraphs, layouts
 from .metrics import conserved_energy, pearson_correlation_batch
 
 
@@ -126,7 +131,8 @@ class _Experiment:
     Every model answers the same calls: ``draw_epoch`` (the permutation and
     the model's input ``windows``), ``batch``, ``train_epoch`` and
     ``eval_epoch``, ``rollout`` and ``test_rollout``. How a model draws its
-    windows and steps its forward stays behind them.
+    windows, what a graphed step bakes in of them (``_window_key``) and how
+    it steps its forward stay behind them.
 
     ``mesh`` (parallel/mesh.py ``apply_mesh``): the batches are cut to the
     rank's share (``_shard``, per model) and the losses and gradients
@@ -134,10 +140,6 @@ class _Experiment:
 
     ``replays``: the steps (training and validation) that replayed a
     captured graph."""
-
-    # the devices whose steps are captured and replayed, and the capture
-    _graph_devices = ("cuda",)
-    _step_graph = StepGraph
 
     def __init__(self, model, lr: float, weight_decay: float,
                  compute_dtype: torch.dtype | None = None):
@@ -224,13 +226,14 @@ class _Experiment:
         return perm, self.windows(ds, rng, len(perm))
 
     def _key(self, ds, windows, b, idx):
-        """What a captured step of batch ``b`` bakes in (``step_key``, with
-        ``compute_dtype``). None where the step runs eagerly: off the card,
-        and with a mesh (its gradient and loss sums stay eager)."""
-        if self.mesh is not None or idx.device.type not in self._graph_devices:
+        """What a captured step of batch ``b`` bakes in (``StepGraphs.key``,
+        with ``compute_dtype``). None where the step runs eagerly: off the
+        card, and with a mesh (its gradient and loss sums stay eager)."""
+        if self.mesh is not None:
             return None
-        return step_key(idx, self.model.parameters(), ds, windows, b,
-                        self.compute_dtype)
+        return self._steps.key(idx, self.model.parameters(), ds,
+                               self._window_key(windows, b, idx),
+                               self.compute_dtype)
 
     def train_epoch(self, ds: NBodyDataset, windows, perm):
         """One Adam step per row of ``perm`` [NB, B] on ``windows``. Returns
@@ -249,19 +252,10 @@ class _Experiment:
                 self._backward(loss)
                 return loss.detach(), per_frame[-1].detach()
 
-            graph = self._steps.get("train", self._key(ds, windows, b, idx),
-                                    self._step_graph, step, idx, (ds, windows))
-            if graph is None:
-                out = step(idx)
-            else:
-                with span("step.batch"):
-                    pass        # the graph holds the gather
-                with span("step.forward"):
-                    out = self._steps.replay(graph, idx)
-                with span("step.backward"):
-                    # the replay's backward wrote the gradients into the
-                    # .grad buffers of its capture (SeedFleet.train_epoch)
-                    pass
+            out = self._steps.run("train", self._key(ds, windows, b, idx),
+                                  step, idx, (ds, windows),
+                                  ("step.batch", "step.forward",
+                                   "step.backward"))
             self._optimizer_step()
             losses.append(out[0])
             last.append(out[1])
@@ -280,10 +274,8 @@ class _Experiment:
                 loss, per_frame = self._loss(self.shard(batch))
                 return loss, per_frame[-1]
 
-            graph = self._steps.get("eval", self._key(ds, windows, b, idx),
-                                    self._step_graph, step, idx, (ds, windows))
-            out = step(idx) if graph is None else self._steps.replay(graph,
-                                                                      idx)
+            out = self._steps.run("eval", self._key(ds, windows, b, idx),
+                                  step, idx, (ds, windows))
             losses.append(out[0])
             last.append(out[1])
         return self._summed(torch.stack(losses), torch.stack(last))
@@ -307,6 +299,51 @@ class _Experiment:
         if params is None:
             return self.model(*args, **kwargs)
         return torch.func.functional_call(self.model, params, args, kwargs)
+
+    @torch.no_grad()
+    def test_rollout(self, ds: NBodyDataset, batch_size: int,
+                     rng: np.random.RandomState):
+        """Full test evaluation: every full batch of ``ds`` (drop_last)
+        rolled out and held against its truth frames. Returns (test_loss,
+        avg_num_steps, artifact), artifact = {targets, preds,
+        energy_conservation, test_loss} plus the finite-sample companions,
+        as numpy arrays ([S, frames, N, 3]). The model draws the batches
+        from ``rng`` and says how many predicted frames the loss and the
+        artifact keep (``_rollout_draw``)."""
+        draw, keep = self._rollout_draw(ds, rng)
+        tot_loss = tot_steps = count = 0.0
+        targets_l, preds_l, energies_l = [], [], []
+        for s0 in range(0, len(ds) - batch_size + 1, batch_size):  # drop_last
+            with span("rollout.batch"):
+                idx = torch.arange(s0, s0 + batch_size, device=ds.device)
+                batch, traj_len, truth = draw(idx)
+            locs_pred, energies = self.rollout(batch, traj_len, ds.dataset)
+            with span("rollout.metrics"):
+                tcur = locs_pred.shape[0]
+                truth = truth()[:tcur]                     # [T', B, N, 3]
+                _, avg_steps, _ = pearson_correlation_batch(
+                    locs_pred.reshape(tcur, -1, 3),
+                    truth.reshape(tcur, -1, 3), truth.shape[2])
+                loss = ((locs_pred[:keep] - truth[:keep]) ** 2).mean(
+                    dim=(1, 2, 3)).mean()
+            with span("rollout.readback"):
+                tot_loss += float(loss) * batch_size
+                tot_steps += float(avg_steps) * batch_size
+                count += batch_size
+                targets_l.append(truth.transpose(0, 1).cpu().numpy())
+                preds_l.append(locs_pred[:keep].transpose(0, 1).cpu().numpy())
+                energies_l.append(
+                    energies[:keep].transpose(0, 1).cpu().numpy())
+
+        test_loss = tot_loss / count
+        artifact = {
+            "targets": np.concatenate(targets_l),
+            "preds": np.concatenate(preds_l),
+            "energy_conservation": np.concatenate(energies_l),
+            "test_loss": test_loss,
+        }
+        artifact.update(_finite_metrics(artifact))
+        return test_loss, tot_steps / count, artifact
 
 
 class EGNOExperiment(_Experiment):
@@ -344,6 +381,16 @@ class EGNOExperiment(_Experiment):
         ``num_batches`` does not enter)."""
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in self.epoch_index_arrays(ds, rng).items()}
+
+    def _window_key(self, windows, b: int, idx):
+        """What a graphed step of batch ``b`` bakes in of ``windows``
+        (train/graphs.py ``StepGraphs.key``): the storage of the per-sample
+        index tensors; None (eager) where one is not a tensor on ``idx``'s
+        device."""
+        if all(isinstance(t, torch.Tensor) and t.device == idx.device
+               for t in windows.values()):
+            return layouts(windows.values())
+        return None
 
     def batch(self, ds: NBodyDataset, windows, b: int, idx):
         """The batch of samples ``idx`` [B] (device) on ``windows``."""
@@ -444,63 +491,24 @@ class EGNOExperiment(_Experiment):
                                         batch[2])
         return locs_pred, energies[..., None]
 
-    @torch.no_grad()
-    def test_rollout(self, ds: NBodyDataset, batch_size: int,
-                     rng: np.random.RandomState):
-        """Full test evaluation. Returns (test_loss, avg_num_steps, artifact),
-        artifact = {targets, preds, energy_conservation, test_loss} plus the
-        finite-sample companions, as numpy arrays."""
-        t_model = self.model.num_timesteps
+    def _rollout_draw(self, ds: NBodyDataset, rng: np.random.RandomState):
+        """``test_rollout``'s batches and the frames it keeps: the index
+        arrays drawn once for the call, a batch of samples ``idx`` on them
+        -> (the batch, its rollout length, its truth frames: the batch's
+        targets), and the first 0.4 x traj_len x T predicted frames."""
         with span("rollout.batch"):                   # the call's indices
             idx_np = self.epoch_index_arrays(ds, rng)
             idx_arrays = {k: torch.from_numpy(v).to(ds.device)
                           for k, v in idx_np.items()}
-        avail = idx_np["out_frames"].shape[1]
-        traj_len = min(ds.traj_len, avail // t_model)
-        cut = int(0.4 * ds.traj_len * t_model)
-
+        traj_len = min(ds.traj_len, idx_np["out_frames"].shape[1]
+                       // self.model.num_timesteps)
         ds_arrays = (ds.loc, ds.vel, ds.charges, ds.edge_weights)
-        n = len(ds)
-        tot_loss = tot_steps = count = 0.0
-        targets_l, preds_l, energies_l = [], [], []
-        for s0 in range(0, n - batch_size + 1, batch_size):   # drop_last
-            with span("rollout.batch"):
-                idx = torch.arange(s0, s0 + batch_size, device=ds.device)
-                batch = self._batch(ds_arrays, idx_arrays, idx)
-            locs_pred, energies = self.rollout(batch, traj_len, ds.dataset)
-            with span("rollout.metrics"):
-                loc_true = batch[4]                        # [B, T', N, 3]
-                tcur = locs_pred.shape[0]
-                truth = loc_true.transpose(0, 1)[:tcur]    # [T', B, N, 3]
 
-                b, nn_ = loc_true.shape[0], loc_true.shape[2]
-                _, avg_steps, _ = pearson_correlation_batch(
-                    locs_pred.reshape(tcur, -1, 3),
-                    truth.reshape(tcur, -1, 3), nn_)
+        def draw(idx):
+            batch = self._batch(ds_arrays, idx_arrays, idx)
+            return batch, traj_len, lambda: batch[4].transpose(0, 1)
 
-                sup = min(cut, tcur)
-                losses = ((locs_pred[:sup] - truth[:sup]) ** 2).mean(
-                    dim=(1, 2, 3))
-                loss = losses.mean()
-
-            with span("rollout.readback"):
-                tot_loss += float(loss) * b
-                tot_steps += float(avg_steps) * b
-                count += b
-                targets_l.append(truth.transpose(0, 1).cpu().numpy())
-                preds_l.append(locs_pred[:sup].transpose(0, 1).cpu().numpy())
-                energies_l.append(
-                    energies[:sup].transpose(0, 1).cpu().numpy())
-
-        test_loss = tot_loss / count
-        artifact = {
-            "targets": np.concatenate(targets_l),
-            "preds": np.concatenate(preds_l),
-            "energy_conservation": np.concatenate(energies_l),
-            "test_loss": test_loss,
-        }
-        artifact.update(_finite_metrics(artifact))
-        return test_loss, tot_steps / count, artifact
+        return draw, int(0.4 * ds.traj_len * self.model.num_timesteps)
 
 
 class SEGNOExperiment(_Experiment):
@@ -556,6 +564,10 @@ class SEGNOExperiment(_Experiment):
         """The input frames of each batch [NB, L]."""
         return self.frames_from_steps(ds, self.sample_steps(ds, rng,
                                                             num_batches))
+
+    def _window_key(self, windows, b: int, idx):
+        """Batch ``b``'s input frames, host integers."""
+        return tuple(int(f) for f in windows[b])
 
     @staticmethod
     def _anchor(ds: NBodyDataset, frames) -> int:
@@ -658,13 +670,13 @@ class SEGNOExperiment(_Experiment):
                                         batch[2])
         return locs_pred, energies[..., None]
 
-    @torch.no_grad()
-    def test_rollout(self, ds: NBodyDataset, batch_size: int,
-                     rng: np.random.RandomState):
-        """Full test evaluation over ``ds.traj_len`` windows. Returns
-        (test_loss, avg_num_steps, artifact), artifact = {targets, preds,
-        energy_conservation, test_loss} plus the finite-sample companions,
-        as numpy arrays ([S, windows, N, 3])."""
+    def _rollout_draw(self, ds: NBodyDataset, rng: np.random.RandomState):
+        """``test_rollout``'s batches and the frames it keeps: a batch of
+        samples ``idx`` -> (the batch on a window drawn from ``rng`` for
+        it, as the reference's batch loop draws one, its rollout length,
+        its truth frames: the frame T, 2T, ... after the anchor, where the
+        model's input offsets count from, train_nbody.py:104-107,136-137),
+        and every predicted frame (None)."""
         t = self.num_timesteps
         # one window count for every batch, sized for the worst-case start
         # any batch's sampled window could have (the reference truncates per
@@ -674,43 +686,11 @@ class SEGNOExperiment(_Experiment):
             ds.start, (L - 1) * (self.max_interior(ds) - 1))
         tl = max(min(ds.traj_len, (ds.n_frames - 1 - max_start) // t), 1)
 
-        n = len(ds)
-        tot_loss = tot_steps = count = 0.0
-        targets_l, preds_l, energies_l = [], [], []
-        for s0 in range(0, n - batch_size + 1, batch_size):   # drop_last
-            with span("rollout.batch"):
-                # a window drawn per batch, as the reference's batch loop
-                # does
-                frames = self.windows(ds, rng, 1)
-                # targets anchor where the model's input offsets do
-                # (train_nbody.py:104-107,136-137)
-                pred_indices = (self._anchor(ds, frames[0])
-                                + np.cumsum([t] * tl))
-                idx = torch.arange(s0, s0 + batch_size, device=ds.device)
-                batch = self.batch(ds, frames, 0, idx)
-            locs_pred, energies = self.rollout(batch, tl, ds.dataset)
-            with span("rollout.metrics"):
-                truth = torch.stack([ds.loc[idx, int(f)]
-                                     for f in pred_indices])
-                b = len(idx)
-                _, avg_steps, _ = pearson_correlation_batch(
-                    locs_pred.reshape(tl, -1, 3), truth.reshape(tl, -1, 3),
-                    ds.n_balls)
-                loss = ((locs_pred - truth) ** 2).mean(dim=(1, 2, 3)).mean()
-            with span("rollout.readback"):
-                tot_loss += float(loss) * b
-                tot_steps += float(avg_steps) * b
-                count += b
-                targets_l.append(truth.transpose(0, 1).cpu().numpy())
-                preds_l.append(locs_pred.transpose(0, 1).cpu().numpy())
-                energies_l.append(energies.transpose(0, 1).cpu().numpy())
+        def draw(idx):
+            frames = self.windows(ds, rng, 1)
+            pred_indices = self._anchor(ds, frames[0]) + np.cumsum([t] * tl)
+            return (self.batch(ds, frames, 0, idx), tl,
+                    lambda: torch.stack([ds.loc[idx, int(f)]
+                                         for f in pred_indices]))
 
-        test_loss = tot_loss / count
-        artifact = {
-            "targets": np.concatenate(targets_l),
-            "preds": np.concatenate(preds_l),
-            "energy_conservation": np.concatenate(energies_l),
-            "test_loss": test_loss,
-        }
-        artifact.update(_finite_metrics(artifact))
-        return test_loss, tot_steps / count, artifact
+        return draw, None

@@ -102,7 +102,7 @@ def main(argv=None):
     print(f"card: {card}")
     margs = get_args(["--model", args.model])
     exp = build_experiment(margs, dev, torch.Generator().manual_seed(42))
-    exp._graph_devices = ()                  # eager: kernels by span
+    exp._steps.devices = ()                  # eager: kernels by span
     ds = NBodyDataset(args.data_dir, partition="train", device=dev)
     perm, windows = exp.draw_epoch(ds, np.random.RandomState(42), BATCH)
 
@@ -114,7 +114,7 @@ def main(argv=None):
     if args.fleet:
         seeds = list(range(1, args.fleet + 1))
         fleet = SeedFleet(exp, seeds)
-        fleet._graph_devices = ()            # eager: kernels by span
+        fleet._steps.devices = ()            # eager: kernels by span
         params, opt = fleet.init(
             lambda g: build_experiment(margs, dev, g).model)
         perms = fleet.make_perms([np.random.RandomState(s) for s in seeds],

@@ -874,9 +874,9 @@ def _fleet_run(dev, model, graphed, case, tmp):
     ``nf128``: at hidden 128, on #1's and #2's tile routes) on the
     committed charged-5 splits: 3 Adam steps (on the card a key's warm-up,
     its capture and a replay), with ``take`` 3 more on seeds 0, 2 and 4,
-    then a validation epoch; graphed, or eager (``_graph_devices``
-    emptied). Returns (fleet, step losses, validation losses, params,
-    optimizer)."""
+    then a validation epoch; graphed, or eager (the loop's
+    ``StepGraphs.devices`` emptied). Returns (fleet, step losses,
+    validation losses, params, optimizer)."""
     from nonode_tpu_torch.data.nbody import NBodyDataset
     from nonode_tpu_torch.main import build_experiment, get_args
     from nonode_tpu_torch.parallel.fleet import SeedFleet
@@ -896,7 +896,7 @@ def _fleet_run(dev, model, graphed, case, tmp):
     fleet = SeedFleet(build(seed_everything(FLEET_SEEDS[0])), FLEET_SEEDS,
                       remat=case == "remat")
     if not graphed:
-        fleet._graph_devices = ()
+        fleet._steps.devices = ()
     params, opt = fleet.init(lambda g: build(g).model)
     perms = fleet.make_perms([np.random.RandomState(s) for s in FLEET_SEEDS],
                              len(ds), b)
@@ -969,17 +969,17 @@ def test_graphed_fleet_main_gives_the_eager_runs_records(dev, model,
     replayed 21 of its 22 training steps (the first warms up) and 6 of
     its 7 validation batches."""
     from nonode_tpu_torch import fleet_main
-    from nonode_tpu_torch.parallel.fleet import SeedFleet
+    from nonode_tpu_torch.train.graphs import StepGraphs
 
     data = Path(__file__).resolve().parents[1] / "data"
     replayed = []
-    replay = SeedFleet._replay
+    replay = StepGraphs.replay
 
     def counted(self, graph, idx):
         replayed.append(idx.shape)
         return replay(self, graph, idx)
 
-    monkeypatch.setattr(SeedFleet, "_replay", counted)
+    monkeypatch.setattr(StepGraphs, "replay", counted)
 
     def run(out):
         return fleet_main.main(fleet_main.get_args([
@@ -989,7 +989,7 @@ def test_graphed_fleet_main_gives_the_eager_runs_records(dev, model,
 
     got = run(tmp_path / "graphed")
     assert len(replayed) == 27
-    monkeypatch.setattr(SeedFleet, "_graph_devices", ())
+    monkeypatch.setattr(StepGraphs, "devices", ())
     want = run(tmp_path / "eager")
     assert len(replayed) == 27
     np.testing.assert_equal(got, want)
@@ -1011,9 +1011,9 @@ def _per_seed_run(dev, case, graphed, tmp):
     varDT) and ``segno`` as ``main`` trains them on the committed charged-5
     splits (batch 256): 3 Adam steps (on the card a key's warm-up, its
     capture and a replay), then a validation epoch; graphed, or eager
-    (``_graph_devices`` emptied). Returns (experiment, step losses,
-    validation losses, validation batches, the launches and tile launches
-    of #1 and #2 that the run counted)."""
+    (the loop's ``StepGraphs.devices`` emptied). Returns (experiment, step
+    losses, validation losses, validation batches, the launches and tile
+    launches of #1 and #2 that the run counted)."""
     from nonode_tpu_torch.runtime import seed_everything
 
     if case == "mocap":
@@ -1046,7 +1046,7 @@ def _per_seed_run(dev, case, graphed, tmp):
                           max_samples=args.max_samples, **kw)
         ds_val = NBodyDataset(data, partition="val", **kw)
     if not graphed:
-        exp._graph_devices = ()
+        exp._steps.devices = ()
     counters = [(f, name) for f in (egnn_fused.pairwise_message,
                                     egnn_fused.pairwise_message_bwd)
                 for name in ("launches", "tile_launches")]

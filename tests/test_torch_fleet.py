@@ -566,8 +566,8 @@ def _stub_capture(fleet):
             self.idx.copy_(idx)
             return tuple(o.clone() for o in self.body(self.idx))
 
-    fleet._graph_devices = ("cpu",)
-    fleet._step_graph = CpuGraph
+    fleet._steps.devices = ("cpu",)
+    fleet._steps.capture = CpuGraph
     return captured
 
 
@@ -661,7 +661,7 @@ def test_a_changed_key_warms_up_and_captures_again(tiny_data, change):
                           state["perms"][:, b:b + 1])
 
     kinds = [_kind(fleet, captured, lambda: train(b)) for b in range(3)]
-    old = fleet._graphs["train"]
+    old = fleet._steps.graphs["train"]
     if change in ("take", "storage"):
         keep = [0, 2] if change == "take" else [0, 1, 2]
         state["params"], state["opt"] = fleet.take(params, opt, keep)
@@ -672,7 +672,7 @@ def test_a_changed_key_warms_up_and_captures_again(tiny_data, change):
         fleet.remat = True
     kinds += [_kind(fleet, captured, lambda: train(b)) for b in range(3, 6)]
     assert kinds == ["eager", "capture", "replay"] * 2
-    assert fleet._graphs["train"] is not old
+    assert fleet._steps.graphs["train"] is not old
     assert captured[0] != captured[1]
 
 
@@ -709,4 +709,4 @@ def test_per_seed_windows_and_the_cpu_stay_eager(tiny_data, case):
                    if per_seed else drawn[0][1])
         fleet.train_epoch(params, opt, ds, windows,
                           np.stack([p for p, _ in drawn]), per_seed)
-    assert fleet.replays == 0 and not captured and not fleet._graphs
+    assert fleet.replays == 0 and not captured and not fleet._steps.graphs

@@ -6,6 +6,9 @@ eager, and the eager loop's bits. EGNO and SEGNO run on tiny charged-5
 splits, mocap's EGNO (``motion_main.build_experiment``, nf 16, 2 layers)
 on a written run case. The card's graphs: tests/test_torch_cuda.py."""
 
+import ast
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +22,7 @@ from test_torch_fleet import (_ds, _egno_build, _kind, _segno_build,
                               _stub_capture, tiny_data)  # noqa: F401
 
 MODELS = ["egno", "segno", "mocap"]
+REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
@@ -191,3 +195,23 @@ def test_the_cpu_a_mesh_and_per_batch_frames_stay_eager(
         want = [plain.train_epoch(ds, windows, perm) for _ in range(2)]
         for a, w in zip(got, want):
             assert torch.equal(a[0], w[0]) and torch.equal(a[1], w[1])
+
+
+def test_the_graph_layer_names_no_model_and_no_window_type():
+    """train/graphs.py keys a step on what its experiment says the step
+    bakes in of the windows (``_window_key``): its source names no model
+    (nor the mocap experiment) and no window type (numpy's arrays, dicts),
+    and tests the type of nothing but the dataset's tensors."""
+    src = (REPO / "nonode_tpu_torch" / "train" / "graphs.py").read_text()
+    models = [m.stem for m in (REPO / "nonode_tpu_torch" / "models")
+              .glob("*.py") if m.stem != "__init__"] + ["mocap", "motion"]
+    assert len(models) >= 4
+    for name in models:
+        assert name not in src.lower(), name
+    tree = ast.parse(src)
+    names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    names |= {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+    assert not names & {"np", "numpy", "ndarray", "dict", "windows"}
+    typed = [ast.unparse(n) for n in ast.walk(tree)
+             if isinstance(n, ast.Call) and ast.unparse(n.func) == "isinstance"]
+    assert typed == ["isinstance(t, torch.Tensor)"]
