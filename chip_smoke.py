@@ -2096,20 +2096,41 @@ def counted_integrator_steps():
     which launches #1 once and, when autograd records it (training), #2
     once in the backward. With varDT the steps a forward takes are drawn
     per batch (s + T for a drawn segment s), so they are counted, not
-    reckoned. Yields {"recorded": n, "not recorded": n}."""
+    reckoned. A CUDA graph (train/graphs.py ``StepGraph``) counts as the
+    kernel wrappers do: each replay the steps its capture ran, the
+    capture's own taken back. Yields {"recorded": n, "not recorded": n}."""
     from nonode_tpu_torch.models.segno import SEGNO
+    from nonode_tpu_torch.train.graphs import StepGraph
 
-    original = SEGNO.__dict__["integrate"]
+    originals = [(owner, name, owner.__dict__[name]) for owner, name in (
+        (SEGNO, "integrate"), (StepGraph, "__init__"),
+        (StepGraph, "replay"))]
+    (_, _, integrate_), (_, _, capture), (_, _, replay) = originals
     steps = {"recorded": 0, "not recorded": 0}
 
     def integrate(self, h, x, v, edge_attr, n, rows=None):
         steps["recorded" if torch.is_grad_enabled() else "not recorded"] += n
-        return original(self, h, x, v, edge_attr, n, rows)
+        return integrate_(self, h, x, v, edge_attr, n, rows)
+
+    def captured(graph, *args):
+        before = dict(steps)
+        capture(graph, *args)
+        graph.steps = {k: steps[k] - before[k] for k in steps}
+        for k, n in graph.steps.items():
+            steps[k] -= n
+
+    def replayed(graph, inputs):
+        for k, n in graph.steps.items():
+            steps[k] += n
+        return replay(graph, inputs)
+
     SEGNO.integrate = integrate
+    StepGraph.__init__, StepGraph.replay = captured, replayed
     try:
         yield steps
     finally:
-        SEGNO.integrate = original
+        for owner, name, original in originals:
+            setattr(owner, name, original)
 
 
 def same_loss(a, b):

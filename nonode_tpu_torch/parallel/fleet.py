@@ -29,7 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..runtime import seed_everything
-from ..train.graphs import StepGraphs
+from ..train.graphs import StepGraphs, data_layouts
 from ..train.loop import make_perm, zero_missing_grads
 from ..utils.profiling import span
 
@@ -105,7 +105,7 @@ class SeedFleet:
 
     @property
     def replays(self) -> int:
-        return self._steps.replays
+        return sum(self._steps.replays.values())
 
     @property
     def k(self) -> int:
@@ -164,9 +164,9 @@ class SeedFleet:
         with per-seed windows (drawn anew every epoch)."""
         if per_seed_windows:
             return None
-        return self._steps.key(idx, params.values(), ds,
+        return self._steps.key((idx,), params.values(),
                                self.exp._window_key(windows, b, idx),
-                               self.remat)
+                               self.remat, data_layouts(ds))
 
     def train_epoch(self, params, opt, ds, windows, perms,
                     per_seed_windows=False):
@@ -191,7 +191,7 @@ class SeedFleet:
                 return loss.detach(), per_frame[:, -1].detach()
 
             out = self._steps.run("train", self._key(
-                params, ds, windows, b, idx, per_seed_windows), step, idx,
+                params, ds, windows, b, idx, per_seed_windows), step, (idx,),
                 (params, ds, windows), ("step.forward", "step.backward"))
             with span("step.optimizer"):
                 zero_missing_grads(params.values())
@@ -217,7 +217,7 @@ class SeedFleet:
                 return loss, per_frame[:, -1]
 
             out = self._steps.run("eval", self._key(
-                params, ds, windows, b, idx, per_seed_windows), step, idx,
+                params, ds, windows, b, idx, per_seed_windows), step, (idx,),
                 (params, ds, windows))
             losses.append(out[0])
             last.append(out[1])

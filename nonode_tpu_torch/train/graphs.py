@@ -1,23 +1,28 @@
-"""Training and validation steps captured as CUDA graphs and replayed: the
-one step runner (``StepGraphs.run``) of the seed fleet's loop
-(parallel/fleet.py ``SeedFleet``) and of the per-seed loop (train/loop.py
-``_Experiment``).
+"""Training and validation steps and rollout windows captured as CUDA
+graphs and replayed: the one step runner (``StepGraphs.run``) of the seed
+fleet's loop (parallel/fleet.py ``SeedFleet``) and of the per-seed loop and
+its rollout (train/loop.py ``_Experiment``).
 
-A step is ``body(idx)``: the loss on the batch of the index buffer
-``idx``, in training with its backward. It is captured once and replayed
-for every later step that bakes in the same inputs (its key,
-``StepGraphs.key``): one replay in place of the hundreds of host launches
-of the forward and backward. The first step under a key runs eagerly and
-warms up, the second captures, later ones replay. What a step bakes in of
-the loop's windows the experiment says (its ``_window_key``): this layer
-knows no model. Adam stays eager after the replay, which leaves the
-gradients in the ``.grad`` buffers of the capture; they stay the
-parameters' gradients between replays, and each replay overwrites them, as
+A step is ``body(*inputs)`` on static inputs: a training step the loss on
+the batch of an index buffer with its backward, a validation step the loss,
+a rollout window the model's forward on the window's fed-back state. It is
+captured once and replayed for every later step that bakes in the same
+inputs (its key, ``StepGraphs.key``): one replay, with the inputs copied
+into the graph's own buffers, in place of the hundreds of host launches of
+the forward (and backward). The first step under a key runs eagerly and
+warms up, the second captures, later ones replay. What a step bakes in
+beyond its inputs' shapes and the parameters the caller says (an
+experiment's ``_window_key``, a rollout's host integers): this layer knows
+no model. Adam stays eager after the replay, which leaves the gradients in
+the ``.grad`` buffers of the capture; they stay the parameters' gradients
+between replays, and each replay overwrites them, as
 ``zero_grad(set_to_none=True)`` and a fresh backward do. A step whose key
-is None runs eagerly.
+is None runs eagerly and leaves the live graph in place.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -45,29 +50,39 @@ def layouts(tensors) -> tuple:
     return tuple((t.data_ptr(), t.shape) for t in tensors)
 
 
-class StepGraph:
-    """A step captured as a CUDA graph: ``body(idx)`` on a static index
-    buffer, and its outputs. A replay launches the captured kernels in
-    their order. The tensors the capture reads (``keep``) live as long as
-    the graph, so that no other tensor takes their addresses while the key
-    can match."""
+def data_layouts(ds) -> tuple:
+    """``layouts`` of a dataset's tensors: what a step that gathers from
+    them bakes in."""
+    return layouts(t for t in vars(ds).values()
+                   if isinstance(t, torch.Tensor))
 
-    def __init__(self, key, body, idx, keep):
+
+class StepGraph:
+    """A step captured as a CUDA graph: ``body(*inputs)`` on static input
+    buffers of the inputs' shapes and dtypes, and its outputs. A replay
+    launches the captured kernels in their order. The tensors the capture
+    reads besides its inputs (``keep``) live as long as the graph, so that
+    no other tensor takes their addresses while the key can match."""
+
+    def __init__(self, key, body, inputs, keep):
         self.key, self.keep = key, keep
-        self.idx = torch.empty(idx.shape, dtype=idx.dtype, device=idx.device)
+        self.inputs = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                        device=t.device) for t in inputs)
         self.graph = torch.cuda.CUDAGraph()
         before = _launch_counts()
         with torch.cuda.graph(self.graph):
-            self.out = body(self.idx)
+            self.out = body(*self.inputs)
         # the wrappers counted the kernels as they were captured; the
         # replays launch them
         self.launches = [a - b for a, b in zip(_launch_counts(), before)]
         _count_launches(-n for n in self.launches)
 
-    def replay(self, idx):
-        """The step on the batch ``idx``: its outputs, copied out of the
-        graph's before the next replay overwrites them."""
-        self.idx.copy_(idx)
+    def replay(self, inputs):
+        """The step on ``inputs``, copied into the graph's buffers: its
+        outputs, copied out of the graph's before the next replay
+        overwrites them."""
+        for buf, t in zip(self.inputs, inputs):
+            buf.copy_(t)
         self.graph.replay()
         _count_launches(self.launches)
         return tuple(o.clone() for o in self.out)
@@ -75,9 +90,10 @@ class StepGraph:
 
 class StepGraphs:
     """A loop's steps: one live graph for each kind of step (``train``,
-    ``eval``), and ``replays``, the steps that replayed one. ``devices``:
-    the device types whose steps are captured (empty: every step runs
-    eagerly); ``capture``: how a step is captured."""
+    ``eval``, ``rollout``), and ``replays``, the steps of each kind that
+    replayed one. ``devices``: the device types whose steps are captured
+    (empty: every step runs eagerly); ``capture``: how a step is
+    captured."""
 
     devices = ("cuda",)
     capture = StepGraph
@@ -85,51 +101,54 @@ class StepGraphs:
     def __init__(self):
         self.graphs = {}       # kind -> its one live graph
         self.seen = {}         # kind -> its last key run without a graph
-        self.replays = 0
+        self.replays = collections.Counter()
 
-    def key(self, idx, params, ds, window, *settings):
-        """What a captured step on the index buffer ``idx`` bakes in: the
-        index shape, the grad mode, ``settings`` (the loop's own: the
-        fleet's ``remat``, an experiment's ``compute_dtype``), the storage
-        of every parameter in ``params`` and of the dataset's tensors, and
-        ``window``, what it bakes in of the windows. None where the step
+    def key(self, inputs, params, window, *settings):
+        """What a step captured on the static ``inputs`` bakes in: their
+        shapes and dtypes, the grad mode, ``settings`` (the loop's own: the
+        fleet's ``remat``, an experiment's ``compute_dtype``, the layouts
+        of the dataset a step gathers from), the storage of every parameter
+        in ``params``, and ``window``, what it bakes in of the loop's
+        windows or of a rollout window's host integers. None where the step
         runs eagerly: off ``devices``, or on windows that cannot be
         captured (``window`` None)."""
-        if window is None or idx.device.type not in self.devices:
+        if window is None or inputs[0].device.type not in self.devices:
             return None
-        data = [t for t in vars(ds).values() if isinstance(t, torch.Tensor)]
-        return (tuple(idx.shape), torch.is_grad_enabled(), *settings,
-                layouts(params), layouts(data), window)
+        return (tuple((t.shape, t.dtype) for t in inputs),
+                torch.is_grad_enabled(), *settings, layouts(params), window)
 
-    def run(self, kind, key, body, idx, keep, spans=()):
-        """``body(idx)``, a step of this ``kind`` under ``key``: eagerly
-        without a key and on a key's first use, its warm-up; the second
-        use captures ``body`` on ``idx`` (the tensors it reads, ``keep``)
-        and replays it, and every later one replays. A kind keeps one
-        graph: another key frees the old one. A replay opens ``spans``,
-        those the eager body opens one after another, empty but for
-        ``step.forward``, which holds the replay's ``step.replay`` (bare
-        where ``spans`` has no forward)."""
+    def run(self, kind, key, body, inputs, keep, spans=(),
+            replay="step.replay"):
+        """``body(*inputs)``, a step of this ``kind`` under ``key``:
+        eagerly without a key and on a key's first use, its warm-up; the
+        second use captures ``body`` on static copies of ``inputs`` (the
+        other tensors it reads, ``keep``) and replays it, and every later
+        one replays. A kind keeps one graph: another key frees the old one
+        when it is first used, a key of None leaves it in place. A replay
+        opens ``spans``, those the eager body opens one after another,
+        empty but for ``step.forward``, which holds the replay's span
+        ``replay`` (bare where ``spans`` has no forward)."""
+        if key is None:
+            return body(*inputs)
         graph = self.graphs.get(kind)
         if graph is not None and graph.key != key:
             del self.graphs[kind]
             graph = None
-        if graph is None and key is not None:
-            if self.seen.get(kind) == key:
-                graph = self.graphs[kind] = self.capture(key, body, idx, keep)
-            self.seen[kind] = key
         if graph is None:
-            return body(idx)
+            if self.seen.get(kind) != key:
+                self.seen[kind] = key
+                return body(*inputs)
+            graph = self.graphs[kind] = self.capture(key, body, inputs, keep)
+        self.replays[kind] += 1
         if "step.forward" not in spans:
-            return self.replay(graph, idx)
+            return self.replay(graph, inputs, replay)
         for name in spans:
             with span(name):
                 if name == "step.forward":
-                    out = self.replay(graph, idx)
+                    out = self.replay(graph, inputs, replay)
         return out
 
-    def replay(self, graph, idx):
-        """``graph``'s step on the batch ``idx``, counted."""
-        with span("step.replay"):
-            self.replays += 1
-            return graph.replay(idx)
+    def replay(self, graph, inputs, name):
+        """``graph``'s step on ``inputs``, in the span ``name``."""
+        with span(name):
+            return graph.replay(inputs)

@@ -20,13 +20,16 @@ reductions and pointwise ops in fp32 where JAX runs them in bf16. Only
 through ``torch.func.functional_call``), so that a seed fleet can vmap it
 over stacked per-seed parameters (parallel/fleet.py).
 
-On the card a training step (the batch gather, the loss and its backward)
-and a validation step (the gather and the loss) are each captured once as
-a CUDA graph and replayed for every later step that bakes in the same
-inputs: train/graphs.py's step runner, which the seed fleet shares, under
-``_Experiment._key``; each model's ``_window_key`` says what a step bakes
-in of its windows. Adam stays eager after the replay. The CPU and a mesh
-run eagerly.
+On the card a training step (the batch gather, the loss and its backward),
+a validation step (the gather and the loss) and a rollout window (the
+model's forward on the fed-back state) are each captured once as a CUDA
+graph and replayed for every later one that bakes in the same inputs:
+train/graphs.py's step runner, which the seed fleet shares, under
+``_Experiment._key`` and ``_Experiment._roll_key``; each model's
+``_window_key`` says what a step bakes in of its windows, and its
+``rollout`` what a window bakes in of its host integers. Adam stays eager
+after the replay, and so do the rollout's feedback, energies and metrics.
+The CPU and a mesh run eagerly.
 
 ``_Experiment.test_rollout`` is the one test evaluation of both N-body
 models: each gives its batches with their rollout length and truth frames,
@@ -53,7 +56,7 @@ from ..data.nbody import NBodyDataset
 from ..models.egno import EGNO
 from ..models.segno import SEGNO
 from ..utils.profiling import span
-from .graphs import StepGraphs, layouts
+from .graphs import StepGraphs, data_layouts, layouts
 from .metrics import conserved_energy, pearson_correlation_batch
 
 
@@ -139,7 +142,7 @@ class _Experiment:
     summed over the world.
 
     ``replays``: the steps (training and validation) that replayed a
-    captured graph."""
+    captured graph; ``rollout_replays``: the rollout windows that did."""
 
     def __init__(self, model, lr: float, weight_decay: float,
                  compute_dtype: torch.dtype | None = None):
@@ -153,7 +156,11 @@ class _Experiment:
 
     @property
     def replays(self) -> int:
-        return self._steps.replays
+        return self._steps.replays["train"] + self._steps.replays["eval"]
+
+    @property
+    def rollout_replays(self) -> int:
+        return self._steps.replays["rollout"]
 
     @functools.cached_property
     def optimizer(self) -> torch.optim.Adam:
@@ -231,9 +238,30 @@ class _Experiment:
         card, and with a mesh (its gradient and loss sums stay eager)."""
         if self.mesh is not None:
             return None
-        return self._steps.key(idx, self.model.parameters(), ds,
+        return self._steps.key((idx,), self.model.parameters(),
                                self._window_key(windows, b, idx),
+                               self.compute_dtype, data_layouts(ds))
+
+    def _roll_key(self, inputs, window):
+        """What a captured rollout window on ``inputs`` bakes in
+        (``StepGraphs.key``: their shapes, the parameters' storage, with
+        ``compute_dtype``), ``window`` what its body bakes in besides. None
+        where the window runs eagerly: off the card, on ``window`` None,
+        and with a mesh (its gathers). A rollout takes it once: the
+        shapes and the parameters hold over its windows."""
+        if self.mesh is not None:
+            return None
+        return self._steps.key(inputs, self.model.parameters(), window,
                                self.compute_dtype)
+
+    def _roll(self, body, inputs, key):
+        """``body(*inputs)``, one fed-back window of a rollout: the step
+        runner's ``rollout`` step under ``key`` (``_roll_key``), which on
+        the card replays a graph of it with ``inputs`` copied in (span
+        ``rollout.replay``); eager under None, the live graph left in
+        place."""
+        return self._steps.run("rollout", key, body, inputs, (),
+                               replay="rollout.replay")
 
     def train_epoch(self, ds: NBodyDataset, windows, perm):
         """One Adam step per row of ``perm`` [NB, B] on ``windows``. Returns
@@ -253,7 +281,7 @@ class _Experiment:
                 return loss.detach(), per_frame[-1].detach()
 
             out = self._steps.run("train", self._key(ds, windows, b, idx),
-                                  step, idx, (ds, windows),
+                                  step, (idx,), (ds, windows),
                                   ("step.batch", "step.forward",
                                    "step.backward"))
             self._optimizer_step()
@@ -275,7 +303,7 @@ class _Experiment:
                 return loss, per_frame[-1]
 
             out = self._steps.run("eval", self._key(ds, windows, b, idx),
-                                  step, idx, (ds, windows))
+                                  step, (idx,), (ds, windows))
             losses.append(out[0])
             last.append(out[1])
         return self._summed(torch.stack(losses), torch.stack(last))
@@ -422,7 +450,23 @@ class EGNOExperiment(_Experiment):
                 cut(w, 0, 1), cut(loc_out, 0, 2), cut(t_in, 0), cut(t_out, 0))
 
     def _forward(self, loc_in, vel_in, charges, w, t_in, t_out,
-                 params=None):
+                 params=None, key=None):
+        """(x, v, h) [T, B, N, .], the frames the model decodes from a
+        batch's inputs, on ``params`` (None: its own). ``key``: a rollout
+        window's (``_Experiment._roll_key``), under which the step runner
+        replays a graph of the frames; its x and v are fresh tensors, its
+        h None."""
+        if key is not None:
+            x, v = self._roll(self._rolled_frames, (
+                loc_in, vel_in, charges, w, t_in, t_out), key)
+            return x, v, None
+        return self._frames(loc_in, vel_in, charges, w, t_in, t_out, params)
+
+    def _rolled_frames(self, *inputs):
+        """A rollout window's body: x and v of ``_frames``."""
+        return self._frames(*inputs)[:2]
+
+    def _frames(self, loc_in, vel_in, charges, w, t_in, t_out, params=None):
         rows = self._rows(loc_in.shape[2])
         if self.model.num_inputs > 1:
             loc = loc_in.transpose(0, 1)                   # [L, B, N, 3]
@@ -474,13 +518,16 @@ class EGNOExperiment(_Experiment):
         # feedback frames at timesteps_in - 1 (negative => from the end)
         fb = (t_in.to(torch.int64) - 1) % t_model          # [B, L]
         rows = torch.arange(fb.shape[0], device=fb.device)[:, None]
+        key = self._roll_key((loc, vel, charges, w, t_in,
+                              t_out_all[:, :t_model]), ())
         xs, vs = [], []
         for i in range(traj_len):
             with span("rollout.window"):
                 # per-window output timesteps, shifted back by i*T
                 t_out = (t_out_all[:, i * t_model:(i + 1) * t_model]
                          - i * t_model)
-                x, v, _ = self._forward(loc, vel, charges, w, t_in, t_out)
+                x, v, _ = self._forward(loc, vel, charges, w, t_in, t_out,
+                                        key=key)
                 xs.append(x)
                 vs.append(v)
                 loc, vel = x[fb, rows], v[fb, rows]        # [B, L, N, 3]
@@ -649,18 +696,32 @@ class SEGNOExperiment(_Experiment):
         loc, vel, charges, w, loc_end, in_steps = self.shard(batch)
         rows = self._rows(loc_end.shape[1])
         t = self.num_timesteps
+
+        def window(loc, vel, charges, w):
+            """A window's (x, v), at the window's ``in_steps``."""
+            his, edge_attr = self._features(loc, vel, charges, w, rows)
+            x, _, v = self.model(his, loc, vel, edge_attr, T=t,
+                                 in_steps=in_steps, rows=rows)
+            return x, v
+
+        key = None               # the windows' at the in_steps' fixed point
         xs, vs = [], []
         for _ in range(traj_len):
             with span("rollout.window"):
-                his, edge_attr = self._features(loc, vel, charges, w, rows)
-                x, _, v = self.model(his, loc, vel, edge_attr, T=t,
-                                     in_steps=in_steps, rows=rows)
+                shifted = in_steps and tuple(
+                    s - t for s in (*in_steps[1:], t))
+                fixed = shifted == in_steps
+                inputs = (loc, vel, charges, w)
+                if fixed and key is None:
+                    key = self._roll_key(inputs, (t, in_steps))
+                # windows before the fixed point run eagerly
+                x, v = self._roll(window, inputs, key if fixed else None)
                 xs.append(x)
                 vs.append(v)
                 if in_steps:
                     loc = torch.cat([loc[1:], x[None]])
                     vel = torch.cat([vel[1:], v[None]])
-                    in_steps = tuple(s - t for s in (*in_steps[1:], t))
+                    in_steps = shifted
                 else:
                     loc, vel = x, v
         with span("rollout.energy"):

@@ -5,6 +5,7 @@ sweep phase's schedule, the instruments it puts around a driver run (the
 PhaseTimer breakdown, the integrator-step count), the mocap run case it
 writes, the mocap path's launch count and the kernels line."""
 
+import contextlib
 import json
 import pickle
 from pathlib import Path
@@ -334,6 +335,40 @@ def test_counted_integrator_steps_are_the_launches_path_launches_reckons(
     from nonode_tpu_torch.models.segno import SEGNO
     assert SEGNO.integrate.__name__ == "integrate" and \
         SEGNO.__dict__["integrate"].__qualname__ == "SEGNO.integrate"
+
+
+def test_counted_integrator_steps_count_a_replay_as_its_capture(
+        tmp_path, monkeypatch):
+    """A graphed rollout (StepGraph on the CPU, its capture running the
+    body once and its replays launching nothing, as on the card) counts
+    each replay the steps its capture ran, and the capture's own not:
+    the eager rollout's counts, on SEGNO with two inputs and varDT, whose
+    windows before the ``in_steps`` fixed point run eagerly."""
+    from nonode_tpu_torch.models.segno import SEGNO
+    from nonode_tpu_torch.train.graphs import StepGraph
+    from test_torch_rollout_graphs import _setup
+
+    class Replayed:
+        def replay(self):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Replayed)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda g: contextlib.nullcontext())
+    write_charged_split(tmp_path, "test", seed=3, s=16, f=70)
+    counts = []
+    for graphed in (False, True):
+        exp, _, ds = _setup("segno-multi", tmp_path, False)
+        if graphed:
+            exp._steps.devices = ("cpu",)
+        with chip_smoke.counted_integrator_steps() as steps:
+            exp.test_rollout(ds, 8, np.random.RandomState(7))
+        counts.append((steps, exp.rollout_replays))
+    (eager, none), (graphed, replays) = counts
+    assert none == 0 and replays > 2 and graphed == eager
+    assert eager["not recorded"] > 0 and eager["recorded"] == 0
+    assert SEGNO.__dict__["integrate"].__qualname__ == "SEGNO.integrate"
+    assert StepGraph.__dict__["replay"].__qualname__ == "StepGraph.replay"
 
 
 def test_written_skeleton_is_cmus_31_bone_tree(tmp_path):

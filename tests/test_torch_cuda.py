@@ -966,8 +966,9 @@ def test_graphed_fleet_main_gives_the_eager_runs_records(dev, model,
     """``fleet_main`` of five seeds for 2 epochs on the committed charged-5
     splits, graphed and eagerly: the same records (validation and test
     losses) and the same checkpoints, bit for bit; the graphed run
-    replayed 21 of its 22 training steps (the first warms up) and 6 of
-    its 7 validation batches."""
+    replayed 21 of its 22 training steps (the first warms up), 6 of its 7
+    validation batches and 69 of the 70 test rollout windows of its five
+    seeds (7 batches of 2 windows each; one capture serves every seed)."""
     from nonode_tpu_torch import fleet_main
     from nonode_tpu_torch.train.graphs import StepGraphs
 
@@ -975,9 +976,9 @@ def test_graphed_fleet_main_gives_the_eager_runs_records(dev, model,
     replayed = []
     replay = StepGraphs.replay
 
-    def counted(self, graph, idx):
-        replayed.append(idx.shape)
-        return replay(self, graph, idx)
+    def counted(self, graph, inputs, name):
+        replayed.append(name)
+        return replay(self, graph, inputs, name)
 
     monkeypatch.setattr(StepGraphs, "replay", counted)
 
@@ -987,11 +988,13 @@ def test_graphed_fleet_main_gives_the_eager_runs_records(dev, model,
             "--epochs", "2", "--test_interval", "1", "--traj_len", "2",
             "--data_dir", str(data), "--outf", str(out)]))
 
+    rolled = len(FLEET_SEEDS) * 7 * 2 - 1
     got = run(tmp_path / "graphed")
-    assert len(replayed) == 27
+    assert replayed.count("step.replay") == 27
+    assert replayed.count("rollout.replay") == rolled
     monkeypatch.setattr(StepGraphs, "devices", ())
     want = run(tmp_path / "eager")
-    assert len(replayed) == 27
+    assert len(replayed) == 27 + rolled
     np.testing.assert_equal(got, want)
     ckpts = sorted((tmp_path / "graphed" / "0exp_fleet").glob("*.ckpt"))
     assert len(ckpts) == len(FLEET_SEEDS)
@@ -1088,6 +1091,92 @@ def test_graphed_per_seed_step_gives_the_eager_steps_bits(dev, case,
         assert set(st) == set(ref), name
         for key in ("exp_avg", "exp_avg_sq"):
             assert torch.equal(st[key], ref[key]), (name, key)
+
+
+def _rollout_run(dev, case, graphed):
+    """Two ``test_rollout`` calls (the first a key's warm-up, its capture
+    and replays, the second replays) of seed 1's experiment as ``main``
+    builds it (``egno``, ``segno``, and each with 3 inputs and varDT,
+    ``-multi``) on the committed charged-5 test split (7 batches of 256,
+    20 fed-back windows each); graphed, or eager (the loop's
+    ``StepGraphs.devices`` emptied). ``exp.rollout`` and a window's call
+    (EGNO's ``exp._forward``, SEGNO's ``exp._roll``) are wrapped as
+    h100_bench's rollout mix wraps them, their first two outputs kept by
+    reference. Returns (the calls' results, every window's x and v, the
+    frames and energies of each batch, the windows (counted from 0 in the
+    process) at which a capture was taken, the launches and tile launches
+    of #1 that the calls counted)."""
+    from nonode_tpu_torch.data.nbody import NBodyDataset
+    from nonode_tpu_torch.main import build_experiment, get_args
+    from nonode_tpu_torch.runtime import seed_everything
+
+    model, _, multi = case.partition("-")
+    args = get_args(["--model", model] + (
+        ["--num_inputs", "3", "--varDT", "true"] if multi else []))
+    exp = build_experiment(args, dev, seed_everything(1))
+    kw = dict(num_timesteps=args.num_timesteps, num_inputs=args.num_inputs,
+              device=dev)
+    if model == "egno":
+        kw.update(varDT=bool(args.varDT and args.num_inputs > 1), dT=args.dT)
+    data = Path(__file__).resolve().parents[1] / "data"
+    ds = NBodyDataset(data, partition="test", traj_len=args.traj_len, **kw)
+    if not graphed:
+        exp._steps.devices = ()
+    windows, rolled, captures = [], [], []
+    capture = exp._steps.capture
+
+    def captured(*a):
+        captures.append(len(windows))
+        return capture(*a)
+
+    def kept(fn, into):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            into.append(out[:2])
+            return out
+        return run
+
+    exp._steps.capture = captured
+    name = "_forward" if model == "egno" else "_roll"
+    setattr(exp, name, kept(getattr(exp, name), windows))
+    exp.rollout = kept(exp.rollout, rolled)
+    counters = [(egnn_fused.pairwise_message, name)
+                for name in ("launches", "tile_launches")]
+    before = [getattr(f, name) for f, name in counters]
+    calls = [exp.test_rollout(ds, args.batch_size, np.random.RandomState(7))
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = [getattr(f, name) - b for (f, name), b in zip(counters,
+                                                              before)]
+    return calls, windows, rolled, captures, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["egno", "egno-multi", "segno",
+                                  "segno-multi"])
+def test_graphed_rollout_gives_the_eager_rollouts_bits(dev, case):
+    """The test rollout's windows as CUDA graphs against the same rollout
+    run eagerly: every window's x and v (EGNO's as the benchmark's mix
+    keeps them, one ``_forward`` call a window), each batch's frames and
+    energies, and both calls' losses, steps and artifacts hold the same
+    bits, and #1's launches and tile launches read the same totals (a
+    replay counts what its capture recorded). One capture in the process,
+    at its second window (SEGNO with 3 inputs: the second at the
+    ``in_steps`` fixed point, after two windows before it), none after."""
+    got = _rollout_run(dev, case, True)
+    want = _rollout_run(dev, case, False)
+    (gcalls, gwin, groll, gcap, glaunch) = got
+    (wcalls, wwin, wroll, wcap, wlaunch) = want
+    assert gcap == [3 if case == "segno-multi" else 1] and wcap == []
+    assert len(gwin) == len(wwin) == 2 * 7 * 20
+    assert len(groll) == len(wroll) == 2 * 7
+    assert glaunch == wlaunch, (glaunch, wlaunch)
+    bits = lambda t: t.view(torch.int32)                        # noqa: E731
+    for a, w in zip(gwin + groll, wwin + wroll):
+        # NaN where a rollout at initial weights diverged: equal bits
+        assert torch.equal(bits(a[0]), bits(w[0]))
+        assert torch.equal(bits(a[1]), bits(w[1]))
+    np.testing.assert_equal(gcalls, wcalls)
 
 
 def _charged_state(n, dev, seed=0):

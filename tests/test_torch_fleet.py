@@ -551,20 +551,22 @@ def test_remat_gives_the_same_steps(tiny_data):
 
 def _stub_capture(fleet):
     """Capture and replay on the CPU: the stub keeps the captured step
-    without running it, and each replay runs it on the static index
-    buffer, as a CUDA graph replays the kernels its capture recorded.
+    without running it, and each replay runs it on the static input
+    buffers, as a CUDA graph replays the kernels its capture recorded.
     Returns the list of the keys captured."""
     captured = []
 
     class CpuGraph:
-        def __init__(self, key, body, idx, keep):
+        def __init__(self, key, body, inputs, keep):
             captured.append(key)
             self.key, self.body = key, body
-            self.idx = torch.empty(idx.shape, dtype=idx.dtype)
+            self.inputs = tuple(torch.empty(t.shape, dtype=t.dtype)
+                                for t in inputs)
 
-        def replay(self, idx):
-            self.idx.copy_(idx)
-            return tuple(o.clone() for o in self.body(self.idx))
+        def replay(self, inputs):
+            for buf, t in zip(self.inputs, inputs):
+                buf.copy_(t)
+            return tuple(o.clone() for o in self.body(*self.inputs))
 
     fleet._steps.devices = ("cpu",)
     fleet._steps.capture = CpuGraph
